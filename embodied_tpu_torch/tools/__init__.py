@@ -1,0 +1,1 @@
+"""Tools that measure the port on the card."""
