@@ -12,11 +12,21 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            beside the plain version and its bound on the card: `ms` is
            device time (profiler), `call_ms` the CUDA-event time of a
            whole wrapper call (host launch cost included when it
-           dominates), `ms_cold` the same with the L2 flushed first.
+           dominates), `ms_cold` the same with the L2 flushed first. The
+           window and rollout kernels are held against the plain version
+           replaying their own samples, their samples against the plain
+           draw from the same noise, and the window's backward against
+           autograd of the plain replay in float32.
   slice    the acting path of size12m on dummy_disc with 16 envs, through
            make_agent -> init_policy -> Driver(agent.policy), in train and
            eval mode. The launch counts show that it ran on the kernels;
            its outputs are checked against the plain path on the card.
+  train    the train step of size12m: a 16 x 65 batch collected by the
+           acting path, then Agent.train for a few warm-up and 20 timed
+           steps on dummy_disc (each launching the window's forward and
+           backward kernels and the rollout kernel once), the first step's
+           losses against the plain path (kernel: off), and a profile of
+           two steps; then a short dummy_cont run (bounded normal head).
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
@@ -24,6 +34,7 @@ The script imports nothing of JAX or of the JAX package.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -36,9 +47,34 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 SEED = 0
+DEV = 'cuda'
 ENVS = 16
 WARMUP = 10  # policy calls left out of the per-call times (set-up, cuDNN)
 TOL = 3e-2  # |kernel - plain| <= TOL + TOL |plain|: bf16 rounds elsewhere.
+# The window backward's gradients against autograd of the plain replay in
+# float32, as ||kernel - plain|| / ||plain|| per tensor: the kernel rounds
+# its operands to bf16 (about 2^-9 relative each) and the weight gradients
+# sum 1,024 rows, which averages the rounding down. Sound kernels read
+# 0.0017 to 0.0049 at size12m; a weight gradient that leaves out the rows
+# of one step of 64 reads far above this limit.
+GRAD_RTOL = 1e-2
+# Share of categorical samples that must equal the plain draw from the
+# same logits and noise: a near-tie can round the other way in bf16.
+SAMPLE_AGREEMENT = 0.99
+# size12m's train step: a window of 64 steps of 16 sequences, and the
+# rollout of 15 steps from all 16 x 64 of its states.
+WINDOW = 64
+IMAG_LENGTH = 15
+IMAG_STARTS = 16 * 64
+CLASSES = 16
+UNIMIX = 0.01
+MINSTD, MAXSTD = 0.1, 1.0
+# Per-key losses of the first train step through the kernels against the
+# same step on the plain path (kernel: off), same store, batch and noise,
+# as |kernel - plain| <= LOSS_RTOL (1 + |plain|): bf16 rounds elsewhere,
+# and a near-tie sample that flips moves the rest of its sequence. Sound
+# kernels read within 0.05%.
+LOSS_RTOL = 5e-3
 
 
 def emit(**fields):
@@ -67,12 +103,26 @@ def phase_device(torch):
        cudnn_allow_tf32=False)
 
 
+SOURCES = dict(  # kernel: (its source, the TPU kernel it replaces)
+    core_step=('embodied_tpu_torch/csrc/blockgru.cu',
+               'embodied_tpu/ops/blockgru.py:126'),
+    obs_step=('embodied_tpu_torch/csrc/observe.cu',
+              'embodied_tpu/ops/observe.py:99'),
+    observe_seq=('embodied_tpu_torch/csrc/observe_seq.cu',
+                 'embodied_tpu/ops/observe_seq.py:225'),
+    observe_seq_bwd=('embodied_tpu_torch/csrc/observe_seq.cu',
+                     'embodied_tpu/ops/observe_seq.py:437'),
+    imagine_seq=('embodied_tpu_torch/csrc/imagine_seq.cu',
+                 'embodied_tpu/ops/imagine_seq.py:196'))
+LIBRARIES = ('blockgru', 'observe', 'observe_seq', 'imagine_seq')
+
+
 def phase_build():
   from embodied_tpu_torch.ops import build
   start = time.perf_counter()
-  seconds = build.build(['blockgru', 'observe'])
+  seconds = build.build(LIBRARIES)
   regs = {}
-  for name in ('blockgru', 'observe'):
+  for name in LIBRARIES:
     log = build.target(name).with_suffix('.so.log')
     if log.exists():
       regs[name] = [line.strip() for line in log.read_text().splitlines()
@@ -81,12 +131,10 @@ def phase_build():
        per_source=seconds, ptxas=regs)
 
 
-def size12m_params(torch, gen, D=2048, H=256, S=512, g=8, K=2304, L=512):
-  """Core and posterior weights of size12m from a seed, in the FIELDS
-  order: matrices with std 1/sqrt(fan_in), small biases, unit-ish norm
-  scales; bf16 except the float32 scales."""
-  dg = D // g
-  dev = 'cuda'
+def makers(torch, gen, dev=None):
+  """Weight makers from `gen`: matrices with std 1/sqrt(fan_in) and small
+  biases in bf16, unit-ish norm scales in float32."""
+  dev = dev or DEV
 
   def mat(*shape):
     fan = shape[-2]
@@ -100,6 +148,14 @@ def size12m_params(torch, gen, D=2048, H=256, S=512, g=8, K=2304, L=512):
   def norm(n):
     return 1 + 0.1 * torch.randn((n,), generator=gen, device=dev)
 
+  return mat, vec, norm
+
+
+def size12m_params(torch, gen, D=2048, H=256, S=512, g=8, K=2304, L=512):
+  """Core and posterior weights of size12m from a seed, in the FIELDS
+  order."""
+  dg = D // g
+  mat, vec, norm = makers(torch, gen)
   core = (mat(D, H), vec(H), norm(H), mat(S, H), vec(H), norm(H),
           mat(g, dg, dg), vec(D), mat(3 * H, D), norm(D),
           mat(g, dg, 3 * dg), vec(3 * D))
@@ -108,7 +164,7 @@ def size12m_params(torch, gen, D=2048, H=256, S=512, g=8, K=2304, L=512):
 
 
 def step_inputs(torch, gen, B, D=2048, H=256, S=32, C=16, K=2304):
-  dev = 'cuda'
+  dev = DEV
   deter = torch.tanh(torch.randn((B, D), generator=gen, device=dev))
   index = torch.randint(0, C, (B, S), generator=gen, device=dev)
   stoch = torch.nn.functional.one_hot(index, C).reshape(B, S * C)
@@ -175,9 +231,9 @@ def bound(nbytes, flops):
 
 def phase_kernels(torch):
   from embodied_tpu_torch.ops import blockgru, observe
-  gen = torch.Generator('cuda').manual_seed(SEED)
+  gen = torch.Generator(DEV).manual_seed(SEED)
   core, head = size12m_params(torch, gen)
-  flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device='cuda')
+  flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=DEV)
   results = []
   cases = [('core_step', 16), ('core_step', 1024), ('obs_step', 16)]
   for name, B in cases:
@@ -213,8 +269,183 @@ def phase_kernels(torch):
     if not ok:
       fail('kernels', f'{name} at B={B} disagrees with its plain version: '
                       f'max abs err {err}')
+  results += window_kernels(torch, gen, core + head, flush)
+  for disc in (True, False):
+    results.append(rollout_kernel(torch, gen, core, disc, flush))
   emit(phase='kernels', ok=True)
   return results
+
+
+def timings(torch, kernel, plain, flush, nbytes, flops):
+  bound_ms, bound_by = bound(nbytes, flops)
+  return dict(ms=device_ms(torch, kernel, iters=5),
+              plain_ms=device_ms(torch, plain, iters=5),
+              call_ms=cuda_ms(torch, kernel, warmup=2, iters=10),
+              plain_call_ms=cuda_ms(torch, plain, warmup=2, iters=10),
+              ms_cold=cuda_ms(torch, kernel, warmup=1, iters=5, flush=flush),
+              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+
+
+def relerr(got, want):
+  got, want = got.float(), want.float()
+  return float((got - want).norm() / want.norm().clamp(min=1e-12))
+
+
+def agreement(onehot, logit, gumbel):
+  """Share of (row, group) samples of the kernel that equal the plain
+  draw from the plain logits of the same step, with the same noise."""
+  from embodied_tpu_torch.ops import observe_seq
+  drawn = observe_seq.gumbel_max(
+      observe_seq.group_probs(logit, CLASSES, UNIMIX), gumbel)
+  hard = onehot.float().reshape(drawn.shape)
+  return float((drawn.argmax(-1) == hard.argmax(-1)).float().mean())
+
+
+def check_row(name, row, problems):
+  row['ok'] = not problems
+  emit(phase='kernel', name=name, **row)
+  if problems:
+    fail('kernels', f'{name}: ' + '; '.join(problems))
+  return dict(row, name=name)
+
+
+def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
+                   H=256, S=32, K=2304):
+  """The observe window's forward and backward kernels at a train step's
+  shapes, against the plain version replaying the kernel's samples."""
+  from embodied_tpu_torch.nn import dists
+  from embodied_tpu_torch.ops import observe_seq as ops
+  C, L = CLASSES, S * CLASSES
+  deter0, stoch0, _, _ = step_inputs(torch, gen, B, D, H, S, C, K)
+  bf = lambda x: x.to(torch.bfloat16).contiguous()
+  acts = bf(torch.nn.functional.silu(
+      torch.randn((T, B, H), generator=gen, device=DEV)))
+  toks = bf(torch.randn((T, B, K), generator=gen, device=DEV))
+  keep = torch.ones((T, B), device=DEV)
+  keep[T // 2, ::4] = 0  # episodes that start inside the window
+  gum = dists.gumbel((T, B, L), gen, DEV)
+  ins = (deter0, stoch0, acts, toks, keep)
+  with torch.no_grad():
+    dseq, sseq, lseq = ops.observe_seq(*ins, gum, params, C, UNIMIX)
+    torch.cuda.synchronize()
+    rd, rs, rl = ops.reference_observe_seq(*ins, params, C, UNIMIX,
+                                           hard=sseq)
+  errs = [compare(torch, a, b) for a, b in ((dseq, rd), (lseq, rl))]
+  share = agreement(sseq, rl, gum)
+  problems = []
+  if not all(ok for _, ok in errs):
+    problems.append(f'outputs off the replay: {errs}')
+  if share < SAMPLE_AGREEMENT:
+    problems.append(f'samples agree for {share:.4f} of the groups')
+  kernel = lambda: ops.observe_seq(*ins, gum, params, C, UNIMIX)
+  plain = lambda: ops.reference_observe_seq(*ins, params, C, UNIMIX,
+                                            gumbel=gum)
+  dims = (T, B, D, H, L, H, K, 8)
+  with torch.no_grad():
+    fwd = dict(batch=B, steps=T, max_abs_err=max(e for e, _ in errs),
+               tol=TOL, sample_agreement=share, min_agreement=SAMPLE_AGREEMENT,
+               **timings(torch, kernel, plain, flush, *ops.work(*dims)))
+  rows = [check_row('observe_seq', fwd, problems)]
+
+  # The backward, with random upstream gradients of all three outputs.
+  ups = [torch.randn(x.shape, generator=gen, device=DEV)
+         for x in (dseq, sseq, lseq)]
+  args = (deter0, stoch0, dseq, sseq, acts, toks, keep, params, *ups, C,
+          UNIMIX)
+  got = ops.observe_seq_bwd(*args)
+  f32 = lambda xs: [x.float() for x in xs]
+  want = ops.reference_observe_seq_bwd(
+      *f32([deter0, stoch0, sseq, acts, toks]), keep, f32(params), *ups, C,
+      UNIMIX)
+  names = ('deter0', 'stoch0', 'acts', 'toks') + ops.FIELDS
+  pairs = list(zip(names, [*got[:4], *got[4]], [*want[:4], *want[4]]))
+  rel = {n: relerr(a, b) for n, a, b in pairs}
+  err = max(float((a.float() - b.float()).abs().max()) for _, a, b in pairs)
+  problems = [f'{n} relative error {e:.4f} > {GRAD_RTOL}'
+              for n, e in rel.items() if not e <= GRAD_RTOL]
+  kernel = lambda: ops.observe_seq_bwd(*args)
+  ups_bf = [u.to(x.dtype) for u, x in zip(ups, (dseq, sseq, lseq))]
+  plain = lambda: ops.reference_observe_seq_bwd(
+      deter0, stoch0, sseq, acts, toks, keep, params, *ups_bf, C, UNIMIX)
+  bwd = dict(batch=B, steps=T, max_abs_err=err, relative_errors=rel,
+             rtol=GRAD_RTOL,
+             **timings(torch, kernel, plain, flush, *ops.work_bwd(*dims)))
+  rows.append(check_row('observe_seq_bwd', bwd, problems))
+  return rows
+
+
+def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
+                   B=IMAG_STARTS, D=2048, H=256, S=32, U=256, npol=3):
+  """The imagination rollout at a train step's shapes (15 steps from
+  16 x 64 starts) for a categorical (5 actions) or bounded normal (6)
+  head, against the plain version replaying the kernel's samples."""
+  from embodied_tpu_torch.nn import dists
+  from embodied_tpu_torch.ops import imagine_seq as ops
+  C, L = CLASSES, S * CLASSES
+  adim = 5 if disc else 6
+  mat, vec, norm = makers(torch, gen)
+  f32vec = lambda n: vec(n).float()
+  params = list(core) + [mat(D, H), vec(H), norm(H), mat(H, H), vec(H),
+                         norm(H), mat(H, L), vec(L), mat(adim, H), vec(H),
+                         norm(H)]
+  for i in range(npol):
+    params += [mat(D + L if i == 0 else U, U), vec(U), norm(U)]
+  for _ in range(1 if disc else 2):
+    params += [mat(U, adim), f32vec(adim)]
+  deter0, stoch0, _, _ = step_inputs(torch, gen, B, D, H, S, C)
+  gum = dists.gumbel((steps, B, L), gen, DEV)
+  noise = (dists.gumbel((steps, B, adim), gen, DEV) if disc else
+           torch.randn((steps, B, adim), generator=gen, device=DEV))
+  spec = (npol, disc, C, UNIMIX, MINSTD, MAXSTD)
+  with torch.no_grad():
+    dseq, sseq, lseq, aseq = ops.imagine_seq(
+        deter0, stoch0, gum, noise, params, *spec)
+    torch.cuda.synchronize()
+    rd, rs, rl, ra = ops.reference_imagine_seq(
+        deter0, stoch0, params, *spec, gumbel=gum, noise=noise, hard=sseq,
+        acts=aseq)
+    outs = [(dseq, rd), (lseq, rl)] + ([] if disc else [(aseq, ra)])
+    errs = [compare(torch, a, b) for a, b in outs]
+    share = agreement(sseq, rl, gum)
+    # The same replay in float32 (the bf16 weights and inputs widened),
+    # which rounds nowhere: how far the kernel and the plain bf16 version
+    # each sit from it, on the logits.
+    wide = ops.reference_imagine_seq(
+        deter0.float(), stoch0.float(), [x.float() for x in params], *spec,
+        gumbel=gum, noise=noise, hard=sseq, acts=aseq)[2]
+    f32_replay = dict(
+        kernel=float((lseq - wide).abs().max()),
+        plain=float((rl - wide).abs().max()))
+    act_share = None  # a continuous head's actions are held by `errs`
+    if disc:
+      # The kernel's actions against the plain policy's draw from the
+      # kernel's own states entering each step.
+      prev = lambda x0, xs: torch.cat([x0[None], xs[:-1]]).reshape(
+          steps * B, -1)
+      p = dict(zip(ops.fields(npol, disc), params))
+      hard, _ = ops.policy_action(
+          p, prev(deter0, dseq), prev(stoch0, sseq),
+          noise.reshape(steps * B, adim), npol, disc, MINSTD, MAXSTD)
+      act_share = float((hard.argmax(-1) == aseq.reshape(
+          steps * B, adim).argmax(-1)).float().mean())
+  problems = []
+  if not all(ok for _, ok in errs):
+    problems.append(f'outputs off the replay: {errs}')
+  if share < SAMPLE_AGREEMENT:
+    problems.append(f'samples agree for {share:.4f} of the groups')
+  if act_share is not None and act_share < SAMPLE_AGREEMENT:
+    problems.append(f'actions agree for {act_share:.4f} of the rows')
+  kernel = lambda: ops.imagine_seq(deter0, stoch0, gum, noise, params, *spec)
+  plain = lambda: ops.reference_imagine_seq(
+      deter0, stoch0, params, *spec, gumbel=gum, noise=noise)
+  work = ops.work(steps, B, D, H, L, H, U, adim, npol, 8, disc)
+  with torch.no_grad():
+    row = dict(batch=B, steps=steps, head='categorical' if disc else
+               'bounded_normal', max_abs_err=max(e for e, _ in errs),
+               tol=TOL, sample_agreement=share, action_agreement=act_share,
+               min_agreement=SAMPLE_AGREEMENT, logit_err_vs_f32=f32_replay,
+               **timings(torch, kernel, plain, flush, *work))
+  return check_row('imagine_seq', row, problems)
 
 
 def drive(argv, calls, modes):
@@ -339,6 +570,195 @@ def phase_slice(torch, paths=SLICE_PATHS):
   return launches
 
 
+def collect_batch(agent, config):
+  """One (batch_size, batch_length + replay_context) train batch collected
+  by the acting path: a Driver over batch_size dummy envs with the agent's
+  policy, each env's steps in order as the replay stores them
+  (observation, action, the policy's latents), plus a `consec` of 0 (every
+  window starts fresh and grafts its stored latents) and unique stepids."""
+  import numpy as np
+  from embodied_tpu_torch import core
+  from embodied_tpu_torch.models import common
+  B = config.batch_size
+  T = config.batch_length + config.replay_context
+  driver = core.Driver(
+      [lambda i=i: common.make_env(config, i) for i in range(B)])
+  rows = [[] for _ in range(B)]
+  driver.on_step(lambda row, i, **kw: rows[i].append(row))
+  driver.reset(agent.init_policy)
+  driver(agent.policy, steps=B * T)
+  driver.close()
+  data = agent._example_batch(B, T)
+  filled = set()
+  for key in data:
+    if key in rows[0][0]:
+      data[key] = np.stack([np.stack([r[key] for r in env[:T]])
+                            for env in rows]).astype(data[key].dtype)
+      filled.add(key)
+  data['consec'][:] = 0
+  ids = np.arange(B * T, dtype=np.int64).reshape(B, T)
+  data['stepid'][..., :8] = ids[..., None].view(np.uint8).reshape(B, T, 8)
+  missing = sorted(set(data) - filled - {'consec', 'stepid'})
+  if missing:
+    fail('train', f'the acting path did not give {missing}')
+  return data
+
+
+TRAIN_PATHS = (
+    # (label, argv, warm-up steps, timed steps, check against kernel: off)
+    ('train size12m', ['--configs', 'size12m', '--task', 'dummy_disc'],
+     3, 20, True),
+    ('train size12m, dummy_cont',
+     ['--configs', 'size12m', '--task', 'dummy_cont'], 1, 2, False),
+)
+TRAIN_KERNELS = ('observe_seq', 'observe_seq_bwd', 'imagine_seq')
+TRAINED = ('enc', 'dyn', 'dec', 'rew', 'con', 'pol', 'val')
+# Every trained parameter must have moved by the end of this step (0-based):
+# the first step's learning rate is 0 (warm-up), and the reward and value
+# trunks get gradients only once their zero-initialised outputs have moved.
+CHANGED_AFTER = 2
+
+
+def train_wrappers():
+  from embodied_tpu_torch.ops import blockgru, imagine_seq, observe, observe_seq
+  return dict(core_step=blockgru.core_step, obs_step=observe.obs_step,
+              observe_seq=observe_seq.observe_seq,
+              observe_seq_bwd=observe_seq.observe_seq_bwd,
+              imagine_seq=imagine_seq.imagine_seq)
+
+
+def check_losses(kernel, plain):
+  """Per-key losses through the kernels against the plain path."""
+  keys = sorted(k for k in kernel if k.startswith('loss/'))
+  off = {k: abs(kernel[k] - plain[k]) for k in keys}
+  bad = [k for k in keys if not off[k] <= LOSS_RTOL * (1 + abs(plain[k]))]
+  return {k: (kernel[k], plain[k]) for k in keys}, bad
+
+
+def profile_train(torch, agent, carry, data, step_ms, steps=2):
+  """Device time of train steps from torch.profiler: busy time (the union
+  of kernel intervals), the port's kernels (namespaces seq:: and
+  blockgru::) and the largest other kernels. The idle share is taken
+  against `step_ms`, the step time without the profiler, whose own host
+  work lengthens the profiled steps."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(steps):
+      carry, _, _ = agent.train(carry, data)
+    torch.cuda.synchronize()
+  wall = (time.perf_counter() - start) * 1e3 / steps
+  spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  busy, end = 0.0, float('-inf')
+  for lo, hi, _ in spans:
+    if hi > end:
+      busy += hi - max(lo, end)
+      end = hi
+  by_name = {}
+  for lo, hi, name in spans:
+    by_name[name] = by_name.get(name, 0.0) + (hi - lo) / 1e3 / steps
+  port = sum(v for k, v in by_name.items() if 'seq::' in k or
+             'blockgru::' in k)
+  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+  return carry, dict(
+      profiled_ms_per_step=wall, busy_ms_per_step=busy / 1e3 / steps,
+      kernels_per_step=len(spans) / steps, port_kernels_ms=port,
+      idle_share=1 - busy / 1e3 / steps / step_ms,
+      top_kernels_ms=[(k[:120], v) for k, v in top])
+
+
+def phase_train(torch, paths=TRAIN_PATHS):
+  """Drives each train path: a batch from the acting path, then train
+  steps through Agent.train with the launch counts set to 0 just before
+  and read just after. Each step must launch each train kernel once, give
+  finite metrics, and (after the warm-up, whose first step has a zero
+  learning rate) have changed every trained parameter."""
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  wrappers = train_wrappers()
+  launches = {}
+  for label, argv, warmup, steps, against_plain in paths:
+    config = common.assemble_config(dmain.CONFIGS, argv)
+    agent = dmain.make_agent(config)
+    data = collect_batch(agent, config)
+    B, T = config.batch_size, config.batch_length
+    carry = agent.init_train(B)
+    before = agent.save()
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    problems, times, row = [], [], {}
+    for i in range(warmup + steps):
+      counts = {k: w.launches for k, w in wrappers.items()}
+      if i == warmup:
+        torch.cuda.reset_peak_memory_stats()
+      start = time.perf_counter()
+      carry, outs, mets = agent.train(carry, data)
+      times.append((time.perf_counter() - start) * 1e3)
+      step = {k: w.launches - counts[k] for k, w in wrappers.items()}
+      if any(step[k] != 1 for k in TRAIN_KERNELS):
+        problems.append(f'step {i} launched {step}')
+      bad = sorted(k for k, v in mets.items() if not math.isfinite(v))
+      if bad:
+        problems.append(f'step {i}: non-finite {bad[:5]}')
+      shapes = {k: v.shape[:2] for k, v in outs['replay'].items()}
+      if any(s != (B, T) for s in shapes.values()):
+        problems.append(f'replay entries of shapes {shapes}')
+      if i == 0:
+        row['first_losses'] = {k: v for k, v in mets.items()
+                               if k.startswith('loss/')}
+        if against_plain:
+          after = agent.save()
+          counts = {k: w.launches for k, w in wrappers.items()}
+          agent.load(before)
+          agent.model.dyn.kernel = 'off'
+          _, _, plain = agent.train(agent.init_train(B), data)
+          agent.model.dyn.kernel = 'auto'
+          agent.load(after)
+          if any(w.launches != counts[k] for k, w in wrappers.items()):
+            problems.append('the plain path launched a kernel')
+          row['losses_kernel_vs_plain'], bad = check_losses(mets, plain)
+          if bad:
+            problems.append(f'losses off the plain path: {bad}')
+      if i == CHANGED_AFTER:
+        now = agent.save()['store']
+        same = sorted(k for k, v in before['store'].items()
+                      if k.split('/')[0] in TRAINED and
+                      (v == now[k]).all())
+        # Where every KL sits at the free-nats floor, the prior gets no
+        # gradient (as in the JAX model); that is noted, not a fault.
+        floor = config.agent.dyn.rssm.free_nats
+        if row['first_losses']['loss/dyn'] <= floor:
+          row['prior_at_free_nats'] = [k for k in same
+                                       if k.startswith('dyn/prior')]
+          same = [k for k in same if not k.startswith('dyn/prior')]
+        if same:
+          problems.append(f'{len(same)} parameters unchanged: {same[:5]}')
+    counts = {k: w.launches for k, w in wrappers.items()}
+    launches[label] = counts
+    timed = times[warmup:]
+    ms = statistics.median(timed)
+    row.update(
+        path=label, argv=argv, batch=[B, T], launches=counts,
+        train_steps=len(times), first_step_ms=times[0],
+        ms_per_train_step=ms, ms_per_train_step_max=max(timed),
+        timed_steps=len(timed), train_frames_per_s=B * T / ms * 1e3,
+        peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+        metrics={k: mets[k] for k in sorted(mets)
+                 if k.startswith(('loss/', 'opt/'))})
+    if against_plain:
+      carry, row['profile'] = profile_train(torch, agent, carry, data, ms)
+    row['ok'] = not problems
+    emit(phase='train', **row)
+    if problems:
+      fail('train', '; '.join(problems))
+    del agent
+    torch.cuda.empty_cache()
+  return launches
+
+
 def main():
   try:
     import torch
@@ -360,16 +780,16 @@ def main():
   phase_build()
   rows = phase_kernels(torch)
   launches = phase_slice(torch)
-  sources = dict(
-      core_step=('embodied_tpu_torch/csrc/blockgru.cu',
-                 'embodied_tpu/ops/blockgru.py:126'),
-      obs_step=('embodied_tpu_torch/csrc/observe.cu',
-                'embodied_tpu/ops/observe.py:99'))
+  trained = phase_train(torch)
+  launches.update({k: trained[TRAIN_PATHS[0][0]][k] for k in TRAIN_KERNELS})
   kernels = []
   for row in rows:
-    if row['batch'] != ENVS:
-      continue  # The list holds the main path's shapes.
-    source, replaces = sources[row['name']]
+    # The list holds each kernel at its main path's shapes.
+    if row['name'] in ('core_step', 'obs_step') and row['batch'] != ENVS:
+      continue
+    if row.get('head', 'categorical') != 'categorical':
+      continue
+    source, replaces = SOURCES[row['name']]
     kernels.append(dict(
         name=row['name'], route='cuda', source=source,
         replaces=replaces, launches=launches[row['name']],

@@ -1,5 +1,6 @@
-// Stage kernels of the block-GRU core step, shared by blockgru.cu and
-// observe.cu.
+// Stage kernels of the block-GRU core step and the posterior head, shared
+// by every kernel of the port: blockgru.cu and observe.cu (one step), and
+// through seq_common.cuh observe_seq.cu and imagine_seq.cu (whole windows).
 //
 // Replaces the core of the Pallas TPU kernels embodied_tpu/ops/blockgru.py
 // (_kernel) and embodied_tpu/ops/observe.py (_obs_kernel). It computes the
@@ -9,28 +10,37 @@
 // each stage whose output goes through an RMS norm:
 //
 //   in_proj  pre = [deter @ w0 + b0, stoch @ w1 + b1]          (B, 2H) f32
-//   finish   xn = bf16(silu(rms(pre half) * s0 | s1))           (B, 2H) bf16
-//   hidden   hpre = blockdiag(deter, wblk) + bblk + [xn, act] @ win (B, D)
+//   finish   x[:, :2H] = bf16(silu(rms(pre half) * s0 | s1))
+//   hidden   hpre = blockdiag(deter, wblk) + bblk + x @ win     (B, D) f32
+//            (x = [xd, x0, act], the action in its last A columns)
 //   finish   h = bf16(silu(rms(hpre) * sh))                      (B, D) bf16
 //   gru      gates = blockdiag(h, wg) + bg, then
 //            deter' = u * tanh(r * c) + (1 - u) * deter          (B, D) bf16
 //
-// Bound on an H100: at acting batch (B = 16) the step reads each weight
-// byte once and does 2 B = 32 flops per bf16 weight (16 per byte), far
-// below the ~295 per byte the card needs to be bound by operations, so the
-// bound is bytes (weights over 3.35 TB/s). What the design does about it:
-// one block per 16 x 16 output tile reads its weight tile once per row
-// tile, with 16-byte loads, and every row of the tile reuses it from
-// shared memory. A matmul stage with few output tiles (the input
-// projection has 32 at B = 16, the posterior head 16) would leave most of
-// the 132 SMs idle while a few blocks walk K thousands deep, so the
-// contraction is split (split-K, grid z): every split writes its own f32
-// partial sums and the `finish` kernel adds them in a fixed order, so the
-// result does not depend on scheduling. The wrapper picks the split count
-// from the batch and the SM count (1 at large batch). Products run on the
-// FMA units in f32, not on the tensor cores, so at large batch (B = 1024,
-// bound by operations) the kernel is far from its bound. Tensor cores
-// (wgmma), TMA and one persistent launch are later work.
+// and for the posterior head (post_head):
+//
+//   post     preo = new @ wo[:D] + tok @ wo[D:] + bo                (B, H)
+//   finish   xo = bf16(silu(rms(preo) * so))
+//   logits   logit = xo @ wl + bl                   (B, L) bf16 or f32
+//
+// Bound on an H100: at acting batch (B = 16) a step reads each weight byte
+// once and does 2 B = 32 flops per bf16 weight (16 per byte), far below the
+// ~295 per byte the card needs to be bound by operations, so the bound is
+// bytes (weights over 3.35 TB/s). What the design does about it: one block
+// per 16 x 16 output tile reads its weight tile once per row tile, with
+// 16-byte loads, and every row of the tile reuses it from shared memory. A
+// matmul stage with few output tiles (the input projection has 32 at
+// B = 16, the posterior head 16) would leave most of the 132 SMs idle while
+// a few blocks walk K thousands deep, so the contraction is split (split-K,
+// grid z): every split writes its own f32 partial sums and the consumer
+// adds them in a fixed order, so the result does not depend on scheduling.
+// The split count follows the batch and the SM count (`splits`).
+//
+// From MMA_ROWS (128) rows on, operations bind (B = 1024: about 9 GFLOP per
+// core step against 18 MB), and a stage whose widths allow it runs on the
+// tensor cores instead (mma_kernel: mma.sync m16n8k16 tiles, no split).
+// The tiles stage through shared memory without TMA, double buffering or
+// wgmma; those, and one persistent launch, are later work.
 
 #pragma once
 
@@ -49,12 +59,56 @@ constexpr int THREADS = TM * TN;  // one output (row, column) per thread
 constexpr int FIN_THREADS = 256;  // threads of a finish block (one row)
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
 __device__ __forceinline__ float silu(float x) { return x * sigmoid(x); }
+
+// Sum of `v` over the block (FIN_THREADS threads); every thread gets it.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < FIN_THREADS / 32; ++i) total += red[i];
+  return total;
+}
+
+// Bump allocator over one device workspace. With base == nullptr it only
+// counts, so the size query and the launch carve the same layout.
+struct Arena {
+  char* base;
+  size_t used;
+  template <class T>
+  T* take(size_t n) {
+    const size_t at = (used + 255) & ~size_t(255);
+    used = at + n * sizeof(T);
+    return base ? reinterpret_cast<T*>(base + at) : nullptr;
+  }
+};
+
+// Enough 16 x 16 tiles times parts for two blocks per SM, and at least one
+// 128-deep chunk per part; 1 when the batch alone gives enough tiles.
+inline int splits(int cols, int B, int K, int sms) {
+  const int tiles = (cols / TN) * ((B + TM - 1) / TM);
+  const int want = (2 * sms + tiles - 1) / tiles;
+  const int most = (K + KC - 1) / KC;
+  return want < most ? (want > 1 ? want : 1) : (most > 1 ? most : 1);
+}
+
+inline dim3 grid_for(int cols, int B, int ns = 1) {
+  return dim3(cols / TN, (B + TM - 1) / TM, ns);
+}
 
 // X(row, k) = x[row * ld + k] for a bf16 matrix.
 struct LoadBf16 {
@@ -71,6 +125,8 @@ __device__ __forceinline__ void split_range(int K, int ns, int z, int* lo,
   *lo = (int)((long long)K * z / ns);
   *hi = (int)((long long)K * (z + 1) / ns);
 }
+
+// --- FMA products (small batch) ---------------------------------------------
 
 // acc[j] += sum_k X(row, k) * W_j[k, c] over k in [lo, hi), for the
 // thread's (row, c) of the tile. W_j = w + j * wstep points at column 0 of
@@ -127,9 +183,261 @@ __device__ void segment_mm(float (&acc)[1], const Loader& load, int seg,
   if (a < b) tile_mm<1>(acc, load, a, b, w, 0, ldw, row0, B, xs, ws);
 }
 
-// Stage 1, split z = blockIdx.z: pre[z][:, :H] and pre[z][:, H:], the
-// split's partial sums of deter @ w0 and stoch @ w1; split 0 adds b0, b1.
-// Grid (2 * H / TN, ceil(B / TM), ns).
+// --- Tensor-core products (from MMA_ROWS rows on) ---------------------------
+//
+// Each block computes a 32 x 64 output tile with four warps of 16 x 32,
+// staging 64-deep chunks of X and of W (transposed, so that a fragment's
+// two k values are adjacent) in shared memory; bf16 operands, f32 sums.
+// Each output is written once, with the bias, so there is no split and no
+// partial sum.
+
+constexpr int MMA_ROWS = 128;
+constexpr int MM_BM = 32, MM_BN = 64, MM_BK = 64, MM_THREADS = 128;
+
+// One operand pair of a tensor-core product. Output column n lies in
+// group q = n / gN at offset j = n - q gN; the segment adds
+//   sum over k < len of x[row * ldx + q * xgs + k] * w[q * wgs + k * ldw + j].
+// A dense product has gN = N and xgs = wgs = 0; a block-diagonal one steps
+// both per block. len is a multiple of 8, ldx and ldw too, and gN of MM_BN.
+struct MSeg {
+  const bf16* x;
+  int ldx;
+  int xgs;
+  const bf16* w;
+  int ldw;
+  size_t wgs;
+  int gN;
+  int len;
+};
+
+// Whether products of B rows into N columns in groups of gN, over segments
+// of la and lb, take the tensor cores.
+inline bool use_mma(int B, int N, int gN, int la, int lb) {
+  return B >= MMA_ROWS && N % MM_BN == 0 && gN % MM_BN == 0 && la % 8 == 0 &&
+         lb % 8 == 0;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+typedef bf16 MTile[MM_BK + 8];  // a staged row, padded (see mma_kernel)
+
+// acc += the products of one segment for the warp's 16 x 32 sub-tile
+// (rows wr.., columns wc.. of the block's tile at (row0, col0)).
+__device__ __forceinline__ void mma_segment(float (&acc)[4][4],
+                                            const MSeg& seg, int row0,
+                                            int col0, int B, MTile* xs,
+                                            MTile* wt) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = (warp % 2) * 16, wc = (warp / 2) * 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int q = col0 / seg.gN;
+  const bf16* X = seg.x + (size_t)q * seg.xgs;
+  const bf16* W = seg.w + (size_t)q * seg.wgs + (col0 - q * seg.gN);
+  for (int k0 = 0; k0 < seg.len; k0 += MM_BK) {
+    for (int i = threadIdx.x; i < MM_BM * MM_BK / 8; i += MM_THREADS) {
+      const int r = i / (MM_BK / 8), c = (i % (MM_BK / 8)) * 8;
+      const int row = row0 + r, k = k0 + c;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (row < B && k < seg.len)
+        v = *reinterpret_cast<const uint4*>(X + (size_t)row * seg.ldx + k);
+      *reinterpret_cast<uint4*>(&xs[r][c]) = v;
+    }
+    for (int i = threadIdx.x; i < MM_BK * MM_BN / 8; i += MM_THREADS) {
+      const int kk = i / (MM_BN / 8), n = (i % (MM_BN / 8)) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (k0 + kk < seg.len)
+        v = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + kk) * seg.ldw +
+                                            n);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wt[n + j][kk] = e[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < MM_BK; kk += 16) {
+      const int k = kk + tq * 2;
+      const uint32_t a0 = ld32(&xs[wr + g][k]);
+      const uint32_t a1 = ld32(&xs[wr + g + 8][k]);
+      const uint32_t a2 = ld32(&xs[wr + g][k + 8]);
+      const uint32_t a3 = ld32(&xs[wr + g + 8][k + 8]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = wc + nt * 8 + g;
+        mma_bf16(acc[nt], a0, a1, a2, a3, ld32(&wt[n][k]),
+                 ld32(&wt[n][k + 8]));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// out[row, n] (row stride ldo) = the products of segments a and b (b.len
+// may be 0), plus bias[n] (bf16 or f32, optional). Grid (N / MM_BN,
+// ceil(B / MM_BM)). Fragment layouts: PTX's mma.m16n8k16 (A row-major,
+// B column-major, C row-major).
+template <class Bias, class Out>
+__global__ void __launch_bounds__(MM_THREADS)
+mma_kernel(MSeg a, MSeg b, const Bias* bias, Out* out, int ldo, int B) {
+  // Rows padded by 8 bf16: 144-byte rows keep 16-byte stores aligned and
+  // put a fragment's eight rows on distinct banks.
+  __shared__ __align__(16) MTile xs[MM_BM];
+  __shared__ __align__(16) MTile wt[MM_BN];
+  const int col0 = blockIdx.x * MM_BN, row0 = blockIdx.y * MM_BM;
+  float acc[4][4] = {};
+  mma_segment(acc, a, row0, col0, B, xs, wt);
+  if (b.len) mma_segment(acc, b, row0, col0, B, xs, wt);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = (warp % 2) * 16, wc = (warp / 2) * 32;
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wr + g + h * 8;
+      if (row >= B) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + wc + nt * 8 + tq * 2 + e;
+        store(out + (size_t)row * ldo + col,
+              acc[nt][h * 2 + e] + (bias ? to_f(bias[col]) : 0.f));
+      }
+    }
+  }
+}
+
+template <class Bias, class Out>
+inline void tc_mm(MSeg a, MSeg b, const Bias* bias, Out* out, int ldo, int B,
+                  int N, cudaStream_t st) {
+  mma_kernel<Bias, Out><<<dim3(N / MM_BN, (B + MM_BM - 1) / MM_BM),
+                          MM_THREADS, 0, st>>>(a, b, bias, out, ldo, B);
+}
+
+inline MSeg dense(const bf16* x, int ldx, const bf16* w, int N, int len) {
+  return MSeg{x, ldx, 0, w, N, 0, N, len};
+}
+
+inline MSeg no_mseg() { return MSeg{nullptr, 0, 0, nullptr, 0, 0, MM_BN, 0}; }
+
+// --- Stages -----------------------------------------------------------------
+
+// One operand of a concatenated contraction: X(row, k) = x[row * ld + k]
+// for k < len.
+struct XSeg {
+  const bf16* x;
+  int ld;
+  int len;
+};
+
+// out[z][row, col] (row stride N): split z of [a | b](row, :) @ w, where
+// w (a.len + b.len, N) stacks the rows for a over those for b; split 0 adds
+// the bias (bf16 or f32). Grid (N / TN, ceil(B / TM), ns).
+template <class Bias, class Out>
+__global__ void __launch_bounds__(THREADS)
+mm_kernel(XSeg a, XSeg b, const bf16* w, const Bias* bias, Out* out, int B,
+          int N, int ns) {
+  __shared__ float xs[TM * KC];
+  __shared__ float ws[KC * TN];
+  const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM, z = blockIdx.z;
+  int lo, hi;
+  split_range(a.len + b.len, ns, z, &lo, &hi);
+  float acc[1] = {0.f};
+  segment_mm(acc, LoadBf16{a.x, a.ld}, 0, a.len, lo, hi, w + col0, N, row0, B,
+             xs, ws);
+  segment_mm(acc, LoadBf16{b.x, b.ld}, a.len, b.len, lo, hi,
+             w + (size_t)a.len * N + col0, N, row0, B, xs, ws);
+  const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
+  if (row < B) {
+    const float add = (z == 0 && bias) ? to_f(bias[col]) : 0.f;
+    store(out + ((size_t)z * B + row) * N + col, acc[0] + add);
+  }
+}
+
+// [a | b] @ w + bias into `out`: f32 split partials (ns of them), or with
+// ns == 1 the finished product in f32 or bf16.
+template <class Bias, class Out>
+inline void mm(XSeg a, XSeg b, const bf16* w, const Bias* bias, Out* out,
+               int B, int N, int ns, cudaStream_t st) {
+  if (ns == 1 && use_mma(B, N, N, a.len, b.len)) {
+    tc_mm(dense(a.x, a.ld, w, N, a.len),
+          b.len ? dense(b.x, b.ld, w + (size_t)a.len * N, N, b.len)
+                : no_mseg(),
+          bias, out, N, B, N, st);
+    return;
+  }
+  mm_kernel<Bias, Out><<<grid_for(N, B, ns), THREADS, 0, st>>>(
+      a, b, w, bias, out, B, N, ns);
+}
+
+// out[row, g W + c] (row stride ldo) = bf16(silu(x * rstd * scale_g[c])),
+// x = the sum of the ns partials parts[s][row, g W + c] (row stride ld)
+// over group g = blockIdx.y (scale0 or scale1). With `pre`, also saves x
+// (row stride ld) and rstd[row * gridDim.y + g] for the backward. One
+// block per (row, group); the sum runs in split order.
+__global__ void __launch_bounds__(FIN_THREADS)
+finish_kernel(const float* parts, int ns, int B, int ld, int W,
+              const float* scale0, const float* scale1, float eps, bf16* out,
+              int ldo, float* pre, float* rstd_out) {
+  __shared__ float red[FIN_THREADS / 32];
+  const int row = blockIdx.x, g = blockIdx.y;
+  const float* scale = g ? scale1 : scale0;
+  const size_t base = (size_t)row * ld + (size_t)g * W;
+  const size_t step = (size_t)B * ld;
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < W; c += FIN_THREADS) {
+    float v = 0.f;
+    for (int s = 0; s < ns; ++s) v += parts[s * step + base + c];
+    ss += v * v;
+  }
+  const float rstd = rsqrtf(block_sum(ss, red) / W + eps);
+  for (int c = threadIdx.x; c < W; c += FIN_THREADS) {
+    float v = 0.f;
+    for (int s = 0; s < ns; ++s) v += parts[s * step + base + c];
+    out[(size_t)row * ldo + (size_t)g * W + c] =
+        __float2bfloat16(silu(v * rstd * scale[c]));
+    if (pre) pre[base + c] = v;
+  }
+  if (rstd_out && threadIdx.x == 0) rstd_out[row * gridDim.y + g] = rstd;
+}
+
+inline void finish(const float* parts, int ns, int B, int ld, int W,
+                   int groups, const float* s0, const float* s1, float eps,
+                   bf16* out, int ldo, float* pre, float* rstd,
+                   cudaStream_t st) {
+  finish_kernel<<<dim3(B, groups), FIN_THREADS, 0, st>>>(
+      parts, ns, B, ld, W, s0, s1, eps, out, ldo, pre, rstd);
+}
+
+// out[row, c] = x[row, c] * keep[row] (bf16; a copy without keep).
+__global__ void mask_kernel(const bf16* x, int ldx, int W, const float* keep,
+                            bf16* out, int ldo) {
+  const int row = blockIdx.x;
+  const float m = keep ? keep[row] : 1.f;
+  for (int c = threadIdx.x; c < W; c += blockDim.x) {
+    out[(size_t)row * ldo + c] =
+        __float2bfloat16(to_f(x[(size_t)row * ldx + c]) * m);
+  }
+}
+
+inline void mask(const bf16* x, int ldx, int W, const float* keep, bf16* out,
+                 int ldo, int B, cudaStream_t st) {
+  mask_kernel<<<B, 256, 0, st>>>(x, ldx, W, keep, out, ldo);
+}
+
+// The input projections, split z = blockIdx.z: pre[z][:, :H] and
+// pre[z][:, H:], the split's partial sums of deter @ w0 and stoch @ w1;
+// split 0 adds b0, b1. Grid (2 * H / TN, ceil(B / TM), ns).
 __global__ void __launch_bounds__(THREADS)
 in_proj_kernel(const bf16* deter, const bf16* stoch, const bf16* w0,
                const bf16* b0, const bf16* w1, const bf16* b1, float* pre,
@@ -153,61 +461,26 @@ in_proj_kernel(const bf16* deter, const bf16* stoch, const bf16* w0,
   }
 }
 
-// out[row, g W + c] = bf16(silu(x * rsqrt(mean(x^2) + eps) * scale_g[c]))
-// over the W columns of group g (blockIdx.y; scale0 or scale1), where
-// x = the sum of the ns partial sums parts[s][row, g W + c] (row stride
-// ld). One block per (row, group); the sum runs in split order.
-__global__ void __launch_bounds__(FIN_THREADS)
-finish_kernel(const float* parts, int ns, int B, int ld, int W,
-              const float* scale0, const float* scale1, float eps,
-              bf16* out) {
-  __shared__ float red[FIN_THREADS / 32];
-  const int row = blockIdx.x, g = blockIdx.y;
-  const float* scale = g ? scale1 : scale0;
-  const size_t base = (size_t)row * ld + (size_t)g * W;
-  const size_t step = (size_t)B * ld;
-  float ss = 0.f;
-  for (int c = threadIdx.x; c < W; c += FIN_THREADS) {
-    float v = 0.f;
-    for (int s = 0; s < ns; ++s) v += parts[s * step + base + c];
-    ss += v * v;
-  }
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = ss;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < FIN_THREADS / 32; ++i) total += red[i];
-  const float rstd = rsqrtf(total / W + eps);
-  for (int c = threadIdx.x; c < W; c += FIN_THREADS) {
-    float v = 0.f;
-    for (int s = 0; s < ns; ++s) v += parts[s * step + base + c];
-    out[base + c] = __float2bfloat16(silu(v * rstd * scale[c]));
-  }
-}
-
-// Stage 2, split z: the split's partial sums of the contraction
-// [deter block (dg) | xn (2H) | act (A)] against [wblk[blk]; win], where
-// blk is the GRU block of the tile's columns; split 0 adds bblk.
-// Grid (D / TN, ceil(B / TM), ns); a column tile lies inside one GRU block.
+// Split z of [deter block (dg) | x (lx)] @ [wblk[blk]; win] for the GRU
+// hidden layer, where x = [xd, x0, act] (row stride ldx) and blk is the GRU
+// block of the tile's columns; split 0 adds bblk. Grid (D / TN,
+// ceil(B / TM), ns); a column tile lies inside one GRU block.
 __global__ void __launch_bounds__(THREADS)
-hidden_kernel(const bf16* xn, const bf16* act, const bf16* deter,
+hidden_kernel(const bf16* x, int ldx, int lx, const bf16* deter,
               const bf16* wblk, const bf16* bblk, const bf16* win,
-              float* hpre, int B, int D, int H, int A, int g, int ns) {
+              float* hpre, int B, int D, int g, int ns) {
   __shared__ float xs[TM * KC];
   __shared__ float ws[KC * TN];
   const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM, z = blockIdx.z;
   const int dg = D / g, blk = col0 / dg;
   int lo, hi;
-  split_range(dg + 2 * H + A, ns, z, &lo, &hi);
+  split_range(dg + lx, ns, z, &lo, &hi);
   float acc[1] = {0.f};
   segment_mm(acc, LoadBf16{deter + (size_t)blk * dg, D}, 0, dg, lo, hi,
              wblk + (size_t)blk * dg * dg + (col0 - blk * dg), dg, row0, B,
              xs, ws);
-  segment_mm(acc, LoadBf16{xn, 2 * H}, dg, 2 * H, lo, hi, win + col0, D,
-             row0, B, xs, ws);
-  segment_mm(acc, LoadBf16{act, A}, dg + 2 * H, A, lo, hi,
-             win + (size_t)2 * H * D + col0, D, row0, B, xs, ws);
+  segment_mm(acc, LoadBf16{x, ldx}, dg, lx, lo, hi, win + col0, D, row0, B,
+             xs, ws);
   const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
   if (row < B) {
     const float bias = z ? 0.f : to_f(bblk[col]);
@@ -215,12 +488,14 @@ hidden_kernel(const bf16* xn, const bf16* act, const bf16* deter,
   }
 }
 
-// Stage 3: the gate products of block `blk` for the tile's columns i (reset
-// i, candidate dg + i, update 2 dg + i of wg[blk]) and the GRU update.
-// Grid (D / TN, ceil(B / TM)).
+// The gate products of block blk for the tile's columns i (reset i,
+// candidate dg + i, update 2 dg + i of wg[blk]) and the GRU update; with
+// `gates`, also saves the gate pre-activations (bias included, f32, in
+// wg's column layout [blk][reset | cand | update], row stride 3D). Grid
+// (D / TN, ceil(B / TM)).
 __global__ void __launch_bounds__(THREADS)
 gru_kernel(const bf16* h, const bf16* wg, const bf16* bg, const bf16* deter,
-           bf16* out, int B, int D, int g) {
+           bf16* out, float* gates, int B, int D, int g) {
   __shared__ float xs[TM * KC];
   __shared__ float ws[3 * KC * TN];
   const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM;
@@ -232,40 +507,154 @@ gru_kernel(const bf16* h, const bf16* wg, const bf16* bg, const bf16* deter,
   const int row = row0 + threadIdx.x / TN, c = threadIdx.x % TN;
   if (row < B) {
     const size_t gb = (size_t)blk * 3 * dg + i0 + c;
-    const float r = sigmoid(acc[0] + to_f(bg[gb]));
-    const float cand = tanhf(r * (acc[1] + to_f(bg[gb + dg])));
-    const float u = sigmoid(acc[2] + to_f(bg[gb + 2 * dg]) - 1.f);
+    const float gr = acc[0] + to_f(bg[gb]);
+    const float gc = acc[1] + to_f(bg[gb + dg]);
+    const float gu = acc[2] + to_f(bg[gb + 2 * dg]);
+    const float r = sigmoid(gr);
+    const float cand = tanhf(r * gc);
+    const float u = sigmoid(gu - 1.f);
     const size_t at = (size_t)row * D + col0 + c;
-    const float prev = to_f(deter[at]);
-    out[at] = __float2bfloat16(u * cand + (1.f - u) * prev);
+    out[at] = __float2bfloat16(u * cand + (1.f - u) * to_f(deter[at]));
+    if (gates) {
+      float* gp = gates + (size_t)row * 3 * D + gb;
+      gp[0] = gr;
+      gp[dg] = gc;
+      gp[2 * dg] = gu;
+    }
   }
 }
 
-inline dim3 grid_for(int cols, int B, int ns = 1) {
-  return dim3(cols / TN, (B + TM - 1) / TM, ns);
+// The GRU update from the gate pre-activations (bias included, f32, in
+// wg's column layout, row stride 3D): the tensor-core path's last stage.
+__global__ void gru_update_kernel(const float* gates, const bf16* deter,
+                                  bf16* out, int B, int D, int g) {
+  const int row = blockIdx.y;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= D) return;
+  const int dg = D / g, blk = j / dg, i = j - blk * dg;
+  const float* gp = gates + (size_t)row * 3 * D + (size_t)blk * 3 * dg + i;
+  const float r = sigmoid(gp[0]);
+  const float cand = tanhf(r * gp[dg]);
+  const float u = sigmoid(gp[2 * dg] - 1.f);
+  const size_t at = (size_t)row * D + j;
+  out[at] = __float2bfloat16(u * cand + (1.f - u) * to_f(deter[at]));
 }
 
-// The core stages on `stream`. Scratch: `pre` (ns1, B, 2H) f32, `xn`
-// (B, 2H) bf16, `hpre` (ns2, B, D) f32, `h` (B, D) bf16; ns1 and ns2 are
-// the split counts of the input projection and the hidden stage.
-inline void launch_core(const bf16* deter, const bf16* stoch, const bf16* act,
-                        const bf16* w0, const bf16* b0, const float* s0,
-                        const bf16* w1, const bf16* b1, const float* s1,
-                        const bf16* wblk, const bf16* bblk, const bf16* win,
-                        const float* sh, const bf16* wg, const bf16* bg,
-                        bf16* out, float* pre, bf16* xn, float* hpre, bf16* h,
-                        int B, int D, int H, int S, int A, int g, int ns1,
-                        int ns2, float eps, cudaStream_t stream) {
-  in_proj_kernel<<<grid_for(2 * H, B, ns1), THREADS, 0, stream>>>(
-      deter, stoch, w0, b0, w1, b1, pre, B, D, S, H, ns1);
-  finish_kernel<<<dim3(B, 2), FIN_THREADS, 0, stream>>>(
-      pre, ns1, B, 2 * H, H, s0, s1, eps, xn);
-  hidden_kernel<<<grid_for(D, B, ns2), THREADS, 0, stream>>>(
-      xn, act, deter, wblk, bblk, win, hpre, B, D, H, A, g, ns2);
-  finish_kernel<<<dim3(B, 1), FIN_THREADS, 0, stream>>>(
-      hpre, ns2, B, D, D, sh, sh, eps, h);
-  gru_kernel<<<grid_for(D, B), THREADS, 0, stream>>>(
-      h, wg, bg, deter, out, B, D, g);
+// --- The core step and the posterior head -----------------------------------
+
+// The core's weights in ops/blockgru.py FIELDS order.
+struct Core {
+  const bf16 *w0, *b0;
+  const float* s0;
+  const bf16 *w1, *b1;
+  const float* s1;
+  const bf16 *wblk, *bblk, *win;
+  const float* sh;
+  const bf16 *wg, *bg;
+};
+
+inline Core core_weights(const void* const* p) {
+  auto b = [&](int i) { return (const bf16*)p[i]; };
+  auto f = [&](int i) { return (const float*)p[i]; };
+  return Core{b(0), b(1), f(2), b(3), b(4), f(5),
+              b(6), b(7), b(8), f(9), b(10), b(11)};
+}
+
+// What a backward keeps of a core step; all null in a forward.
+struct CoreSave {
+  float* pre01;   // (B, 2H) input-projection pre-activations
+  float* rstd01;  // (B, 2)
+  float* hpre;    // (B, D) hidden pre-activation
+  float* rstdh;   // (B)
+  float* gates;   // (B, 3D) gate pre-activations
+};
+
+// The core stages of one step. x (B, 2H + A) holds the action embedding in
+// its last A columns; the stages write [xd, x0] into its first 2H, the
+// hidden activation into h (B, D) and the new deter into out (B, D).
+// `parts` holds core_parts floats.
+inline void core_stages(const Core& w, const bf16* deter, const bf16* stoch,
+                        bf16* x, bf16* h, bf16* out, float* parts,
+                        const CoreSave& save, int B, int D, int H, int S,
+                        int A, int g, int sms, float eps, cudaStream_t st) {
+  const int dg = D / g, lx = 2 * H + A;
+  int ns1 = 1;
+  if (use_mma(B, H, H, D, S)) {
+    tc_mm(dense(deter, D, w.w0, H, D), no_mseg(), w.b0, parts, 2 * H, B, H,
+          st);
+    tc_mm(dense(stoch, S, w.w1, H, S), no_mseg(), w.b1, parts + H, 2 * H, B,
+          H, st);
+  } else {
+    ns1 = splits(2 * H, B, D > S ? D : S, sms);
+    in_proj_kernel<<<grid_for(2 * H, B, ns1), THREADS, 0, st>>>(
+        deter, stoch, w.w0, w.b0, w.w1, w.b1, parts, B, D, S, H, ns1);
+  }
+  finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
+         save.rstd01, st);
+  int ns2 = 1;
+  if (use_mma(B, D, dg, dg, lx)) {
+    tc_mm(MSeg{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg, dg},
+          dense(x, lx, w.win, D, lx), w.bblk, parts, D, B, D, st);
+  } else {
+    ns2 = splits(D, B, dg + lx, sms);
+    hidden_kernel<<<grid_for(D, B, ns2), THREADS, 0, st>>>(
+        x, lx, lx, deter, w.wblk, w.bblk, w.win, parts, B, D, g, ns2);
+  }
+  finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
+         save.rstdh, st);
+  if (use_mma(B, 3 * D, 3 * dg, dg, 0)) {
+    // The gate pre-activations into `parts` (or the backward's save), then
+    // the update.
+    float* gates = save.gates ? save.gates : parts;
+    tc_mm(MSeg{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, 3 * dg, dg},
+          no_mseg(), w.bg, gates, 3 * D, B, 3 * D, st);
+    gru_update_kernel<<<dim3((D + 255) / 256, B), 256, 0, st>>>(
+        gates, deter, out, B, D, g);
+  } else {
+    gru_kernel<<<grid_for(D, B), THREADS, 0, st>>>(h, w.wg, w.bg, deter, out,
+                                                   save.gates, B, D, g);
+  }
+}
+
+// Floats of split partials the core stages need at most (on the tensor
+// cores: one (B, D) product, or the (B, 3D) gates).
+inline size_t core_parts(int B, int D, int H, int S, int A, int g, int sms) {
+  const size_t a = (size_t)splits(2 * H, B, D > S ? D : S, sms) * B * 2 * H;
+  const size_t b = (size_t)splits(D, B, D / g + 2 * H + A, sms) * B * D;
+  const size_t c = B >= MMA_ROWS ? (size_t)3 * B * D : 0;
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+// The posterior head's weights in ops/observe.py FIELDS order (after the
+// core's 12).
+struct Head {
+  const bf16 *wo, *bo;
+  const float* so;
+  const bf16 *wl, *bl;
+};
+
+inline Head head_weights(const void* const* p) {
+  return Head{(const bf16*)p[0], (const bf16*)p[1], (const float*)p[2],
+              (const bf16*)p[3], (const bf16*)p[4]};
+}
+
+// Floats of split partials the posterior head needs at most.
+inline size_t head_parts(int B, int D, int H, int K, int sms) {
+  return (size_t)splits(H, B, D + K, sms) * B * H;
+}
+
+// The posterior head on the new deter `out` (B, D) and the tokens (B, K):
+// xo (B, H) bf16 and the logits (B, L), f32 or bf16. With `preo`, also
+// saves the hidden pre-activation and its rstd for the backward.
+template <class Logit>
+inline void post_head(const Head& w, const bf16* out, const bf16* tok,
+                      bf16* xo, Logit* logit, float* parts, float* preo,
+                      float* rstdo, int B, int D, int H, int K, int L,
+                      int sms, float eps, cudaStream_t st) {
+  const int ns = splits(H, B, D + K, sms);
+  mm(XSeg{out, D, D}, XSeg{tok, K, K}, w.wo, w.bo, parts, B, H, ns, st);
+  finish(parts, ns, B, H, H, 1, w.so, w.so, eps, xo, H, preo, rstdo, st);
+  mm(XSeg{xo, H, H}, XSeg{nullptr, 0, 0}, w.wl, w.bl, logit, B, L, 1, st);
 }
 
 }  // namespace blockgru

@@ -1,17 +1,24 @@
-"""Recurrent State-Space Model with a block-diagonal GRU core: acting path.
+"""Recurrent State-Space Model with a block-diagonal GRU core, and the CNN +
+MLP Encoder and Decoder.
 
-The part of embodied_tpu/models/dreamerv3/rssm.py that acting needs: the
-RSSM's single-step observe (action embedding, core step, posterior head,
-categorical sample), its carries and packed replay entries, and the CNN +
-MLP Encoder. Parameter paths, shapes and math are the JAX ones. The prior,
-imagination, the KL losses and the Decoder come with the train step.
+Counterpart of embodied_tpu/models/dreamerv3/rssm.py: the observe step
+(acting) and the observe window (training), the prior, imagination, the KL
+losses with free nats, the packed replay entries and their unpacking.
+Parameter paths, shapes and math are the JAX ones.
 
 Where the structure allows (`kernel` in auto/imag/fused, one dyn layer,
-one obs layer, rms/silu, not `absolute`), the observe step runs through
-`ops.observe.obs_step`, and a core step alone through
-`ops.blockgru.core_step`. Those wrappers take the plain version for CPU
-tensors and launch the Hopper kernels for CUDA tensors. `kernel: off`
-keeps the plain layer-by-layer path.
+one obs layer, rms/silu, not `absolute`), the work runs through the
+kernel wrappers, which take the plain version for CPU tensors and launch
+the Hopper kernels for CUDA tensors:
+  - the observe step through `ops.observe.obs_step`, a core step alone
+    through `ops.blockgru.core_step`;
+  - under auto/imag, the whole observe window through
+    `ops.observe_seq.observe_seq` (forward and backward kernels);
+  - under auto, with a policy whose shape the kernel takes, the whole
+    imagination rollout through `ops.imagine_seq.imagine_seq`.
+Otherwise a window or a rollout runs step by step. `kernel: off` keeps
+the plain layer-by-layer path. Random numbers come from a `dists.Draws`
+(or, for a single step, a generator or the noise itself).
 """
 
 import math
@@ -22,7 +29,7 @@ import torch.nn.functional as F
 
 from ... import nn
 from ...nn import dists
-from ...ops import blockgru, observe
+from ...ops import blockgru, imagine_seq, observe, observe_seq
 from ...utils import Space
 
 
@@ -33,6 +40,19 @@ def space_to_depth(x, s):
   x = x.reshape(B, H // s, s, W // s, s, C)
   x = x.permute(0, 1, 3, 2, 4, 5)
   return x.reshape(B, H // s, W // s, s * s * C)
+
+
+def depth_to_space(x, s):
+  """Inverse of space_to_depth."""
+  B, H, W, C = x.shape
+  x = x.reshape(B, H, W, s, s, C // (s * s))
+  x = x.permute(0, 1, 3, 2, 4, 5)
+  return x.reshape(B, H * s, W * s, C // (s * s))
+
+
+def upsample(x):
+  """2x nearest-neighbour upsampling of NHWC, as JAX's repeat(2) twice."""
+  return x.repeat_interleave(2, -2).repeat_interleave(2, -3)
 
 
 def max_pool(x):
@@ -64,6 +84,7 @@ class RSSM(nn.Module):
     self.unimix = unimix
     self.absolute = absolute
     self.blocks = blocks
+    self.free_nats = free_nats
     self.norm = norm
     self.act = act
     self.dynlayers = dynlayers
@@ -81,6 +102,14 @@ class RSSM(nn.Module):
           self.child(nn.Norm(norm, f'obs{i}norm', hidden, cdtype=cdtype))))
     self.obslogit = nn.Linear(
         hidden, stoch * classes, 'obslogit', outscale=outscale, **kw)
+    self.img_layers = []
+    for i in range(imglayers):
+      self.img_layers.append((
+          self.child(nn.Linear(deter if i == 0 else hidden, hidden,
+                               f'prior{i}', **kw)),
+          self.child(nn.Norm(norm, f'prior{i}norm', hidden, cdtype=cdtype))))
+    self.priorlogit = nn.Linear(
+        hidden, stoch * classes, 'priorlogit', outscale=outscale, **kw)
     widths = (deter, stoch * classes, self.actconcat.width)
     self.dynin = [
         (self.child(nn.Linear(widths[i], hidden, f'dynin{i}', **kw)),
@@ -120,25 +149,68 @@ class RSSM(nn.Module):
     stoch = torch.argmax(stoch, -1).to(torch.uint8)
     return dict(deter=deter, stoch=stoch)
 
+  def entry_unpack(self, entries):
+    deter, stoch = entries['deter'], entries['stoch']
+    deter = deter.float() / 127 if self.latents == 'i8' else deter.float()
+    stoch = F.one_hot(stoch.long(), self.classes).float()
+    return self.cast(dict(deter=deter, stoch=stoch))
+
   def initial(self, bsize, device=None):
     return self.cast(dict(
         deter=torch.zeros([bsize, self.deter], device=device),
         stoch=torch.zeros([bsize, self.stoch, self.classes], device=device)))
 
+  def truncate(self, entries, carry=None):
+    """Resume a carry from the last stored (packed) latent of a context."""
+    assert entries['deter'].ndim == 3, entries['deter'].shape
+    return {k: v[:, -1] for k, v in self.entry_unpack(entries).items()}
+
+  def starts(self, entries, carry, nlast):
+    B = carry['deter'].shape[0]
+    return {k: v[:, -nlast:].reshape((B * nlast, *v.shape[2:]))
+            for k, v in entries.items()}
+
   # --- Observation path ---------------------------------------------------
 
   def observe(self, carry, tokens, action, reset, training=False,
-              single=True, gen=None, noise=None):
-    """One observe step (`single` only, the acting path). `noise` is the
-    Gumbel noise of the stoch sample, (B, stoch, classes); without it the
-    sample draws from `gen`."""
-    if not single:
-      raise NotImplementedError('the observe window comes with training')
+              single=False, gen=None, noise=None, draws=None):
+    """One observe step (`single`, the acting path; also taken for a
+    (B,) `reset`), or a window of T steps with (B, T, ...) inputs. A single
+    step samples with `noise`, the Gumbel noise (B, stoch, classes), or
+    from `gen`; a window draws its noise from `draws`."""
     carry, tokens, action = self.cast((carry, tokens, action))
     actfeat = self._action_feat(nn.mask(action, ~reset), ~reset)
-    carry, (entry, feat) = self._observe(
-        carry, tokens, actfeat, reset, gen, noise, kernel=True)
-    return carry, entry, feat
+    if single or reset.ndim == 1:
+      carry, (entry, feat) = self._observe(
+          carry, tokens, actfeat, reset, gen, noise, kernel=True)
+      return carry, entry, feat
+    B, T = reset.shape
+    S, C = self.stoch, self.classes
+    gum = draws.gumbel((T, B, S * C))
+    if self._obs_seq_eligible():
+      # The whole window in one kernel call; inputs go time-major.
+      toks = self.cast(tokens.reshape((B, T, -1))).transpose(0, 1)
+      deter, stoch, logit = observe_seq.observe_seq(
+          self.cast(carry['deter']).contiguous(),
+          self.cast(carry['stoch'].reshape((B, -1))).contiguous(),
+          self.cast(actfeat).transpose(0, 1).contiguous(),
+          toks.contiguous(), (~reset).float().T.contiguous(), gum,
+          self._obs_params(toks.shape[-1]), C, self.unimix)
+      deter = deter.transpose(0, 1)
+      stoch = stoch.transpose(0, 1).reshape((B, T, S, C))
+      logit = logit.transpose(0, 1).reshape((B, T, S, C))
+      carry = dict(deter=deter[:, -1], stoch=stoch[:, -1])
+      entries = dict(deter=deter, stoch=stoch)
+      return carry, entries, dict(deter=deter, stoch=stoch, logit=logit)
+    steps = []
+    for t in range(T):
+      carry, (entry, feat) = self._observe(
+          carry, tokens[:, t], actfeat[:, t], reset[:, t],
+          noise=gum[t].reshape((B, S, C)), kernel=True)
+      steps.append((entry, feat))
+    stack = lambda xs: {k: torch.stack([x[k] for x in xs], 1) for k in xs[0]}
+    return (carry, stack([e for e, _ in steps]),
+            stack([f for _, f in steps]))
 
   def _action_feat(self, action, available_mask=None):
     """Embed the action dict: concat -> clip -> linear+norm+act."""
@@ -175,6 +247,86 @@ class RSSM(nn.Module):
     entry = dict(deter=deter, stoch=stoch)
     return carry, (entry, feat)
 
+  # --- Imagination path ---------------------------------------------------
+
+  def imagine_single(self, carry, policy, draws):
+    """One rollout step: `policy(carry, draws)` samples the action from the
+    carry (its gradient stopped), then the core, the prior and a sample."""
+    action = policy({k: v.detach() for k, v in carry.items()}, draws)
+    actfeat = self._action_feat(self.cast(action))
+    deter = self._core(carry['deter'], carry['stoch'], actfeat, kernel=True)
+    logit = self._prior(deter)
+    B = deter.shape[0]
+    stoch = self.cast(self._dist(logit).sample(
+        noise=draws.gumbel((B, self.stoch, self.classes))))
+    carry = self.cast(dict(deter=deter, stoch=stoch))
+    feat = self.cast(dict(deter=deter, stoch=stoch, logit=logit))
+    return carry, (feat, action)
+
+  def imagine(self, carry, policy, length, training=False, draws=None):
+    """Roll out `length` steps from the carry with `policy`. Takes the
+    whole-horizon kernel when eligible and the policy offers a
+    `fused_spec()`, else a step at a time."""
+    carry = self.cast(carry)
+    if self._imag_seq_eligible():
+      spec = getattr(policy, 'fused_spec', lambda: None)()
+      if spec is not None:
+        return self._imagine_fused(carry, spec, length, draws)
+    feats, acts = [], []
+    for _ in range(length):
+      carry, (feat, action) = self.imagine_single(carry, policy, draws)
+      feats.append(feat)
+      acts.append(action)
+    stack = lambda xs: {k: torch.stack([x[k] for x in xs], 1) for k in xs[0]}
+    return carry, stack(feats), stack(acts)
+
+  def _imagine_fused(self, carry, spec, length, draws):
+    """The whole rollout in one kernel call, policy included; `spec` comes
+    from the model's `_fused_policy_spec`."""
+    B = carry['deter'].shape[0]
+    S, C = self.stoch, self.classes
+    sampler = draws.gumbel if spec['disc'] else draws.normal
+    # Drawn in the order of the step-by-step rollout (each step's action
+    # noise, then its state noise), so that both paths sample alike.
+    noise, gum = [], []
+    for _ in range(length):
+      noise.append(sampler((B, spec['ain'])))
+      gum.append(draws.gumbel((B, S * C)))
+    noise, gum = torch.stack(noise), torch.stack(gum)
+    params = (self._imag_params() + self._embed_params() +
+              tuple(spec['params']))
+    deter, stoch, logit, acts = imagine_seq.imagine_seq(
+        self.cast(carry['deter']).contiguous(),
+        self.cast(carry['stoch'].reshape((B, -1))).contiguous(), gum, noise,
+        params, spec['npol'], spec['disc'], C, self.unimix, spec['minstd'],
+        spec['maxstd'])
+    deter = deter.transpose(0, 1)
+    stoch = stoch.transpose(0, 1).reshape((B, length, S, C))
+    logit = logit.transpose(0, 1).reshape((B, length, S, C))
+    acts = acts.transpose(0, 1)
+    action = acts.argmax(-1).to(torch.int32) if spec['disc'] else acts
+    carry = dict(deter=deter[:, -1], stoch=stoch[:, -1])
+    feat = dict(deter=deter, stoch=stoch, logit=logit)
+    return carry, feat, {spec['key']: action}
+
+  # --- Loss ---------------------------------------------------------------
+
+  def loss(self, carry, tokens, acts, reset, training, draws):
+    metrics = {}
+    carry, entries, feat = self.observe(
+        carry, tokens, acts, reset, training, draws=draws)
+    prior = self._prior(feat['deter'])
+    post = feat['logit']
+    dyn = self._dist(post.detach()).kl(self._dist(prior))
+    rep = self._dist(post).kl(self._dist(prior.detach()))
+    if self.free_nats:
+      dyn = torch.clamp(dyn, min=self.free_nats)
+      rep = torch.clamp(rep, min=self.free_nats)
+    losses = {'dyn': dyn, 'rep': rep}
+    metrics['dyn_ent'] = self._dist(prior).entropy().mean()
+    metrics['rep_ent'] = self._dist(post).entropy().mean()
+    return carry, entries, losses, feat, metrics
+
   # --- Internals ----------------------------------------------------------
 
   def _kernel_eligible(self):
@@ -189,6 +341,32 @@ class RSSM(nn.Module):
     """Whether the fused observe step (core + posterior head) applies."""
     return (self._kernel_eligible() and not self.absolute and
             len(self.obs_layers) == 1)
+
+  def _obs_seq_eligible(self):
+    """Whether the whole observe window runs as one kernel call: the
+    structure of the fused observe step, under auto or imag (`fused`
+    keeps the per-step kernels)."""
+    return self.kernel in ('auto', 'imag') and self._obs_kernel_eligible()
+
+  def _imag_seq_eligible(self):
+    """Whether the whole rollout may run as one kernel call (the policy
+    decides the rest): the core's structure and the 2-layer prior, under
+    auto."""
+    return (self.kernel == 'auto' and self._kernel_eligible() and
+            len(self.img_layers) == 2)
+
+  def _imag_params(self):
+    """Core and prior weights in ops.imagine_seq order."""
+    (p0, n0), (p1, n1) = self.img_layers
+    return self._core_params() + (
+        self.cast(p0.kernel), self.cast(p0.bias), n0.scale,
+        self.cast(p1.kernel), self.cast(p1.bias), n1.scale,
+        self.cast(self.priorlogit.kernel), self.cast(self.priorlogit.bias))
+
+  def _embed_params(self):
+    """The action embedding (dynin2), unpadded: wa (actions, hidden)."""
+    linear, norm = self.dynin[2]
+    return (self.cast(linear.kernel), self.cast(linear.bias), norm.scale)
 
   def _obs_params(self, token_dim):
     (obs0, obs0norm), = self.obs_layers
@@ -233,6 +411,12 @@ class RSSM(nn.Module):
     cand = torch.tanh(reset * cand)
     update = torch.sigmoid(update - 1)
     return update * cand + (1 - update) * deter
+
+  def _prior(self, feat):
+    x = feat
+    for linear, norm in self.img_layers:
+      x = self.actfn(norm(linear(x)))
+    return self._logit(self.priorlogit, x)
 
   def _logit(self, layer, x):
     x = layer(x)
@@ -302,6 +486,9 @@ class Encoder(nn.Module):
   def initial(self, batch_size, device=None):
     return {}
 
+  def truncate(self, entries, carry=None):
+    return {}
+
   def entry_pack(self, entries):
     return {}
 
@@ -330,3 +517,108 @@ class Encoder(nn.Module):
     x = torch.cat(outs, -1)
     tokens = x.reshape((*bshape, *x.shape[1:]))
     return carry, {}, tokens
+
+
+class Decoder(nn.Module):
+  """CNN + MLP decoder, as the JAX Decoder with its defaults: the vector
+  keys through an MLP and a DictHead (categorical for discrete spaces,
+  symlog_mse or mse for the rest); the image keys from a block-space
+  projection (`bspace` groups of deter through a BlockLinear into the conv
+  grid, plus the stoch through two dense layers), 2x nearest-neighbour
+  upsampling before each stride-1 convolution, and `s2d` depth-to-space at
+  the end. The `outer` and `strided` modes, which no preset sets, and
+  `bspace: 0` are not ported."""
+
+  def __init__(
+      self, obs_space, name='dec', feat_dims=None, units=1024, norm='rms',
+      act='gelu', outscale=1.0, depth=64, mults=(2, 3, 4, 4), layers=3,
+      kernel=5, symlog=True, bspace=8, outer=False, strided=False, s2d=0,
+      cdtype=nn.COMPUTE_DTYPE, **kw):
+    super().__init__(name, cdtype)
+    if outer or strided or not bspace:
+      raise NotImplementedError('The outer, strided and bspace: 0 modes')
+    deter, stochflat = feat_dims
+    self.obs_space = obs_space
+    self.veckeys = [k for k, s in obs_space.items() if len(s.shape) <= 2]
+    self.imgkeys = [k for k, s in obs_space.items() if len(s.shape) == 3]
+    self.depths = tuple(depth * m for m in mults)
+    self.imgdep = sum(obs_space[k].shape[-1] for k in self.imgkeys)
+    self.bspace = bspace
+    self.s2d = int(s2d)
+    self.actfn = nn.act(act)
+    kw = dict(kw, cdtype=cdtype)
+    if self.veckeys:
+      spaces = {k: obs_space[k] for k in self.veckeys}
+      o2 = 'symlog_mse' if symlog else 'mse'
+      outputs = {k: 'categorical' if v.discrete else o2
+                 for k, v in spaces.items()}
+      self.mlp = nn.MLP(stochflat + deter, layers, units, 'mlp', act=act,
+                        norm=norm, **kw)
+      self.vec = nn.DictHead(spaces, outputs, 'vec', units,
+                             outscale=outscale, **kw)
+    if self.imgkeys:
+      imgres = obs_space[self.imgkeys[0]].shape[:-1]
+      factor = 2 ** len(self.depths) * max(1, self.s2d)
+      self.minres = [int(x // factor) for x in imgres]
+      assert 3 <= self.minres[0] <= 16, (self.minres, imgres)
+      shape = (*self.minres, self.depths[-1])
+      self.space_shape = shape
+      u = math.prod(shape)
+      self.sp0 = nn.BlockLinear(deter, u, bspace, 'sp0', **kw)
+      self.sp1 = nn.Linear(stochflat, 2 * units, 'sp1', **kw)
+      self.sp1norm = nn.Norm(norm, 'sp1norm', 2 * units, cdtype=cdtype)
+      self.sp2 = nn.Linear(2 * units, shape, 'sp2', **kw)
+      self.spnorm = nn.Norm(norm, 'spnorm', shape[-1], cdtype=cdtype)
+      self.deconvs = []
+      din = shape[-1]
+      for i, d in reversed(list(enumerate(self.depths[:-1]))):
+        self.deconvs.append((
+            self.child(nn.Conv2D(din, d, kernel, f'conv{i}', **kw)),
+            self.child(nn.Norm(norm, f'conv{i}norm', d, cdtype=cdtype))))
+        din = d
+      outdep = self.imgdep * max(1, self.s2d) ** 2
+      self.imgout = nn.Conv2D(din, outdep, kernel, 'imgout',
+                              outscale=outscale, **kw)
+
+  @property
+  def entry_space(self):
+    return {}
+
+  def initial(self, batch_size, device=None):
+    return {}
+
+  def truncate(self, entries, carry=None):
+    return {}
+
+  def entry_pack(self, entries):
+    return {}
+
+  def forward(self, carry, feat, reset, training=False, single=False):
+    recons = {}
+    bshape = reset.shape[:(1 if single else 2)]
+    n = math.prod(bshape)
+    stoch = self.cast(feat['stoch']).reshape((n, -1))
+    deter = self.cast(feat['deter']).reshape((n, -1))
+    if self.veckeys:
+      x = self.mlp(torch.cat([stoch, deter], -1))
+      recons.update(self.vec(x.reshape((*bshape, *x.shape[1:]))))
+    if self.imgkeys:
+      g = self.bspace
+      h, w = self.minres
+      c = self.space_shape[-1] // g
+      # (g h w c) -> (h, w, g * c)
+      x0 = self.sp0(deter).reshape((-1, g, h, w, c))
+      x0 = x0.permute(0, 2, 3, 1, 4).reshape((-1, h, w, g * c))
+      x1 = self.actfn(self.sp1norm(self.sp1(stoch)))
+      x = self.actfn(self.spnorm(x0 + self.sp2(x1)))
+      for conv, norm in self.deconvs:
+        x = self.actfn(norm(conv(upsample(x))))
+      x = self.imgout(upsample(x))
+      if self.s2d:
+        x = depth_to_space(x, self.s2d)
+      x = torch.sigmoid(x)
+      x = x.reshape((*bshape, *x.shape[1:]))
+      sizes = [self.obs_space[k].shape[-1] for k in self.imgkeys]
+      for k, out in zip(self.imgkeys, torch.split(x, sizes, -1)):
+        recons[k] = dists.Agg(dists.MSE(out), 3)
+    return carry, {}, recons

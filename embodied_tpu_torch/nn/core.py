@@ -7,9 +7,11 @@ parameter's `state_dict` key is its JAX path with '/' replaced by '.', so
 JAX ones. `store(module)` and `load_store(module, store)` convert between
 the two forms, so a JAX store loads unchanged.
 
-Parameters are float32. Layers compute in a compute dtype (bfloat16 by
-default) that every module takes at construction, so tests can build the
-same network in float32. Random draws come from explicit
+Parameters are float32. State that is not trained (normaliser statistics,
+the optimizer's step and moments, counters) is kept as buffers under the
+JAX paths, so it travels with the store too. Layers compute in a compute
+dtype (bfloat16 by default) that every module takes at construction, so
+tests can build the same network in float32. Random draws come from explicit
 `torch.Generator`s: initial weights from one generator per parameter,
 seeded from (seed, crc32(path)) so that the values do not depend on the
 order in which modules are built.
@@ -55,6 +57,13 @@ class Module(torch.nn.Module):
     self._inits[name] = init
     return getattr(self, name)
 
+  def state(self, name, shape, init, dtype=torch.float32):
+    """Create a buffer filled with `init`: state kept in the store but not
+    trained (`p.state` in JAX)."""
+    shape = tuple(int(x) for x in shape)
+    self.register_buffer(name, torch.full(shape, init, dtype=dtype))
+    return getattr(self, name)
+
   def cast(self, xs, force=False):
     return cast(xs, self.cdtype, force)
 
@@ -77,6 +86,9 @@ def init_params(root, seed):
       else:
         value = torch.full(tuple(param.shape), float(init))
       param.copy_(value)
+  for module in root.modules():
+    if hasattr(module, 'post_init'):
+      module.post_init()
 
 
 def store(root):
@@ -85,20 +97,26 @@ def store(root):
 
 
 @torch.no_grad()
-def load_store(root, values):
+def load_store(root, values, strict=True):
   """Copy {path: array} into the module tree; returns unused paths.
-  Every parameter of the tree must be present."""
+  Every entry of the tree must be present, unless not `strict`: then the
+  entries the store lacks keep their values."""
   params = dict(root.state_dict())
   paths = {k.replace('.', '/'): k for k in params}
   missing = sorted(set(paths) - set(values))
-  if missing:
+  if missing and strict:
     raise KeyError(f'Store lacks {len(missing)} entries: {missing[:5]}')
   for path, key in paths.items():
-    value = torch.as_tensor(np.asarray(values[path], np.float32))
+    if path in missing:
+      continue
+    value = np.asarray(values[path])
+    if value.dtype.kind == 'V' or value.dtype.name == 'bfloat16':
+      value = value.astype(np.float32)
+    value = torch.tensor(value)
     if tuple(value.shape) != tuple(params[key].shape):
       raise ValueError(
           f'{path}: shape {tuple(value.shape)} != {tuple(params[key].shape)}')
-    params[key].copy_(value)
+    params[key].copy_(value.to(params[key].dtype))
   return sorted(set(values) - set(paths))
 
 
@@ -139,6 +157,25 @@ def act(name):
 
 def symlog(x):
   return torch.sign(x) * torch.log1p(torch.abs(x))
+
+
+def symexp(x):
+  return torch.sign(x) * torch.expm1(torch.abs(x))
+
+
+def where(condition, xs, ys):
+  """Per-row select between two trees; condition (B,) bool."""
+  assert condition.ndim == 1, condition.shape
+  def fn(x, y):
+    c = condition
+    while c.ndim < x.ndim:
+      c = c[..., None]
+    return torch.where(c, x, y)
+  if isinstance(xs, dict):
+    return {k: where(condition, xs[k], ys[k]) for k in xs}
+  if isinstance(xs, (list, tuple)):
+    return type(xs)(where(condition, x, y) for x, y in zip(xs, ys))
+  return fn(xs, ys)
 
 
 def mask(xs, m):

@@ -1,15 +1,22 @@
-"""Output distributions the acting path needs: Categorical, OneHot, Agg.
+"""Output distributions with pred/sample/logp/entropy/kl/loss.
 
-Counterparts of embodied_tpu/nn/dists.py. Categorical families keep
-normalized log-probabilities (optionally mixed with the uniform
-distribution) as their parameter. Sampling is Gumbel-max: `sample` takes
-an explicit `torch.Generator`, or the Gumbel noise itself as a tensor of
-the shape of the log-probabilities, so tests can hand both frameworks the
-same noise.
+Counterparts of embodied_tpu/nn/dists.py: MSE, Normal, Binary,
+Categorical, OneHot (straight-through samples), TwoHot (symexp bins, an
+exactly-zero prediction at uniform logits) and Agg. Categorical families
+keep normalized log-probabilities (optionally mixed with the uniform
+distribution) as their parameter. Sampling takes an explicit
+`torch.Generator`, or the noise itself as a tensor (Gumbel noise for the
+categorical families, standard normal noise for Normal), so tests can hand
+both frameworks the same noise.
 """
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def gumbel(shape, gen=None, device=None):
@@ -17,6 +24,84 @@ def gumbel(shape, gen=None, device=None):
   tiny = torch.finfo(torch.float32).tiny
   u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
   return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
+def _as_float(value):
+  assert value.is_floating_point(), value.dtype
+  return value.float()
+
+
+class Dist:
+  """Common interface: `loss` is the negative log-likelihood of a target
+  that carries no gradient, `prob` the exponentiated log-probability."""
+
+  def prob(self, value):
+    return torch.exp(self.logp(value))
+
+  def loss(self, target):
+    return -self.logp(target.detach())
+
+
+class MSE(Dist):
+  """Deterministic regression with a squared-error loss, the target
+  optionally squashed (symlog) first."""
+
+  def __init__(self, mean, squash=None):
+    self.mean = mean.float()
+    self._squash = squash or (lambda x: x)
+
+  def pred(self):
+    return self.mean
+
+  def loss(self, target):
+    target = self._squash(_as_float(target)).detach()
+    assert target.shape == self.mean.shape, (target.shape, self.mean.shape)
+    return torch.square(self.mean - target)
+
+
+class Normal(Dist):
+
+  def __init__(self, mean, stddev=1.0):
+    self.mean = mean.float()
+    self.stddev = torch.broadcast_to(
+        torch.as_tensor(stddev, device=self.mean.device).float(),
+        self.mean.shape)
+    self._logstd = torch.log(self.stddev)
+
+  def pred(self):
+    return self.mean
+
+  def sample(self, gen=None, noise=None):
+    if noise is None:
+      noise = torch.randn(self.mean.shape, generator=gen,
+                          device=self.mean.device)
+    return self.mean + self.stddev * noise
+
+  def logp(self, value):
+    z = (_as_float(value) - self.mean) / self.stddev
+    return -(0.5 * torch.square(z) + self._logstd + _HALF_LOG_2PI)
+
+  def entropy(self):
+    return self._logstd + _HALF_LOG_2PI + 0.5
+
+
+class Binary(Dist):
+
+  def __init__(self, logit):
+    self.logit = logit.float()
+    self._lp1 = F.logsigmoid(self.logit)
+    self._lp0 = F.logsigmoid(-self.logit)
+
+  def pred(self):
+    return self.logit > 0
+
+  def logp(self, value):
+    on = torch.as_tensor(value, device=self.logit.device).float()
+    return on * self._lp1 + (1.0 - on) * self._lp0
+
+  def entropy(self):
+    p1 = torch.exp(self._lp1)
+    return -(p1 * self._lp1 + (1.0 - p1) * self._lp0)
 
 
 def _mix_uniform(logprobs, amount):
@@ -27,7 +112,7 @@ def _mix_uniform(logprobs, amount):
   return torch.log((1.0 - amount) * torch.exp(logprobs) + amount / count)
 
 
-class Categorical:
+class Categorical(Dist):
   """Integer-event categorical, parameterized by normalized logprobs."""
 
   def __init__(self, logits, unimix=0.0):
@@ -59,7 +144,7 @@ class Categorical:
     return (torch.exp(self.logprobs) * gap).sum(-1)
 
 
-class OneHot:
+class OneHot(Dist):
   """Categorical over one-hot events; samples carry straight-through
   gradients of the class probabilities."""
 
@@ -91,7 +176,57 @@ class OneHot:
     return self.dist.kl(other.dist)
 
 
-class Agg:
+class TwoHot(Dist):
+  """Distributional regression over two-hot encoded bin targets. pred()
+  folds symmetric bin pairs before summing, so symmetric bins with uniform
+  probabilities give exactly zero."""
+
+  def __init__(self, logits, bins, squash=None, unsquash=None):
+    self.logits = logits.float()
+    self.bins = torch.as_tensor(bins, dtype=torch.float32,
+                                device=self.logits.device)
+    assert self.logits.shape[-1] == len(bins), (self.logits.shape, len(bins))
+    self.probs = torch.softmax(self.logits, -1)
+    self._squash = squash or (lambda x: x)
+    self._unsquash = unsquash or (lambda x: x)
+
+  def pred(self):
+    weighted = self.probs * self.bins
+    folded = 0.5 * (weighted + weighted.flip(-1))
+    return self._unsquash(folded.sum(-1))
+
+  def loss(self, target):
+    encoded = self._encode(target)
+    return -(encoded * F.log_softmax(self.logits, -1)).sum(-1)
+
+  def _encode(self, target):
+    """Split unit mass between the bracketing bins; a target past either
+    end puts all its mass on the end bin."""
+    target = self._squash(_as_float(target)).detach()
+    count = len(self.bins)
+    right = torch.searchsorted(self.bins, target.contiguous(), right=True)
+    below = torch.clamp(right - 1, 0, count - 1)
+    above = torch.clamp(right, 0, count - 1)
+    degenerate = below == above
+    one = torch.ones_like(target)
+    dist_below = torch.where(degenerate, one, (self.bins[below] - target).abs())
+    dist_above = torch.where(degenerate, one, (self.bins[above] - target).abs())
+    total = dist_below + dist_above
+    return (F.one_hot(below, count) * (dist_above / total)[..., None] +
+            F.one_hot(above, count) * (dist_below / total)[..., None])
+
+
+def symexp_bins(num):
+  """Symmetric exponentially-spaced bins used by symexp_twohot heads."""
+  expand = lambda x: np.sign(x) * np.expm1(np.abs(x))
+  if num % 2:
+    neg = expand(np.linspace(-20, 0, (num - 1) // 2 + 1, dtype=np.float32))
+    return np.concatenate([neg, -neg[:-1][::-1]], 0).astype(np.float32)
+  neg = expand(np.linspace(-20, 0, num // 2, dtype=np.float32))
+  return np.concatenate([neg, -neg[::-1]], 0).astype(np.float32)
+
+
+class Agg(Dist):
   """Reduces an elementwise distribution over trailing event dims."""
 
   def __init__(self, inner, dims):
@@ -107,9 +242,32 @@ class Agg:
   def logp(self, value):
     return self._inner.logp(value).sum(self._axes)
 
+  def prob(self, value):
+    return self._inner.prob(value).sum(self._axes)
+
+  def loss(self, target):
+    return self._inner.loss(target).sum(self._axes)
+
   def entropy(self):
     return self._inner.entropy().sum(self._axes)
 
   def kl(self, other):
     assert isinstance(other, Agg), other
     return self._inner.kl(other._inner).sum(self._axes)
+
+
+class Draws:
+  """The random numbers of one call, drawn in call order from `gen`:
+  Gumbel noise for categorical samples, standard normal noise for
+  continuous ones. A test hands both frameworks the same noise by passing
+  an object with the same two methods."""
+
+  def __init__(self, gen, device):
+    self.gen = gen
+    self.device = device
+
+  def gumbel(self, shape):
+    return gumbel(shape, self.gen, self.device)
+
+  def normal(self, shape):
+    return torch.randn(shape, generator=self.gen, device=self.device)

@@ -1,9 +1,11 @@
 """Output heads producing distribution objects: MLPHead, DictHead, Head.
 
-Counterparts of embodied_tpu/nn/heads.py with the same parameter paths.
-The acting path needs the categorical and onehot outputs; the regression,
-binary, two-hot and normal outputs come with the train step.
+Counterparts of embodied_tpu/nn/heads.py with the same parameter paths and
+the outputs binary, categorical, onehot, mse, symlog_mse, symexp_twohot
+(zero-initialised with outscale 0) and bounded_normal.
 """
+
+import math
 
 import numpy as np
 
@@ -60,23 +62,30 @@ class Head(core.Module):
       space = Space(np.float32, (*space.shape, space.classes), 0.0, 1.0)
     self.space = space
     self.impl = output
+    self.minstd = minstd
+    self.maxstd = maxstd
     self.unimix = unimix
     kw = dict(kw, outscale=outscale, cdtype=cdtype)
-    if output == 'categorical':
-      self.logits = Linear(din, (*space.shape, space.classes), 'logits', **kw)
+    shape = space.shape
+    if output == 'binary':
+      self.logit = Linear(din, shape or 1, 'logit', **kw)
+    elif output == 'categorical':
+      self.logits = Linear(din, (*shape, space.classes), 'logits', **kw)
     elif output == 'onehot':
-      self.logits = Linear(din, space.shape, 'logits', **kw)
+      self.logits = Linear(din, shape, 'logits', **kw)
+    elif output in ('mse', 'symlog_mse'):
+      self.pred = Linear(din, shape or 1, 'pred', **kw)
+    elif output == 'symexp_twohot':
+      self.logits = Linear(din, (*shape, bins), 'logits', **kw)
+      self.binvals = dists.symexp_bins(bins)
+    elif output == 'bounded_normal':
+      self.mean = Linear(din, shape or 1, 'mean', **kw)
+      self.stddev = Linear(din, shape or 1, 'stddev', **kw)
     else:
-      raise NotImplementedError(
-          f'Head output {output!r} is not ported yet')
+      raise NotImplementedError(f'Head output {output!r} is not ported yet')
 
   def forward(self, x):
-    logits = self.logits(x)
-    if self.impl == 'categorical':
-      # Like the JAX head, the categorical output ignores unimix.
-      output = dists.Categorical(logits)
-    else:
-      output = dists.OneHot(logits, self.unimix)
+    output = getattr(self, '_' + self.impl)(x)
     # OneHot distributions already consume the trailing class axis, so one
     # fewer event dim remains to aggregate.
     dims = len(self.space.shape) - (1 if self.impl == 'onehot' else 0)
@@ -84,4 +93,43 @@ class Head(core.Module):
       output = dists.Agg(output, dims)
     assert tuple(output.pred().shape[x.ndim - 1:]) == self.space.shape, (
         self.space, self.impl, x.shape, output.pred().shape)
+    return output
+
+  def _squeeze(self, y):
+    return y[..., 0] if not self.space.shape else y
+
+  def _binary(self, x):
+    assert self.space.classes == 2, self.space
+    return dists.Binary(self._squeeze(self.logit(x)))
+
+  def _categorical(self, x):
+    # Like the JAX head, the categorical output ignores unimix.
+    logits = self.logits(x)
+    output = dists.Categorical(logits)
+    output.minent = 0.0
+    output.maxent = float(np.log(logits.shape[-1]))
+    return output
+
+  def _onehot(self, x):
+    return dists.OneHot(self.logits(x), self.unimix)
+
+  def _mse(self, x):
+    return dists.MSE(self._squeeze(self.pred(x)))
+
+  def _symlog_mse(self, x):
+    return dists.MSE(self._squeeze(self.pred(x)), core.symlog)
+
+  def _symexp_twohot(self, x):
+    return dists.TwoHot(self.logits(x), self.binvals, core.symlog,
+                        core.symexp)
+
+  def _bounded_normal(self, x):
+    mean = self._squeeze(self.mean(x)).float()
+    stddev = self._squeeze(self.stddev(x)).float()
+    lo, hi = self.minstd, self.maxstd
+    stddev = (hi - lo) * (stddev + 2.0).sigmoid() + lo
+    output = dists.Normal(mean.tanh(), stddev)
+    entropy = lambda s: 0.5 * math.log(2 * math.pi * s * s) + 0.5
+    output.minent = entropy(lo)
+    output.maxent = entropy(hi)
     return output

@@ -75,15 +75,32 @@ def shapes(B, D, H, S, A, g):
       wg=(g, dg, 3 * dg), bg=(3 * D,))
 
 
-def check_inputs(named, want, tile=16):
+def refuse_grad(named, backward):
+  """Raise if autograd would need the gradient of a kernel that has no
+  backward yet: the kernel's output would carry no graph, and autograd
+  would drop the gradient without a word. `backward` names the TPU
+  backward kernel still to be ported."""
+  if not torch.is_grad_enabled():
+    return
+  needy = [name for name, x in named.items() if x.requires_grad]
+  if needy:
+    raise RuntimeError(
+        f'{needy[0]} requires grad, but the CUDA kernel has no backward '
+        f'yet ({backward} is still to be ported). Run under torch.no_grad() '
+        "or on the plain path (kernel: off).")
+
+
+def check_inputs(named, want, tile=16, floats=()):
   """Raise unless every tensor lies on one CUDA device, is contiguous and
-  has the expected shape and dtype (float32 for the norm scales in SCALES,
-  bf16 for the rest), and the widths fit the kernel's 16-column tiles."""
+  has the expected shape and dtype (float32 for the norm scales in SCALES
+  and the names in `floats`, bf16 for the rest), and the widths fit the
+  kernel's 16-column tiles."""
   device = next(iter(named.values())).device
   for name, x in named.items():
     if x.device != device or x.device.type != 'cuda':
       raise ValueError(f'{name} on {x.device}, expected one CUDA device')
-    dtype = torch.float32 if name in SCALES else torch.bfloat16
+    dtype = (torch.float32 if name in SCALES or name in floats else
+             torch.bfloat16)
     if x.dtype != dtype:
       raise TypeError(f'{name} has dtype {x.dtype}, the kernel takes {dtype}')
     if tuple(x.shape) != want[name]:
@@ -100,30 +117,6 @@ def check_inputs(named, want, tile=16):
   return device
 
 
-def splits(cols, B, K, sms, tile=16, chunk=128):
-  """How many parts a matmul stage with `cols` output columns splits its
-  depth-K contraction into: enough blocks (16 x 16 output tiles times
-  parts) for two per SM of a card with `sms` SMs, and at least one
-  128-deep chunk per part. 1 when the batch alone gives enough tiles."""
-  tiles = (cols // tile) * -(-B // tile)
-  return max(1, min(-(-2 * sms // tiles), -(-K // chunk)))
-
-
-def core_scratch(B, D, H, S, A, g, device):
-  """Split counts of the input projection and the hidden stage, and the
-  scratch the core stages write: f32 partial sums and bf16 activations."""
-  sms = torch.cuda.get_device_properties(device).multi_processor_count
-  ns1 = splits(2 * H, B, max(D, S), sms)
-  ns2 = splits(D, B, D // g + 2 * H + A, sms)
-  f32 = dict(dtype=torch.float32, device=device)
-  bf16 = dict(dtype=torch.bfloat16, device=device)
-  scratch = (torch.empty((ns1, B, 2 * H), **f32),
-             torch.empty((B, 2 * H), **bf16),
-             torch.empty((ns2, B, D), **f32),
-             torch.empty((B, D), **bf16))
-  return (ns1, ns2), scratch
-
-
 def _stream(device):
   return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -132,11 +125,32 @@ def _ptrs(tensors):
   return [ctypes.c_void_p(x.data_ptr()) for x in tensors]
 
 
+def _pointers(tensors):
+  """A C array of the tensors' device pointers, and a pointer to it; keep
+  the array alive until the call returns."""
+  array = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+  return array, ctypes.cast(array, ctypes.c_void_p)
+
+
+def _sms(device):
+  return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def workspace(lib, symbol, ints, device):
+  """The byte workspace the C entry point carves its scratch from, sized
+  by its `<symbol>` query on the same integer arguments."""
+  fn = getattr(lib, symbol)
+  fn.argtypes = [ctypes.c_int] * len(ints)
+  fn.restype = ctypes.c_size_t
+  return torch.empty(fn(*ints), dtype=torch.uint8, device=device)
+
+
 @functools.cache
-def _entry():
-  return build.bind(
-      build.library('blockgru'), 'blockgru_core_step', 20,
-      [ctypes.c_int] * 8 + [ctypes.c_float])
+def _lib():
+  lib = build.library('blockgru')
+  build.bind(lib, 'blockgru_core_step', 6,
+             [ctypes.c_int] * 7 + [ctypes.c_float])
+  return lib
 
 
 def launch(deter, stoch_flat, actfeat, params, eps=1e-4):
@@ -149,11 +163,15 @@ def launch(deter, stoch_flat, actfeat, params, eps=1e-4):
       dict(deter=deter, stoch=stoch_flat, act=actfeat, **p),
       shapes(B, D, H, S, A, g))
   out = torch.empty((B, D), dtype=deter.dtype, device=device)
-  ns, scratch = core_scratch(B, D, H, S, A, g, device)
+  lib = _lib()
+  ints = [B, D, H, S, A, g, _sms(device)]
+  ws = workspace(lib, 'blockgru_core_workspace', ints, device)
+  array, pp = _pointers(params)
   with torch.cuda.device(device):
-    code = _entry()(
-        *_ptrs([deter, stoch_flat, actfeat, *params, out, *scratch]),
-        B, D, H, S, A, g, *ns, eps, _stream(device))
+    code = lib.blockgru_core_step(
+        *_ptrs([deter, stoch_flat, actfeat]), pp, *_ptrs([out, ws]), *ints,
+        eps, _stream(device))
+  del array
   build.check(code, 'blockgru_core_step')
   return out
 
@@ -163,6 +181,8 @@ def core_step(deter, stoch_flat, actfeat, params, eps=1e-4):
   the kernel (bf16 only) and raise on what it does not take."""
   if deter.device.type == 'cpu':
     return reference_step(deter, stoch_flat, actfeat, params, eps)
+  refuse_grad(dict(deter=deter, stoch=stoch_flat, act=actfeat,
+                   **dict(zip(FIELDS, params))), 'blockgru.fused_core_bwd')
   out = launch(deter, stoch_flat, actfeat, params, eps)
   core_step.launches += 1
   return out

@@ -2,11 +2,12 @@
 plain version.
 
 Replaces the Pallas TPU kernel embodied_tpu/ops/observe.py:fused_obs_step
-(forward only). The kernel lives in csrc/observe.cu: the core stages of
-csrc/blockgru_common.cuh, then the posterior hidden layer as the split
-product new @ wo[:D] + tokens @ wo[D:] (the concatenation is never
-materialised) and the logit layer. Its notes say what bounds it on an H100
-(weight bytes at acting batch) and what the design does about that.
+(forward only). The kernel lives in csrc/observe.cu: the core stages and
+the posterior head of csrc/blockgru_common.cuh, which the window kernels
+share; the head's hidden layer is the split product
+new @ wo[:D] + tokens @ wo[D:] (the concatenation is never materialised).
+Their notes say what bounds it on an H100 (weight bytes at acting batch)
+and what the design does about that.
 
 `obs_step` is the wrapper: a CPU tensor takes the plain version
 `reference_obs_step`; a CUDA tensor launches the kernel or raises. It
@@ -43,10 +44,11 @@ def reference_obs_step(deter, stoch_flat, actfeat, tokens, params,
 
 
 @functools.cache
-def _entry():
-  return build.bind(
-      build.library('observe'), 'observe_obs_step', 29,
-      [ctypes.c_int] * 11 + [ctypes.c_float])
+def _lib():
+  lib = build.library('observe')
+  build.bind(lib, 'observe_obs_step', 8,
+             [ctypes.c_int] * 9 + [ctypes.c_float])
+  return lib
 
 
 def launch(deter, stoch_flat, actfeat, tokens, params, eps=1e-4):
@@ -65,17 +67,17 @@ def launch(deter, stoch_flat, actfeat, tokens, params, eps=1e-4):
     raise ValueError(f'logit width {L} is not a multiple of 16')
   out = torch.empty((B, D), dtype=deter.dtype, device=device)
   logit = torch.empty((B, L), dtype=deter.dtype, device=device)
-  ns, scratch = blockgru.core_scratch(B, D, H, S, A, g, device)
-  ns3 = blockgru.splits(
-      H, B, D + K,
-      torch.cuda.get_device_properties(device).multi_processor_count)
-  preo = torch.empty((ns3, B, H), dtype=torch.float32, device=device)
-  xo = torch.empty((B, H), dtype=torch.bfloat16, device=device)
+  lib = _lib()
+  ws = blockgru.workspace(lib, 'observe_obs_workspace',
+                          [B, D, H, S, A, K, g, blockgru._sms(device)], device)
+  ints = [B, D, H, S, A, K, L, g, blockgru._sms(device)]
+  array, pp = blockgru._pointers(params)
   with torch.cuda.device(device):
-    code = _entry()(
-        *blockgru._ptrs([deter, stoch_flat, actfeat, tokens, *params, out,
-                         logit, *scratch, preo, xo]),
-        B, D, H, S, A, K, L, g, *ns, ns3, eps, blockgru._stream(device))
+    code = lib.observe_obs_step(
+        *blockgru._ptrs([deter, stoch_flat, actfeat, tokens]), pp,
+        *blockgru._ptrs([out, logit, ws]), *ints, eps,
+        blockgru._stream(device))
+  del array
   build.check(code, 'observe_obs_step')
   return out, logit
 
@@ -86,6 +88,9 @@ def obs_step(deter, stoch_flat, actfeat, tokens, params, eps=1e-4):
   raise on what it does not take."""
   if deter.device.type == 'cpu':
     return reference_obs_step(deter, stoch_flat, actfeat, tokens, params, eps)
+  blockgru.refuse_grad(
+      dict(deter=deter, stoch=stoch_flat, act=actfeat, tok=tokens,
+           **dict(zip(FIELDS, params))), 'observe.fused_obs_bwd')
   out = launch(deter, stoch_flat, actfeat, tokens, params, eps)
   obs_step.launches += 1
   return out

@@ -1,13 +1,17 @@
 """Device layer: wraps a model (an nn.Module tree) into the Agent API.
 
-The acting half of embodied_tpu/parallel/agent.py: `init_policy`,
-`policy`, `save` and `load`. Parameters live on one device, chosen at
-construction: 'cuda' unless the caller asks for 'cpu', and construction
-raises when CUDA is asked for and there is no card. `policy` takes and
-returns host numpy arrays for observations, actions and outputs; carries
-stay on the device. Each call samples from a fresh generator seeded from
-(seed, call counter), as the JAX agent folds the counter into its key.
-Train, report, meshes and the latent table come in later slices.
+The one-device part of embodied_tpu/parallel/agent.py: `init_policy`,
+`policy`, `init_train`, `train`, `save` and `load`. Parameters live on one
+device, chosen at construction: 'cuda' unless the caller asks for 'cpu',
+and construction raises when CUDA is asked for and there is no card.
+`policy` and `train` take host numpy arrays (or tensors) and return host
+numpy arrays and, for train metrics, host floats; carries stay on the
+device. Each call samples from a fresh generator seeded from (seed, call
+counter, kind), as the JAX agent folds the counter into its key. The
+store (`save`/`load`) holds parameters and state by flat JAX path: the
+optimizer's step and flat moments, the normalizers, the slow value and
+its counter. Report, meshes, the latent table, torch.compile and CUDA
+graphs come in later slices.
 """
 
 import numpy as np
@@ -39,7 +43,7 @@ class Agent(corelib.Agent):
     self.act_space = {k: v for k, v in act_space.items() if k != 'reset'}
     self.config = config
     self.seed = int(config.seed)
-    self._counters = {'policy': 0}
+    self._counters = {'policy': 0, 'train': 0}
     nn.init_params(model, self.seed)
     model.to(self.device)
     model.eval()
@@ -47,8 +51,15 @@ class Agent(corelib.Agent):
     print(f'Initialized agent store: {len(nn.store(model))} entries, '
           f'{total:,} parameters on {self.device}')
 
+  @property
+  def ext_space(self):
+    return dict(self.model.ext_space)
+
   def init_policy(self, batch_size):
     return self.model.init_policy(batch_size)
+
+  def init_train(self, batch_size):
+    return self.model.init_train(batch_size)
 
   def policy(self, carry, obs, mode='train'):
     obs = {k: self._to_device(v) for k, v in obs.items()
@@ -63,21 +74,58 @@ class Agent(corelib.Agent):
       out = {k: v.cpu().numpy() for k, v in out.items()}
     return carry, act, out
 
+  def train(self, carry, data):
+    """One train step on a (B, T + replay_context) batch. Returns (carry,
+    outs, metrics): outs['replay'] holds the refreshed packed latents and
+    stepid as numpy, metrics are host floats."""
+    data = {k: self._to_device(v) for k, v in data.items()
+            if not k.startswith('log/')}
+    carry = nn.core.tree_map(self._to_device, carry)
+    self._counters['train'] += 1
+    gen = torch.Generator(self.device).manual_seed(
+        call_seed(self.seed, self._counters['train'], salt=2_000_003))
+    carry, outs, mets = self.model.train_step(
+        carry, data, nn.dists.Draws(gen, self.device))
+    carry = nn.core.tree_map(lambda x: x.detach(), carry)
+    outs = {k: {kk: vv.detach().cpu().numpy() for kk, vv in v.items()}
+            for k, v in outs.items()}
+    keys = sorted(mets)
+    values = torch.stack([torch.as_tensor(mets[k], device=self.device)
+                          .detach().float().reshape(()) for k in keys])
+    mets = dict(zip(keys, values.cpu().tolist()))
+    return carry, outs, mets
+
+  def _example_batch(self, batch_size, length, spaces=None):
+    """Zeros of every replay key at (batch_size, length), as numpy."""
+    if spaces is None:
+      spaces = self.ext_space
+    spaces = {**self.obs_space, **self.act_space, **spaces}
+    return {key: np.zeros((batch_size, length, *space.shape), space.dtype)
+            for key, space in spaces.items() if not key.startswith('log/')}
+
   def _to_device(self, value):
     if isinstance(value, torch.Tensor):
       return value.to(self.device)
     return torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
 
   def save(self):
-    store = {k: v.detach().cpu().numpy() for k, v in nn.store(
+    # Copies: on the CPU, .numpy() would share memory with live tensors.
+    store = {k: v.detach().cpu().numpy().copy() for k, v in nn.store(
         self.model).items()}
     return {'store': store, 'counters': dict(self._counters)}
 
   def load(self, data):
     """Load a store {path: array} by flat path, such as `save()` or
-    `convert.from_jax` return. Entries the port does not hold yet (the
-    decoder, value heads and optimizer slots of a JAX store) are ignored."""
-    unused = nn.load_store(self.model, data['store'])
+    `convert.from_jax` return: parameters and state. Entries the store
+    lacks keep their values (a store made for acting has no train heads,
+    optimizer slots or normalizers); entries the port lacks are ignored.
+    Both are reported."""
+    missing = sorted(set(nn.store(self.model)) - set(data['store']))
+    unused = nn.load_store(self.model, data['store'], strict=False)
     if unused:
-      print(f'Ignoring {len(unused)} checkpoint entries the port lacks')
+      print(f'Ignoring {len(unused)} checkpoint entries the port lacks: '
+            f'{unused[:5]}')
+    if missing:
+      print(f'Keeping {len(missing)} entries the checkpoint lacks: '
+            f'{missing[:5]}')
     self._counters.update(data.get('counters', {}))

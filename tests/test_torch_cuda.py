@@ -17,9 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from embodied_tpu_torch.ops import blockgru, observe
+from embodied_tpu_torch.ops import blockgru, imagine_seq, observe, observe_seq
 
 TOL = 3e-2
+# The window kernels' gradients against autograd of the plain replay in
+# float32, by relative error ||got - want|| / ||want|| per tensor: bf16
+# operands and rounded dY products put each element off by ~2^-9, and the
+# sums over steps and rows average that down.
+GRAD_RTOL = 1e-2
 DIMS = dict(D=256, H=32, S=160, G=4, K=288, L=48)
 
 
@@ -51,7 +56,7 @@ def make(rng, card, B, D, H, S, G, K, L):
 
 def close(got, want, name):
   np.testing.assert_allclose(
-      got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=TOL,
+      got.detach().float().cpu().numpy(), want.float().cpu().numpy(), rtol=TOL,
       atol=TOL, err_msg=name)
 
 
@@ -93,3 +98,140 @@ def test_wrappers_raise_rather_than_fall_back(card):
   with pytest.raises(ValueError, match='multiple of 16'):
     observe.obs_step(*ins, params)
   assert blockgru.core_step.launches == before
+
+
+@pytest.mark.cuda
+def test_core_and_obs_step_refuse_to_drop_gradients(card):
+  params, ins = make(np.random.default_rng(7), card, 16, **DIMS)
+  core = [p.clone().requires_grad_() for p in params[:len(blockgru.FIELDS)]]
+  before = blockgru.core_step.launches, observe.obs_step.launches
+  with pytest.raises(RuntimeError, match='fused_core_bwd'):
+    blockgru.core_step(*ins[:3], core)
+  with pytest.raises(RuntimeError, match='fused_obs_bwd'):
+    observe.obs_step(ins[0].requires_grad_(), *ins[1:], params)
+  with torch.no_grad():
+    blockgru.core_step(*ins[:3], core)
+  after = blockgru.core_step.launches, observe.obs_step.launches
+  assert after == (before[0] + 1, before[1])
+
+
+SEQ = dict(T=5, B=24, D=256, H=32, S=4, C=16, G=4, K=48)
+
+
+def seq_case(rng, card, T, B, D, H, S, C, G, K):
+  L = S * C
+  params, _ = make(rng, card, B, D=D, H=H, S=L, G=G, K=K, L=L)
+  bf = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+                               device=card)
+  deter0 = bf(B, D)
+  stoch0 = torch.nn.functional.one_hot(
+      torch.tensor(rng.integers(0, C, (B, S)), device=card), C).reshape(
+          B, L).to(torch.bfloat16)
+  keep = torch.ones((T, B), device=card)
+  keep[2, 1] = 0
+  gum = -torch.log(-torch.log(torch.tensor(
+      rng.uniform(1e-6, 1 - 1e-6, (T, B, L)), dtype=torch.float32,
+      device=card)))
+  return params, deter0, stoch0, bf(T, B, H), bf(T, B, K), keep, gum
+
+
+def relerr(got, want):
+  got, want = got.float(), want.float()
+  return float((got - want).norm() / want.norm().clamp(min=1e-12))
+
+
+@pytest.mark.cuda
+def test_observe_window_forward_and_backward(card):
+  rng = np.random.default_rng(8)
+  C = SEQ['C']
+  params, deter0, stoch0, acts, toks, keep, gum = seq_case(rng, card, **SEQ)
+  before = observe_seq.observe_seq.launches, observe_seq.observe_seq_bwd.launches
+  ins = [x.clone().requires_grad_() for x in (deter0, stoch0, acts, toks)]
+  dseq, sseq, lseq = observe_seq.observe_seq(*ins, keep, gum, params, C)
+  s4 = sseq.float().reshape(*sseq.shape[:2], -1, C)
+  assert torch.equal(s4.sum(-1), torch.ones_like(s4.sum(-1)))
+  with torch.no_grad():
+    rd, rs, rl = observe_seq.reference_observe_seq(
+        deter0, stoch0, acts, toks, keep, params, C, hard=sseq)
+    _, drawn, _ = observe_seq.reference_observe_seq(
+        deter0, stoch0, acts, toks, keep, params, C, gumbel=gum)
+  close(dseq, rd, 'deter')
+  close(lseq, rl, 'logit')
+  agree = (drawn.reshape(s4.shape).argmax(-1) == s4.argmax(-1)).float()
+  assert agree.mean() >= 0.95, agree.mean()
+  ups = [torch.tensor(rng.standard_normal(x.shape), device=card).to(x.dtype)
+         for x in (dseq, sseq, lseq)]
+  torch.autograd.backward((dseq, sseq, lseq), ups)
+  f32 = lambda xs: [x.float() for x in xs]
+  want = observe_seq.reference_observe_seq_bwd(
+      *f32([deter0, stoch0]), sseq.float(), *f32([acts, toks]), keep,
+      f32(params), *f32(ups), C)
+  got = [x.grad for x in ins]
+  for name, a, b in zip(('deter0', 'stoch0', 'acts', 'toks'), got, want):
+    assert relerr(a, b) < GRAD_RTOL, (name, relerr(a, b))
+  dparams = observe_seq.observe_seq_bwd(
+      deter0, stoch0, dseq.detach(), sseq.detach(), acts, toks, keep, params,
+      *ups, C)[4]
+  for name, a, b in zip(observe_seq.FIELDS, dparams, want[4]):
+    assert relerr(a, b) < GRAD_RTOL, (name, relerr(a, b))
+  after = observe_seq.observe_seq.launches, observe_seq.observe_seq_bwd.launches
+  assert after == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('disc,adim', [(True, 5), (False, 6)])
+def test_imagination_rollout(card, disc, adim):
+  check_rollout(card, disc, adim, B=40, H=32, U=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('disc,adim', [(True, 5), (False, 6)])
+def test_imagination_rollout_on_tensor_cores(card, disc, adim):
+  """From 128 rows on, the stage products whose widths are multiples of
+  64 run on the tensor cores; 200 rows leave a partial row tile."""
+  check_rollout(card, disc, adim, B=200, H=64, U=64)
+
+
+def check_rollout(card, disc, adim, B, H, U):
+  rng = np.random.default_rng(9)
+  steps, D, S, C, G, npol = 4, 256, 4, 16, 4, 2
+  L = S * C
+  core, _ = make(rng, card, B, D=D, H=H, S=L, G=G, K=16, L=L)
+  core = core[:len(blockgru.FIELDS)]
+  # Weights of about unit gain, as the core's: the plain core rounds its
+  # pre-activations to bf16 where the kernel keeps f32, and the prior
+  # carries that into the f32 logits in proportion to its gain.
+  bf = lambda *s: torch.tensor(0.1 * rng.standard_normal(s),
+                               dtype=torch.bfloat16, device=card)
+  f32 = lambda *s: torch.tensor(1 + 0.1 * rng.standard_normal(s),
+                                dtype=torch.float32, device=card)
+  extra = [bf(D, H), bf(H), f32(H), bf(H, H), bf(H), f32(H), bf(H, L),
+           bf(L), bf(adim, H), bf(H), f32(H)]
+  for i in range(npol):
+    extra += [bf(D + L if i == 0 else U, U), bf(U), f32(U)]
+  heads = 1 if disc else 2
+  for _ in range(heads):
+    extra += [bf(U, adim), bf(adim).float()]
+  params = list(core) + extra
+  deter0 = torch.tanh(bf(B, D).float()).to(torch.bfloat16)
+  stoch0 = torch.nn.functional.one_hot(
+      torch.tensor(rng.integers(0, C, (B, S)), device=card), C).reshape(
+          B, L).to(torch.bfloat16)
+  u = lambda *s: torch.tensor(rng.uniform(1e-6, 1 - 1e-6, s),
+                              dtype=torch.float32, device=card)
+  gum = -torch.log(-torch.log(u(steps, B, L)))
+  noise = (-torch.log(-torch.log(u(steps, B, adim))) if disc else
+           torch.tensor(rng.standard_normal((steps, B, adim)),
+                        dtype=torch.float32, device=card))
+  before = imagine_seq.imagine_seq.launches
+  with torch.no_grad():
+    dseq, sseq, lseq, aseq = imagine_seq.imagine_seq(
+        deter0, stoch0, gum, noise, params, npol, disc, C)
+    rd, rs, rl, ra = imagine_seq.reference_imagine_seq(
+        deter0, stoch0, params, npol, disc, C, gumbel=gum, noise=noise,
+        hard=sseq, acts=aseq)
+  assert imagine_seq.imagine_seq.launches == before + 1
+  assert aseq.shape == (steps, B, adim)
+  close(dseq, rd, 'deter')
+  close(lseq, rl, 'logit')
+  close(aseq, ra, 'action')

@@ -131,19 +131,6 @@ def test_kernel_launch_refuses_cpu_tensors():
     observe.launch(*ins, params)
 
 
-@pytest.mark.parametrize('B,want', [(16, (9, 3, 17)), (1024, (1, 1, 1))])
-def test_split_counts_follow_batch_and_card(B, want):
-  # size12m on a 132-SM card: the input projection (512 columns, K=2048),
-  # the hidden stage (2048 columns, K=1024) and the posterior head (256
-  # columns, K=4352) split their contraction until there are two blocks
-  # per SM, and not at all when the batch gives enough row tiles.
-  got = (blockgru.splits(512, B, 2048, 132),
-         blockgru.splits(2048, B, 1024, 132),
-         blockgru.splits(256, B, 4352, 132))
-  assert got == want
-  assert blockgru.splits(512, 16, 100, 132) == 1  # one chunk deep at most
-
-
 def test_work_counts_weights_and_flops():
   nbytes, flops = observe.work(16, 2048, 256, 512, 256, 8, 2304, 512)
   weights = (2048 * 256 + 512 * 256 + 8 * 256 * 256 + 768 * 2048 +
