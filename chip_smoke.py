@@ -13,10 +13,11 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            device time (profiler), `call_ms` the CUDA-event time of a
            whole wrapper call (host launch cost included when it
            dominates), `ms_cold` the same with the L2 flushed first. The
-           window and rollout kernels are held against the plain version
-           replaying their own samples, their samples against the plain
-           draw from the same noise, and the window's backward against
-           autograd of the plain replay in float32.
+           window, rollout and imagination-step kernels are held against
+           the plain version replaying their own samples, their samples
+           against the plain draw from the same noise, and the backward
+           kernels (the window's, the core step's and the observe
+           step's) against autograd of the plain version in float32.
   slice    the acting path of size12m on dummy_disc with 16 envs, through
            make_agent -> init_policy -> Driver(agent.policy), in train and
            eval mode. The launch counts show that it ran on the kernels;
@@ -27,6 +28,17 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            backward kernels and the rollout kernel once), the first step's
            losses against the plain path (kernel: off), and a profile of
            two steps; then a short dummy_cont run (bounded normal head).
+  modes    the other kernel paths of the train step and the report, each
+           with the launch counts set to 0 before and read after: 3 train
+           steps and one Agent.report under `kernel: fused` (the per-step
+           observe kernels, forward and backward), `kernel: imag` (the
+           imagination-step kernel) and `obslayers: 2` (the core step's
+           kernels, forward and backward), each first step's losses
+           against `kernel: off`.
+  script   the port's `train` script, main.main([...]) in-process, on
+           size12m with 16 dummy_disc envs and the thread driver: it
+           trains, reports, logs and saves, then runs again on the same
+           logdir and must resume from the checkpoint.
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
@@ -106,15 +118,21 @@ def phase_device(torch):
 SOURCES = dict(  # kernel: (its source, the TPU kernel it replaces)
     core_step=('embodied_tpu_torch/csrc/blockgru.cu',
                'embodied_tpu/ops/blockgru.py:126'),
+    core_step_bwd=('embodied_tpu_torch/csrc/blockgru.cu',
+                   'embodied_tpu/ops/blockgru.py:308'),
     obs_step=('embodied_tpu_torch/csrc/observe.cu',
               'embodied_tpu/ops/observe.py:99'),
+    obs_step_bwd=('embodied_tpu_torch/csrc/observe.cu',
+                  'embodied_tpu/ops/observe.py:304'),
+    imag_step=('embodied_tpu_torch/csrc/imagine.cu',
+               'embodied_tpu/ops/imagine.py:129'),
     observe_seq=('embodied_tpu_torch/csrc/observe_seq.cu',
                  'embodied_tpu/ops/observe_seq.py:225'),
     observe_seq_bwd=('embodied_tpu_torch/csrc/observe_seq.cu',
                      'embodied_tpu/ops/observe_seq.py:437'),
     imagine_seq=('embodied_tpu_torch/csrc/imagine_seq.cu',
                  'embodied_tpu/ops/imagine_seq.py:196'))
-LIBRARIES = ('blockgru', 'observe', 'observe_seq', 'imagine_seq')
+LIBRARIES = ('blockgru', 'observe', 'observe_seq', 'imagine_seq', 'imagine')
 
 
 def phase_build():
@@ -272,6 +290,11 @@ def phase_kernels(torch):
   results += window_kernels(torch, gen, core + head, flush)
   for disc in (True, False):
     results.append(rollout_kernel(torch, gen, core, disc, flush))
+  # Checks added later draw their inputs after the earlier ones, which
+  # keep theirs.
+  results += step_backward_kernels(torch, gen, core, head, flush)
+  for B in (IMAG_STARTS, 6):
+    results.append(imag_step_kernel(torch, gen, core, B, flush))
   emit(phase='kernels', ok=True)
   return results
 
@@ -307,6 +330,88 @@ def check_row(name, row, problems):
   if problems:
     fail('kernels', f'{name}: ' + '; '.join(problems))
   return dict(row, name=name)
+
+
+def grad_check(names, got, want):
+  """Per-tensor relative errors of kernel gradients against float32
+  autograd of the plain version, the largest absolute error, and the
+  tensors off by more than GRAD_RTOL."""
+  pairs = list(zip(names, got, want))
+  rel = {n: relerr(a, b) for n, a, b in pairs}
+  err = max(float((a.float() - b.float()).abs().max()) for _, a, b in pairs)
+  problems = [f'{n} relative error {e:.4f} > {GRAD_RTOL}'
+              for n, e in rel.items() if not e <= GRAD_RTOL]
+  return rel, err, problems
+
+
+def step_backward_kernels(torch, gen, core, head, flush, B=ENVS, D=2048,
+                          H=256, S=512, K=2304, L=512, g=8):
+  """The core step's and the observe step's backward kernels at the train
+  step's per-step shapes (B = 16, under obslayers: 2 and kernel: fused),
+  against autograd of the plain versions in float32, with random upstream
+  gradients."""
+  from embodied_tpu_torch.ops import blockgru, observe
+  deter, stoch, act, tokens = step_inputs(torch, gen, B)
+  dout = torch.randn((B, D), generator=gen, device=DEV)
+  dlogit = torch.randn((B, L), generator=gen, device=DEV)
+  f32 = lambda xs: [x.float() for x in xs]
+  rows = []
+  cases = (
+      ('core_step_bwd', blockgru.core_step_bwd, blockgru.reference_step_bwd,
+       (deter, stoch, act), core, (dout,), blockgru.FIELDS,
+       blockgru.work_bwd(B, D, H, S, H, g)),
+      ('obs_step_bwd', observe.obs_step_bwd, observe.reference_obs_step_bwd,
+       (deter, stoch, act, tokens), core + head, (dout, dlogit),
+       observe.FIELDS, observe.work_bwd(B, D, H, S, H, g, K, L)))
+  for name, kernel_fn, plain_fn, ins, params, ups, fields, work in cases:
+    got = kernel_fn(*ins, params, *ups)
+    want = plain_fn(*f32(ins), f32(params), *ups)
+    names = ('deter', 'stoch', 'act', 'tok')[:len(ins)] + fields
+    rel, err, problems = grad_check(
+        names, [*got[:-1], *got[-1]], [*want[:-1], *want[-1]])
+    kernel = lambda: kernel_fn(*ins, params, *ups)
+    ups_bf = [u.to(torch.bfloat16) for u in ups]
+    plain = lambda: plain_fn(*ins, params, *ups_bf)
+    row = dict(batch=B, max_abs_err=err, relative_errors=rel,
+               rtol=GRAD_RTOL, **timings(torch, kernel, plain, flush, *work))
+    rows.append(check_row(name, row, problems))
+  return rows
+
+
+def imag_step_kernel(torch, gen, core, B, flush, D=2048, H=256, S=32):
+  """The imagination-step kernel at the train step's rollout (B = 1024,
+  under kernel: imag) and the report's open loop (B = 6), against the
+  plain version replaying its sample."""
+  from embodied_tpu_torch.nn import dists
+  from embodied_tpu_torch.ops import imagine as ops
+  C, L = CLASSES, S * CLASSES
+  mat, vec, norm = makers(torch, gen)
+  params = list(core) + [mat(D, H), vec(H), norm(H), mat(H, H), vec(H),
+                         norm(H), mat(H, L), vec(L)]
+  deter, stoch, act, _ = step_inputs(torch, gen, B, D, H, S, C)
+  gum = dists.gumbel((B, L), gen, DEV)
+  with torch.no_grad():
+    new, onehot, logit = ops.imag_step(deter, stoch, act, gum, params, C,
+                                       UNIMIX)
+    torch.cuda.synchronize()
+    rd, _, rl = ops.reference_imag_step(deter, stoch, act, gum, params, C,
+                                        UNIMIX, hard=onehot)
+  errs = [compare(torch, a, b) for a, b in ((new, rd), (logit, rl))]
+  share = agreement(onehot, rl, gum)
+  problems = []
+  if not all(ok for _, ok in errs):
+    problems.append(f'outputs off the replay: {errs}')
+  if share < SAMPLE_AGREEMENT:
+    problems.append(f'samples agree for {share:.4f} of the groups')
+  kernel = lambda: ops.imag_step(deter, stoch, act, gum, params, C, UNIMIX)
+  plain = lambda: ops.reference_imag_step(deter, stoch, act, gum, params, C,
+                                          UNIMIX)
+  with torch.no_grad():
+    row = dict(batch=B, max_abs_err=max(e for e, _ in errs), tol=TOL,
+               sample_agreement=share, min_agreement=SAMPLE_AGREEMENT,
+               **timings(torch, kernel, plain, flush,
+                         *ops.work(B, D, H, L, H, 8)))
+  return check_row('imag_step', row, problems)
 
 
 def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
@@ -358,11 +463,8 @@ def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
       *f32([deter0, stoch0, sseq, acts, toks]), keep, f32(params), *ups, C,
       UNIMIX)
   names = ('deter0', 'stoch0', 'acts', 'toks') + ops.FIELDS
-  pairs = list(zip(names, [*got[:4], *got[4]], [*want[:4], *want[4]]))
-  rel = {n: relerr(a, b) for n, a, b in pairs}
-  err = max(float((a.float() - b.float()).abs().max()) for _, a, b in pairs)
-  problems = [f'{n} relative error {e:.4f} > {GRAD_RTOL}'
-              for n, e in rel.items() if not e <= GRAD_RTOL]
+  rel, err, problems = grad_check(
+      names, [*got[:4], *got[4]], [*want[:4], *want[4]])
   kernel = lambda: ops.observe_seq_bwd(*args)
   ups_bf = [u.to(x.dtype) for u, x in zip(ups, (dseq, sseq, lseq))]
   plain = lambda: ops.reference_observe_seq_bwd(
@@ -516,7 +618,7 @@ def check_against_plain(torch, agent, last):
 
 SLICE_PATHS = (
     ('acting size12m', ['--configs', 'size12m', '--task', 'dummy_disc'],
-     200, ('train', 'eval'), 'obs_step'),
+     100, ('train', 'eval'), 'obs_step'),
     ('acting size12m, 2-layer posterior',
      ['--configs', 'size12m', '--task', 'dummy_disc',
       '--agent.dyn.rssm.obslayers', '2'], 50, ('train',), 'core_step'),
@@ -607,7 +709,7 @@ def collect_batch(agent, config):
 TRAIN_PATHS = (
     # (label, argv, warm-up steps, timed steps, check against kernel: off)
     ('train size12m', ['--configs', 'size12m', '--task', 'dummy_disc'],
-     3, 20, True),
+     3, 10, True),
     ('train size12m, dummy_cont',
      ['--configs', 'size12m', '--task', 'dummy_cont'], 1, 2, False),
 )
@@ -620,11 +722,15 @@ CHANGED_AFTER = 2
 
 
 def train_wrappers():
-  from embodied_tpu_torch.ops import blockgru, imagine_seq, observe, observe_seq
-  return dict(core_step=blockgru.core_step, obs_step=observe.obs_step,
+  from embodied_tpu_torch.ops import (
+      blockgru, imagine, imagine_seq, observe, observe_seq)
+  return dict(core_step=blockgru.core_step,
+              core_step_bwd=blockgru.core_step_bwd,
+              obs_step=observe.obs_step, obs_step_bwd=observe.obs_step_bwd,
               observe_seq=observe_seq.observe_seq,
               observe_seq_bwd=observe_seq.observe_seq_bwd,
-              imagine_seq=imagine_seq.imagine_seq)
+              imagine_seq=imagine_seq.imagine_seq,
+              imag_step=imagine.imag_step)
 
 
 def check_losses(kernel, plain):
@@ -759,6 +865,197 @@ def phase_train(torch, paths=TRAIN_PATHS):
   return launches
 
 
+# The other kernel paths of the train step: (label, flags on size12m,
+# launches per train step, launches per report of a 16 x 32 batch). Each
+# report runs the loss window (T = 32) and the open loop: the posterior
+# over 16 steps and imagination over 16 from the recorded actions, at
+# B = 6. A kernel not named launches 0 times.
+REPORT_LENGTH = 32
+OPEN_LOOP = REPORT_LENGTH // 2
+MODES = (
+    ('kernel: fused', ['--agent.dyn.rssm.kernel', 'fused'],
+     dict(obs_step=WINDOW, obs_step_bwd=WINDOW, core_step=IMAG_LENGTH),
+     dict(obs_step=REPORT_LENGTH + OPEN_LOOP,
+          core_step=IMAG_LENGTH + OPEN_LOOP)),
+    ('kernel: imag', ['--agent.dyn.rssm.kernel', 'imag'],
+     dict(observe_seq=1, observe_seq_bwd=1, imag_step=IMAG_LENGTH),
+     dict(observe_seq=2, imag_step=IMAG_LENGTH + OPEN_LOOP)),
+    ('obslayers: 2', ['--agent.dyn.rssm.obslayers', '2'],
+     dict(core_step=WINDOW, core_step_bwd=WINDOW, imagine_seq=1),
+     dict(core_step=REPORT_LENGTH + 2 * OPEN_LOOP, imagine_seq=1)),
+)
+MODE_STEPS = 3
+
+
+def phase_modes(torch, modes=MODES):
+  """Drives each mode: a batch from the acting path, then MODE_STEPS train
+  steps and one report, with the launch counts set to 0 just before each
+  and read just after; the first step's losses against the plain path
+  (kernel: off) on the same store, batch and noise."""
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  wrappers = train_wrappers()
+  counts = lambda: {k: w.launches for k, w in wrappers.items()}
+  launches = {}
+  for label, flags, per_step, per_report in modes:
+    argv = ['--configs', 'size12m', '--task', 'dummy_disc'] + flags
+    config = common.assemble_config(dmain.CONFIGS, argv)
+    agent = dmain.make_agent(config)
+    data = collect_batch(agent, config)
+    B = config.batch_size
+    carry = agent.init_train(B)
+    before = agent.save()
+    torch.cuda.reset_peak_memory_stats()
+    problems, times, steps = [], [], []
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    for i in range(MODE_STEPS):
+      start_counts = counts()
+      start = time.perf_counter()
+      carry, _, mets = agent.train(carry, data)
+      times.append((time.perf_counter() - start) * 1e3)
+      steps.append({k: v - start_counts[k] for k, v in counts().items()})
+      bad = sorted(k for k, v in mets.items() if not math.isfinite(v))
+      if bad:
+        problems.append(f'step {i}: non-finite {bad[:5]}')
+      if i == 0:
+        first = mets
+    after_train = counts()
+    want = {k: per_step.get(k, 0) for k in wrappers}
+    for i, step in enumerate(steps):
+      if step != want:
+        problems.append(f'step {i} launched {step}, expected {want}')
+    # One report on a report-length window of the same batch.
+    report_data = {k: v[:, :REPORT_LENGTH + config.replay_context]
+                   for k, v in data.items()}
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    start = time.perf_counter()
+    _, report = agent.report(agent.init_report(B), report_data)
+    report_ms = (time.perf_counter() - start) * 1e3
+    report_counts = counts()
+    want = {k: per_report.get(k, 0) for k in wrappers}
+    if report_counts != want:
+      problems.append(f'the report launched {report_counts}, expected {want}')
+    video = report.get('openloop/image')
+    if video is None or video.dtype.name != 'uint8':
+      problems.append(f'no uint8 open-loop video: {sorted(report)[:10]}')
+    bad = sorted(k for k, v in report.items()
+                 if isinstance(v, float) and not math.isfinite(v))
+    if bad:
+      problems.append(f'report: non-finite {bad[:5]}')
+    # The first step again on the plain path, from the same store.
+    now = agent.save()
+    agent.load(before)
+    agent.model.dyn.kernel = 'off'
+    plain_counts = counts()
+    _, _, plain = agent.train(agent.init_train(B), data)
+    if counts() != plain_counts:
+      problems.append('the plain path launched a kernel')
+    agent.load(now)
+    losses, bad = check_losses(first, plain)
+    if bad:
+      problems.append(f'losses off the plain path: {bad}')
+    launches[label] = dict(after_train)
+    row = dict(
+        phase='modes', mode=label, argv=argv, batch=[B, config.batch_length],
+        launches_per_step=steps[-1], launches_train=after_train,
+        launches_report=report_counts, train_steps=MODE_STEPS,
+        ms_per_train_step=times, first_step_ms=times[0],
+        report_ms=report_ms, report_video_shape=(
+            list(video.shape) if video is not None else None),
+        losses_kernel_vs_plain=losses, loss_rtol=LOSS_RTOL,
+        peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+        ok=not problems)
+    emit(**row)
+    if problems:
+      fail('modes', '; '.join(problems))
+    del agent
+    torch.cuda.empty_cache()
+  return launches
+
+
+SCRIPT_STEPS = (3000, 4500)  # env steps of the first run and the resumed one
+
+
+def phase_script(torch):
+  """The train script in-process, twice on one logdir under build/: the
+  second run must load the checkpoint and continue the step counter. The
+  log, report and save intervals are short enough that each fires in
+  both runs; the report's results are read as the script computes them."""
+  import pickle
+  import shutil
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  from embodied_tpu_torch.run import loop
+  logdir = os.path.join(ROOT, 'build', 'chip_smoke_logdir')
+  shutil.rmtree(logdir, ignore_errors=True)
+  wrappers = train_wrappers()
+  reports = []
+  reporter_call = loop.Reporter.__call__
+
+  def recorded(self):
+    mets = reporter_call(self)
+    reports.append({k: list(getattr(v, 'shape', ())) for k, v in
+                    mets.items()})
+    return mets
+  loop.Reporter.__call__ = recorded
+  rows, problems = [], []
+  previous = None
+  for steps in SCRIPT_STEPS:
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    nreports = len(reports)
+    argv = ['--configs', 'size12m', '--task', 'dummy_disc',
+            '--run.envs', str(ENVS), '--run.driver', 'thread',
+            '--logdir', logdir, '--run.steps', str(steps),
+            '--run.log_every', '2', '--run.report_every', '2',
+            '--run.save_every', '2']
+    start = time.perf_counter()
+    dmain.main(argv)
+    wall = time.perf_counter() - start
+    with open(os.path.join(logdir, 'checkpoint.pkl'), 'rb') as f:
+      saved = pickle.load(f)
+    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+      lines = [json.loads(line) for line in f]
+    # The checkpoint holds the step of the last save, a little before the
+    # run's end; the run itself steps until it reaches `steps`.
+    step, counters = int(saved['step']), saved['agent']['counters']
+    first = previous['step'] if previous else 0
+    row = dict(
+        phase='script', argv=argv, wall_s=wall, checkpoint_step=step,
+        resumed_from_step=previous and previous['step'],
+        env_steps_per_s=(steps - first) / wall,
+        train_steps=counters['train'] - (
+            previous['train'] if previous else 0),
+        agent_counters=counters,
+        launches={k: w.launches for k, w in wrappers.items()},
+        reports=len(reports) - nreports,
+        report_keys=reports[-1] if len(reports) > nreports else None,
+        logged_report_keys=len({k for l in lines for k in l
+                                if k.startswith('report/')}))
+    if not first < step <= steps:
+      problems.append(f'saved at step {step}, resumed from {first}')
+    if row['reports'] < 1 or not row['logged_report_keys']:
+      problems.append('the report did not run')
+    if row['train_steps'] < 1 or not all(
+        row['launches'][k] for k in TRAIN_KERNELS):
+      problems.append(f'no train steps on the kernels: {row["launches"]}')
+    if previous and not (step >= previous['step'] and
+                         counters['train'] > previous['train']):
+      problems.append(f'did not resume: {previous} -> {counters}, {step}')
+    if previous and row['train_steps'] > (steps - first) * 2:
+      problems.append('the resumed run retrained from the start')
+    rows.append(row)
+    emit(**row, ok=not problems)
+    previous = dict(step=step, train=counters['train'])
+  loop.Reporter.__call__ = reporter_call
+  video = (rows[-1]['report_keys'] or {}).get('openloop/image')
+  emit(phase='script', ok=not problems, open_loop_video_shape=video)
+  if problems:
+    fail('script', '; '.join(problems))
+  torch.cuda.empty_cache()
+
+
 def main():
   try:
     import torch
@@ -782,10 +1079,21 @@ def main():
   launches = phase_slice(torch)
   trained = phase_train(torch)
   launches.update({k: trained[TRAIN_PATHS[0][0]][k] for k in TRAIN_KERNELS})
+  modes = phase_modes(torch)
+  # Each kernel's launches on its own path: the core step's backward under
+  # obslayers: 2, the observe step's under kernel: fused, the imagination
+  # step under kernel: imag.
+  launches.update(
+      core_step_bwd=modes['obslayers: 2']['core_step_bwd'],
+      obs_step_bwd=modes['kernel: fused']['obs_step_bwd'],
+      imag_step=modes['kernel: imag']['imag_step'])
+  phase_script(torch)
   kernels = []
   for row in rows:
     # The list holds each kernel at its main path's shapes.
     if row['name'] in ('core_step', 'obs_step') and row['batch'] != ENVS:
+      continue
+    if row['name'] == 'imag_step' and row['batch'] != IMAG_STARTS:
       continue
     if row.get('head', 'categorical') != 'categorical':
       continue

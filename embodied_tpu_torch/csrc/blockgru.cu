@@ -1,13 +1,22 @@
-// One block-GRU core step on Hopper: the port of the Pallas TPU kernel
-// embodied_tpu/ops/blockgru.py:fused_core_step (_kernel). The stages, the
-// bound and the design are described in blockgru_common.cuh. Built with
-// nvcc into a shared library with a C interface (ops/build.py) and called
-// through ctypes by embodied_tpu_torch/ops/blockgru.py.
+// One block-GRU core step on Hopper, forward and backward: the port of the
+// Pallas TPU kernels embodied_tpu/ops/blockgru.py:fused_core_step (_kernel)
+// and fused_core_bwd (_bwd_kernel). The forward's stages, its bound and
+// its design are described in blockgru_common.cuh. Built with nvcc into a
+// shared library with a C interface (ops/build.py) and called through
+// ctypes by embodied_tpu_torch/ops/blockgru.py.
 //
 // The action features are copied into the last A columns of the hidden
 // stage's input row x = [xd, x0, act], which the core stages take whole.
+//
+// The backward is the observe window's step backward (seq_common.cuh,
+// step_bwd) at T = 1 without the posterior head: it recomputes the core,
+// runs the gradient of the new deter back through the gates, the hidden
+// layer and the input projections, and contracts the B rows into each
+// weight gradient. Bound on an H100 at B = 16 (size12m): bytes, the 8.7 MB
+// of bf16 weights read and as many gradient bytes written (about 5 us);
+// in practice the chain of about 20 small launches, as for the forward.
 
-#include "blockgru_common.cuh"
+#include "seq_common.cuh"
 
 namespace blockgru {
 
@@ -28,6 +37,15 @@ inline StepScratch carve_step(Arena& a, int B, int D, int H, int S, int A,
 }  // namespace blockgru
 
 using blockgru::bf16;
+
+namespace {
+
+// The backward's dimensions: one step of the core alone.
+seq::Dims core_dims(int B, int D, int H, int S, int A, int g, int sms) {
+  return seq::Dims{1, B, D, H, S, S, A, 0, g, 1, sms, false};
+}
+
+}  // namespace
 
 extern "C" size_t blockgru_core_workspace(int B, int D, int H, int S, int A,
                                           int g, int sms) {
@@ -52,5 +70,38 @@ extern "C" int blockgru_core_step(const void* deter, const void* stoch,
   core_stages(core_weights(params), (const bf16*)deter, (const bf16*)stoch,
               s.x, s.h, (bf16*)out, s.parts, CoreSave{}, B, D, H, S, A, g,
               sms, eps, st);
+  return (int)cudaGetLastError();
+}
+
+extern "C" size_t blockgru_core_bwd_workspace(int B, int D, int H, int S,
+                                              int A, int g, int sms) {
+  seq::Arena a{nullptr, 0};
+  seq::carve_bwd(a, core_dims(B, D, H, S, A, g, sms));
+  return a.used + 256;
+}
+
+// Inputs as blockgru_core_step, and dout (B, D) f32, the gradient of the
+// new deter. Outputs the gradients of deter, stoch and act (bf16) and
+// `grads`, the 12 weight gradients (bf16; f32 for the norm scales).
+extern "C" int blockgru_core_bwd(const void* deter, const void* stoch,
+                                 const void* act, const void* const* params,
+                                 const void* dout, void* ddeter, void* dstoch,
+                                 void* dact, void* const* grads,
+                                 void* workspace, int B, int D, int H, int S,
+                                 int A, int g, int sms, float eps,
+                                 void* stream) {
+  using namespace seq;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Dims d = core_dims(B, D, H, S, A, g, sms);
+  Arena a{(char*)workspace, 0};
+  const BwdScratch s = carve_bwd(a, d);
+  cudaMemsetAsync(s.cd, 0, sizeof(float) * B * D, st);
+  cudaMemsetAsync(s.cs, 0, sizeof(float) * B * S, st);
+  step_bwd(obs_weights(params, false), d, s, 0, (const bf16*)deter,
+           (const bf16*)stoch, (const bf16*)act, nullptr, nullptr,
+           (const float*)dout, nullptr, nullptr, (bf16*)dact, nullptr, eps,
+           0.f, st);
+  state_grads(d, s, (bf16*)ddeter, (bf16*)dstoch, st);
+  weight_grads(d, s, nullptr, grads, st);
   return (int)cudaGetLastError();
 }

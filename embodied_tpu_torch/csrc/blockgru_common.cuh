@@ -644,8 +644,9 @@ inline size_t head_parts(int B, int D, int H, int K, int sms) {
 }
 
 // The posterior head on the new deter `out` (B, D) and the tokens (B, K):
-// xo (B, H) bf16 and the logits (B, L), f32 or bf16. With `preo`, also
-// saves the hidden pre-activation and its rstd for the backward.
+// xo (B, H) bf16 and the logits (B, L), f32 or bf16 (not computed where
+// `logit` is null). With `preo`, also saves the hidden pre-activation and
+// its rstd for the backward.
 template <class Logit>
 inline void post_head(const Head& w, const bf16* out, const bf16* tok,
                       bf16* xo, Logit* logit, float* parts, float* preo,
@@ -654,7 +655,8 @@ inline void post_head(const Head& w, const bf16* out, const bf16* tok,
   const int ns = splits(H, B, D + K, sms);
   mm(XSeg{out, D, D}, XSeg{tok, K, K}, w.wo, w.bo, parts, B, H, ns, st);
   finish(parts, ns, B, H, H, 1, w.so, w.so, eps, xo, H, preo, rstdo, st);
-  mm(XSeg{xo, H, H}, XSeg{nullptr, 0, 0}, w.wl, w.bl, logit, B, L, 1, st);
+  if (logit)
+    mm(XSeg{xo, H, H}, XSeg{nullptr, 0, 0}, w.wl, w.bl, logit, B, L, 1, st);
 }
 
 }  // namespace blockgru

@@ -14,6 +14,8 @@
 //   core     the block-GRU core, new deter written to deter_seq[t]
 //   prior    two silu(rms(.)) layers and the logits, f32, to logit_seq[t]
 //   sample   unimix Gumbel-max one-hot per group, to stoch_seq[t]
+// The last three are seq_common.cuh's imag_step, which the per-step kernel
+// (imagine.cu) runs alone.
 // Step t + 1 reads its state from deter_seq[t] and stoch_seq[t].
 //
 // The action width (5 or 6 on the dummy tasks) is padded by the wrapper to
@@ -93,13 +95,11 @@ inline ImagScratch carve_imag(Arena& a, const ImagDims& d) {
   s.px = a.take<bf16>(B * d.H);
   s.py = a.take<bf16>(B * d.H);
   s.head = a.take<float>(B * d.NH);
-  size_t most = core_parts(d.B, d.D, d.H, d.L, d.A, d.g, d.sms);
+  size_t most = imag_parts(d.B, d.D, d.H, d.L, d.A, d.g, d.sms);
   const size_t stages[] = {
       (size_t)splits(d.U, d.B, d.D + d.L, d.sms) * B * d.U,
       (size_t)splits(d.U, d.B, d.U, d.sms) * B * d.U,
-      (size_t)splits(d.A, d.B, d.AP, d.sms) * B * d.A,
-      (size_t)splits(d.H, d.B, d.D, d.sms) * B * d.H,
-      (size_t)splits(d.H, d.B, d.H, d.sms) * B * d.H};
+      (size_t)splits(d.A, d.B, d.AP, d.sms) * B * d.A};
   for (size_t v : stages) most = v > most ? v : most;
   s.parts = a.take<float>(most);
   return s;
@@ -140,7 +140,8 @@ extern "C" int imagine_seq_fwd(
   auto b = [&](int i) { return (const bf16*)params[i]; };
   auto f = [&](int i) { return (const float*)params[i]; };
   const Core core = core_weights(params);
-  const int P = 12, E = 20, M = 23, HD = 23 + 3 * npol;
+  const Prior prior = prior_weights(params + 12);
+  const int E = 20, M = 23, HD = 23 + 3 * npol;
   const int lx = 2 * H + A;
   bf16* dseq = (bf16*)deter_seq;
   bf16* sseq = (bf16*)stoch_seq;
@@ -178,23 +179,10 @@ extern "C" int imagine_seq_fwd(
     mm(XSeg{s.act_in, AP, AP}, none, b(E), b(E + 1), s.parts, B, A, ns, st);
     finish(s.parts, ns, B, A, A, 1, f(E + 2), f(E + 2), eps, s.x + 2 * H, lx,
            nullptr, nullptr, st);
-    // Core.
-    core_stages(core, deter, stoch, s.x, s.h, dseq + o * D, s.parts,
-                CoreSave{}, B, D, H, L, A, g, sms, eps, st);
-    // Prior and its sample.
-    ns = splits(H, B, D, sms);
-    mm(XSeg{dseq + o * D, D, D}, none, b(P), b(P + 1), s.parts, B, H, ns,
-       st);
-    finish(s.parts, ns, B, H, H, 1, f(P + 2), f(P + 2), eps, s.px, H,
-           nullptr, nullptr, st);
-    ns = splits(H, B, H, sms);
-    mm(XSeg{s.px, H, H}, none, b(P + 3), b(P + 4), s.parts, B, H, ns, st);
-    finish(s.parts, ns, B, H, H, 1, f(P + 5), f(P + 5), eps, s.py, H,
-           nullptr, nullptr, st);
-    mm(XSeg{s.py, H, H}, none, b(P + 6), b(P + 7), lseq + o * L, B, L, 1,
-       st);
-    sample(lseq + o * L, (const float*)gum + o * L, B, L / C, C, unimix,
-           sseq + o * L, st);
+    // Core, prior and the sample (seq_common.cuh).
+    imag_step(core, prior, deter, stoch, s.x, s.h, s.px, s.py, s.parts,
+              dseq + o * D, lseq + o * L, (const float*)gum + o * L,
+              sseq + o * L, B, D, H, L, A, g, C, sms, eps, unimix, st);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// One RSSM observe step (block-GRU core plus posterior head) on Hopper: the
-// port of the Pallas TPU kernel embodied_tpu/ops/observe.py:fused_obs_step
-// (_obs_kernel).
+// One RSSM observe step (block-GRU core plus posterior head) on Hopper,
+// forward and backward: the port of the Pallas TPU kernels
+// embodied_tpu/ops/observe.py:fused_obs_step (_obs_kernel) and
+// fused_obs_bwd (_obs_bwd_kernel).
 //
 // The core runs as the stages of blockgru_common.cuh (core_stages), then
 // its posterior head (post_head): the split product
@@ -10,8 +11,16 @@
 // in bf16. Bound on an H100: bytes at acting batch, as for the core (the
 // weights are 11.1 MB in bf16 at size12m against 0.18 GFLOP at B = 16);
 // see blockgru_common.cuh for what the design does about it.
+//
+// The backward is the observe window's step backward (seq_common.cuh,
+// step_bwd) at T = 1 with no sample: the logits' gradient comes in whole
+// (the straight-through term is PyTorch's, outside). It recomputes the
+// step, runs the gradients back through the posterior head and the core,
+// and contracts the B rows into each of the 17 weight gradients. Bound on
+// an H100 at B = 16: bytes, the 11 MB of weights read and as many gradient
+// bytes written (about 7 us); in practice the chain of small launches.
 
-#include "blockgru_common.cuh"
+#include "seq_common.cuh"
 
 namespace blockgru {
 
@@ -64,5 +73,52 @@ extern "C" int observe_obs_step(const void* deter, const void* stoch,
   post_head(head_weights(params + 12), (const bf16*)out, (const bf16*)tok,
             s.xo, (bf16*)logit, s.parts, nullptr, nullptr, B, D, H, K, L,
             sms, eps, st);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// The backward's dimensions: one step with the posterior head.
+seq::Dims obs_dims(int B, int D, int H, int S, int A, int K, int L, int g,
+                   int sms) {
+  return seq::Dims{1, B, D, H, S, L, A, K, g, 1, sms, true};
+}
+
+}  // namespace
+
+extern "C" size_t observe_obs_bwd_workspace(int B, int D, int H, int S,
+                                            int A, int K, int L, int g,
+                                            int sms) {
+  seq::Arena a{nullptr, 0};
+  seq::carve_bwd(a, obs_dims(B, D, H, S, A, K, L, g, sms));
+  return a.used + 256;
+}
+
+// Inputs as observe_obs_step, and the f32 gradients of its outputs, dout
+// (B, D) and dlogit (B, L). Outputs the gradients of deter, stoch, act and
+// tok (bf16) and `grads`, the 17 weight gradients (bf16; f32 for the norm
+// scales).
+extern "C" int observe_obs_bwd(const void* deter, const void* stoch,
+                               const void* act, const void* tok,
+                               const void* const* params, const void* dout,
+                               const void* dlogit, void* ddeter,
+                               void* dstoch, void* dact, void* dtok,
+                               void* const* grads, void* workspace, int B,
+                               int D, int H, int S, int A, int K, int L,
+                               int g, int sms, float eps, void* stream) {
+  using namespace seq;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Dims d = obs_dims(B, D, H, S, A, K, L, g, sms);
+  Arena a{(char*)workspace, 0};
+  BwdScratch s = carve_bwd(a, d);
+  s.dLg = (float*)dlogit;  // no sample: the logits' gradient as it came
+  cudaMemsetAsync(s.cd, 0, sizeof(float) * B * D, st);
+  cudaMemsetAsync(s.cs, 0, sizeof(float) * B * S, st);
+  step_bwd(obs_weights(params, true), d, s, 0, (const bf16*)deter,
+           (const bf16*)stoch, (const bf16*)act, (const bf16*)tok, nullptr,
+           (const float*)dout, nullptr, (const float*)dlogit, (bf16*)dact,
+           (bf16*)dtok, eps, 0.f, st);
+  state_grads(d, s, (bf16*)ddeter, (bf16*)dstoch, st);
+  weight_grads(d, s, (const bf16*)tok, grads, st);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,10 @@
 // What the whole-window kernels observe_seq.cu (the observe window,
 // forward and backward) and imagine_seq.cu (the imagination rollout) add
-// to the core-step and posterior-head stages of blockgru_common.cuh.
+// to the core-step and posterior-head stages of blockgru_common.cuh, and
+// the steps they share with the per-step kernels: the observe step's
+// backward (step_bwd, weight_grads), which blockgru.cu and observe.cu run
+// once at T = 1, and the rollout step after the action embedding
+// (imag_step), which imagine.cu runs once.
 //
 // A window is a chain of dependent steps, and blocks on the card run in no
 // order, so the recurrent state cannot live in one block's registers the
@@ -352,6 +356,298 @@ __global__ void colsum_kernel(const float* Y, int R, int ldy, int N,
 inline void colsum(const float* Y, int R, int ldy, int N, bf16* outb,
                    float* outf, cudaStream_t st) {
   colsum_kernel<<<(N + 255) / 256, 256, 0, st>>>(Y, R, ldy, N, outb, outf);
+}
+
+// --- One observe step, its backward and the weight gradients ----------------
+//
+// The observe window (observe_seq.cu) runs these T times; the per-step
+// kernels (blockgru.cu, observe.cu) once, at T = 1.
+
+struct ObsWeights {
+  Core core;
+  Head head;
+};
+
+// The core's 12 weights, then (with `head`) the posterior head's 5.
+inline ObsWeights obs_weights(const void* const* p, bool head) {
+  return ObsWeights{core_weights(p), head ? head_weights(p + 12) : Head{}};
+}
+
+// T steps of B rows; the state entering a step is deter (D) and stoch (S),
+// the action embedding A wide, the tokens K wide, the logits L wide (groups
+// of C classes). Without `head` the step is the core alone (K unused). In
+// the window, S = L: the stoch entering a step is the previous sample.
+struct Dims {
+  int T, B, D, H, S, L, A, K, g, C, sms;
+  bool head;
+};
+
+// One observe step: mask the state and action by keep (copies where keep
+// is null) into dm, sm and the last A columns of x (B, 2H + A), run the
+// core into h and the new deter `out` and, with d.head, the posterior head
+// into xo and the f32 logits (skipped where `logit` is null). With `save`,
+// `preo` and `rstdo`, also keeps what the backward needs.
+inline void obs_step(const ObsWeights& w, const Dims& d, const bf16* deter,
+                     const bf16* stoch, const bf16* act, const bf16* tok,
+                     const float* keep, bf16* dm, bf16* sm, bf16* x, bf16* h,
+                     bf16* out, bf16* xo, float* logit, float* parts,
+                     const CoreSave& save, float* preo, float* rstdo,
+                     float eps, cudaStream_t st) {
+  const int B = d.B, D = d.D, H = d.H, S = d.S, A = d.A;
+  const int lx = 2 * H + A;
+  mask(deter, D, D, keep, dm, D, B, st);
+  mask(stoch, S, S, keep, sm, S, B, st);
+  mask(act, A, A, keep, x + 2 * H, lx, B, st);
+  core_stages(w.core, dm, sm, x, h, out, parts, save, B, D, H, S, A, d.g,
+              d.sms, eps, st);
+  if (d.head)
+    post_head(w.head, out, tok, xo, logit, parts, preo, rstdo, B, D, H, d.K,
+              d.L, d.sms, eps, st);
+}
+
+struct BwdScratch {
+  // (T B, .) rows of the recompute: the products' X operands.
+  bf16 *deterX, *stochX, *xX, *hX, *newX, *xoX;
+  // (T B, .) f32 gradients of the pre-activations: the products' dY.
+  float *dP0, *dP1, *dHp, *dG, *dPo, *dLg;
+  // (T B, .) f32 per-row terms of the norm scales' gradients.
+  float *dS0, *dS1, *dSh, *dSo;
+  // Per-step buffers; cd and cs carry the gradients of the state entering
+  // a step to the step before it.
+  float *pre01, *rstd01, *hpre, *rstdh, *gates, *preo, *rstdo, *logit;
+  float *ddir, *cd, *cs, *parts;
+};
+
+inline BwdScratch carve_bwd(Arena& a, const Dims& d) {
+  const size_t R = (size_t)d.T * d.B, B = d.B;
+  const size_t RH = d.head ? R : 0, BH = d.head ? B : 0;
+  const int D = d.D, H = d.H, S = d.S, L = d.L, lx = 2 * d.H + d.A;
+  BwdScratch s;
+  s.deterX = a.take<bf16>(R * D);
+  s.stochX = a.take<bf16>(R * S);
+  s.xX = a.take<bf16>(R * lx);
+  s.hX = a.take<bf16>(R * D);
+  s.newX = a.take<bf16>(R * D);
+  s.xoX = a.take<bf16>(RH * H);
+  s.dP0 = a.take<float>(R * H);
+  s.dP1 = a.take<float>(R * H);
+  s.dHp = a.take<float>(R * D);
+  s.dG = a.take<float>(R * 3 * D);
+  s.dPo = a.take<float>(RH * H);
+  s.dLg = a.take<float>(RH * L);
+  s.dS0 = a.take<float>(R * H);
+  s.dS1 = a.take<float>(R * H);
+  s.dSh = a.take<float>(R * D);
+  s.dSo = a.take<float>(RH * H);
+  s.pre01 = a.take<float>(B * 2 * H);
+  s.rstd01 = a.take<float>(B * 2);
+  s.hpre = a.take<float>(B * D);
+  s.rstdh = a.take<float>(B);
+  s.gates = a.take<float>(B * 3 * D);
+  s.preo = a.take<float>(BH * H);
+  s.rstdo = a.take<float>(BH);
+  s.logit = a.take<float>(BH * L);
+  s.ddir = a.take<float>(B * D);
+  s.cd = a.take<float>(B * D);
+  s.cs = a.take<float>(B * S);
+  // The split partials of the largest stage (the mmt splits of step_bwd).
+  const int dg = D / d.g, sms = d.sms, Bi = d.B;
+  size_t most = core_parts(Bi, D, H, S, d.A, d.g, sms);
+  const size_t core[] = {
+      (size_t)splits(D, Bi, 3 * dg, sms) * B * D,
+      (size_t)splits(lx, Bi, D, sms) * B * lx,
+      (size_t)splits(D, Bi, dg + H, sms) * B * D,
+      (size_t)splits(S, Bi, H, sms) * B * S};
+  for (size_t v : core) most = v > most ? v : most;
+  if (d.head) {
+    const size_t head[] = {
+        head_parts(Bi, D, H, d.K, sms),
+        (size_t)splits(H, Bi, L, sms) * B * H,
+        (size_t)splits(d.K, Bi, H, sms) * B * d.K,
+        (size_t)splits(D, Bi, H, sms) * B * D};
+    for (size_t v : head) most = v > most ? v : most;
+  }
+  s.parts = a.take<float>(most);
+  return s;
+}
+
+// The backward of one observe step, at rows o (= t B) of the (T B, .)
+// arrays: deter, stoch, act and tok are the step's inputs (the state
+// entering it unmasked), keep (null: no mask) masks them as the forward
+// did, and ddet, dsto, dlog are the f32 upstream gradients of its outputs.
+// It recomputes the step's forward, keeping the products' operands at rows
+// o of the scratch, then runs the gradients back: the straight-through
+// sample's into the logits' (where dsto is given; else s.dLg already holds
+// the logits' gradient, the per-step kernel's input), the posterior
+// head's (with d.head), the GRU gates' from ddet and the carry s.cd, the
+// hidden layer's and the input projections'. Writes dact (and dtok, with
+// the head) in bf16 at rows o, and replaces s.cd and s.cs with the f32
+// gradients of the state entering the step, masked by keep.
+inline void step_bwd(const ObsWeights& w, const Dims& d, const BwdScratch& s,
+                     size_t o, const bf16* deter, const bf16* stoch,
+                     const bf16* act, const bf16* tok, const float* keep,
+                     const float* ddet, const float* dsto, const float* dlog,
+                     bf16* dact, bf16* dtok, float eps, float unimix,
+                     cudaStream_t st) {
+  const int B = d.B, D = d.D, H = d.H, S = d.S, L = d.L, A = d.A, K = d.K;
+  const int g = d.g, sms = d.sms, lx = 2 * H + A, dg = D / g;
+  const float* kp = keep ? keep + o : nullptr;
+  const CoreSave save{s.pre01, s.rstd01, s.hpre, s.rstdh, s.gates};
+  const TSeg none = no_seg();
+  // Recompute the step's forward, keeping the products' operands.
+  obs_step(w, d, deter + o * D, stoch + o * S, act + o * A,
+           d.head ? tok + o * K : nullptr, kp, s.deterX + o * D,
+           s.stochX + o * S, s.xX + o * lx, s.hX + o * D, s.newX + o * D,
+           s.xoX + o * H, dsto ? s.logit : nullptr, s.parts, save, s.preo,
+           s.rstdo, eps, st);
+  int ns = 0;  // split partials of the head's gradient into the new deter
+  if (d.head) {
+    // The straight-through sample: its gradient joins the logits'.
+    if (dsto) {
+      const int groups = L / d.C;
+      st_bwd_kernel<<<(B * groups + 7) / 8, 256, 0, st>>>(
+          s.logit, dsto + o * L, s.cs, dlog + o * L, B, groups, d.C, unimix,
+          s.dLg + o * L);
+    }
+    // Posterior head.
+    const Head& wh = w.head;
+    ns = mmt(TSeg{s.dLg + o * L, L, 0, wh.wl, L, 0, L}, none, H, s.parts, B,
+             H, sms, st);
+    rms_bwd_kernel<<<dim3(B, 1), FIN_THREADS, 0, st>>>(
+        s.parts, ns, B, H, H, s.preo, H, s.rstdo, wh.so, wh.so,
+        s.dPo + o * H, s.dPo + o * H, H, s.dSo + o * H, s.dSo + o * H);
+    ns = mmt(TSeg{s.dPo + o * H, H, 0, wh.wo + (size_t)D * H, H, 0, H}, none,
+             K, s.parts, B, K, sms, st);
+    combine(s.parts, ns, B, K, K, nullptr, nullptr, nullptr, dtok + o * K, K,
+            st);
+    ns = mmt(TSeg{s.dPo + o * H, H, 0, wh.wo, H, 0, H}, none, D, s.parts, B,
+             D, sms, st);
+  }
+  // GRU gates.
+  gate_bwd_kernel<<<dim3((D + 255) / 256, B), 256, 0, st>>>(
+      s.parts, ns, B, D, g, ddet + o * D, s.cd, s.gates, s.deterX + o * D,
+      s.dG + o * 3 * D, s.ddir);
+  // Hidden layer.
+  ns = mmt(TSeg{s.dG + o * 3 * D, 3 * D, 3 * dg, w.core.wg, 3 * dg,
+                (size_t)dg * 3 * dg, 3 * dg},
+           none, dg, s.parts, B, D, sms, st);
+  rms_bwd_kernel<<<dim3(B, 1), FIN_THREADS, 0, st>>>(
+      s.parts, ns, B, D, D, s.hpre, D, s.rstdh, w.core.sh, w.core.sh,
+      s.dHp + o * D, s.dHp + o * D, D, s.dSh + o * D, s.dSh + o * D);
+  ns = mmt(TSeg{s.dHp + o * D, D, 0, w.core.win, D, 0, D}, none, lx, s.parts,
+           B, lx, sms, st);
+  // Input projections, and the action embedding's gradient.
+  rms_bwd_kernel<<<dim3(B, 2), FIN_THREADS, 0, st>>>(
+      s.parts, ns, B, lx, H, s.pre01, 2 * H, s.rstd01, w.core.s0, w.core.s1,
+      s.dP0 + o * H, s.dP1 + o * H, H, s.dS0 + o * H, s.dS1 + o * H);
+  combine(s.parts + 2 * H, ns, B, lx, A, nullptr, kp, nullptr, dact + o * A,
+          A, st);
+  // The state entering the step: deter through the gates' direct path,
+  // the block-diagonal hidden weights and the input projection.
+  ns = mmt(TSeg{s.dHp + o * D, D, dg, w.core.wblk, dg, (size_t)dg * dg, dg},
+           TSeg{s.dP0 + o * H, H, 0, w.core.w0, H, (size_t)dg * H, H}, dg,
+           s.parts, B, D, sms, st);
+  combine(s.parts, ns, B, D, D, s.ddir, kp, s.cd, nullptr, D, st);
+  ns = mmt(TSeg{s.dP1 + o * H, H, 0, w.core.w1, H, 0, H}, none, S, s.parts, B,
+           S, sms, st);
+  combine(s.parts, ns, B, S, S, nullptr, kp, s.cs, nullptr, S, st);
+}
+
+// The gradients of the state entering the first step, s.cd and s.cs, in
+// bf16.
+inline void state_grads(const Dims& d, const BwdScratch& s, bf16* ddeter,
+                        bf16* dstoch, cudaStream_t st) {
+  combine(s.cd, 1, d.B, d.D, d.D, nullptr, nullptr, nullptr, ddeter, d.D,
+          st);
+  combine(s.cs, 1, d.B, d.S, d.S, nullptr, nullptr, nullptr, dstoch, d.S,
+          st);
+}
+
+// The weight gradients over all T B rows of the scratch, into `grads` in
+// FIELDS order (bf16; f32 for the norm scales): the core's 12, then with
+// d.head the posterior head's 5 (tok (T B, K) is their X operand). One
+// wgrad per weight contracts all rows at once (no atomics: the order of
+// the sum is fixed), one colsum per bias or norm scale.
+inline void weight_grads(const Dims& d, const BwdScratch& s, const bf16* tok,
+                         void* const* grads, cudaStream_t st) {
+  const int R = d.T * d.B, D = d.D, H = d.H, S = d.S, L = d.L, K = d.K;
+  const int g = d.g, dg = D / g, lx = 2 * H + d.A;
+  auto gb = [&](int i) { return (bf16*)grads[i]; };
+  auto gf = [&](int i) { return (float*)grads[i]; };
+  wgrad(s.deterX, D, 0, s.dP0, H, 0, R, D, H, 1, gb(0), H, 0, st);
+  colsum(s.dP0, R, H, H, gb(1), nullptr, st);
+  colsum(s.dS0, R, H, H, nullptr, gf(2), st);
+  wgrad(s.stochX, S, 0, s.dP1, H, 0, R, S, H, 1, gb(3), H, 0, st);
+  colsum(s.dP1, R, H, H, gb(4), nullptr, st);
+  colsum(s.dS1, R, H, H, nullptr, gf(5), st);
+  wgrad(s.deterX, D, dg, s.dHp, D, dg, R, dg, dg, g, gb(6), dg,
+        (size_t)dg * dg, st);
+  colsum(s.dHp, R, D, D, gb(7), nullptr, st);
+  wgrad(s.xX, lx, 0, s.dHp, D, 0, R, lx, D, 1, gb(8), D, 0, st);
+  colsum(s.dSh, R, D, D, nullptr, gf(9), st);
+  wgrad(s.hX, D, dg, s.dG, 3 * D, 3 * dg, R, dg, 3 * dg, g, gb(10), 3 * dg,
+        (size_t)dg * 3 * dg, st);
+  colsum(s.dG, R, 3 * D, 3 * D, gb(11), nullptr, st);
+  if (!d.head) return;
+  wgrad(s.newX, D, 0, s.dPo, H, 0, R, D, H, 1, gb(12), H, 0, st);
+  wgrad(tok, K, 0, s.dPo, H, 0, R, K, H, 1, gb(12) + (size_t)D * H, H, 0, st);
+  colsum(s.dPo, R, H, H, gb(13), nullptr, st);
+  colsum(s.dSo, R, H, H, nullptr, gf(14), st);
+  wgrad(s.xoX, H, 0, s.dLg, L, 0, R, H, L, 1, gb(15), L, 0, st);
+  colsum(s.dLg, R, L, L, gb(16), nullptr, st);
+}
+
+// --- One imagination step after the action embedding ------------------------
+//
+// The per-step kernel (imagine.cu) runs it once; the whole-horizon rollout
+// (imagine_seq.cu) once per step, after its policy and action embedding.
+
+// The prior's weights in ops/imagine.py FIELDS order (after the core's 12).
+struct Prior {
+  const bf16 *w0, *b0;
+  const float* s0;
+  const bf16 *w1, *b1;
+  const float* s1;
+  const bf16 *wl, *bl;
+};
+
+inline Prior prior_weights(const void* const* p) {
+  auto b = [&](int i) { return (const bf16*)p[i]; };
+  auto f = [&](int i) { return (const float*)p[i]; };
+  return Prior{b(0), b(1), f(2), b(3), b(4), f(5), b(6), b(7)};
+}
+
+// Floats of split partials imag_step needs at most.
+inline size_t imag_parts(int B, int D, int H, int L, int A, int g, int sms) {
+  size_t most = core_parts(B, D, H, L, A, g, sms);
+  const size_t prior[] = {(size_t)splits(H, B, D, sms) * B * H,
+                          (size_t)splits(H, B, H, sms) * B * H};
+  for (size_t v : prior) most = v > most ? v : most;
+  return most;
+}
+
+// The core on (deter, stoch), with the action embedding in the last A
+// columns of x (B, 2H + A), writing the new deter to `out`; the two-layer
+// prior and its f32 logits (B, L); and the unimix Gumbel-max sample of
+// each group of C classes with the noise gum (B, L), written as one-hots.
+// h (B, D), px and py (B, H) and parts (imag_parts floats) are scratch.
+inline void imag_step(const Core& core, const Prior& p, const bf16* deter,
+                      const bf16* stoch, bf16* x, bf16* h, bf16* px,
+                      bf16* py, float* parts, bf16* out, float* logit,
+                      const float* gum, bf16* onehot, int B, int D, int H,
+                      int L, int A, int g, int C, int sms, float eps,
+                      float unimix, cudaStream_t st) {
+  const XSeg none{nullptr, 0, 0};
+  core_stages(core, deter, stoch, x, h, out, parts, CoreSave{}, B, D, H, L,
+              A, g, sms, eps, st);
+  int ns = splits(H, B, D, sms);
+  mm(XSeg{out, D, D}, none, p.w0, p.b0, parts, B, H, ns, st);
+  finish(parts, ns, B, H, H, 1, p.s0, p.s0, eps, px, H, nullptr, nullptr, st);
+  ns = splits(H, B, H, sms);
+  mm(XSeg{px, H, H}, none, p.w1, p.b1, parts, B, H, ns, st);
+  finish(parts, ns, B, H, H, 1, p.s1, p.s1, eps, py, H, nullptr, nullptr, st);
+  mm(XSeg{py, H, H}, none, p.wl, p.bl, logit, B, L, 1, st);
+  sample(logit, gum, B, L / C, C, unimix, onehot, st);
 }
 
 }  // namespace seq

@@ -1,17 +1,26 @@
 """Entry-point wiring shared by agent packages: config assembly from
-configs.yaml presets and CLI flags, env construction by task prefix with
-the standard wrapper stack, and the agent's config view.
+configs.yaml presets and CLI flags with logdir templating, env
+construction by task prefix with the standard wrapper stack, the agent's
+config view, the replay, stream and logger factories, and script
+dispatch.
 
-The acting-path subset of embodied_tpu/models/common.py. Only the Dummy
-env is ported so far.
+A copy of embodied_tpu/models/common.py with the scripts, envs and outputs
+the port has: the single-host `train` script (the others raise), the
+Dummy env.
 """
 
 import importlib
+import os
+from functools import partial as bind
 
 import yaml
 
-from .. import core
-from ..utils import Config, Flags
+from .. import core, run
+from ..core import selectors as selectorlib
+from ..core import streams as streamlib
+from ..utils import (
+    Config, Counter, Flags, JSONLOutput, Logger, Path, ScoreOutput,
+    TensorBoardOutput, TerminalOutput, WandBOutput, timer, timestamp)
 
 ENV_CTORS = {
     'dummy': 'embodied_tpu_torch.envs.dummy:Dummy',
@@ -25,17 +34,68 @@ def assemble_config(configs_path, argv=None):
   config = Config(configs['defaults'])
   for name in parsed.configs:
     config = config.update(configs[name])
-  return Flags(config).parse(other)
+  config = Flags(config).parse(other)
+  config = config.update(
+      logdir=config.logdir.format(timestamp=timestamp()))
+  if 'JOB_COMPLETION_INDEX' in os.environ:
+    config = config.update(replica=int(os.environ['JOB_COMPLETION_INDEX']))
+  return config
+
+
+# The JAX package's scripts that wait for later slices of the port.
+LATER_SCRIPTS = ('train_eval', 'eval_only', 'pretrain', 'parallel',
+                 'parallel_env', 'parallel_envs', 'parallel_replay')
+
+
+def run_script(config, make_agent_fn):
+  print('Replica:', config.replica, '/', config.replicas)
+  logdir = Path(config.logdir)
+  print('Logdir:', logdir)
+  print('Run script:', config.script)
+  if config.script in LATER_SCRIPTS:
+    raise NotImplementedError(
+        f'Script {config.script!r} is not ported yet; it comes in a later '
+        'slice of the port. The port runs script: train.')
+  if config.script != 'train':
+    raise NotImplementedError(config.script)
+  logdir.mkdir()
+  config.save(logdir / 'config.yaml')
+  timer.enable(config.logger.timer)
+
+  args = Config(
+      **dict(config.run),
+      replica=config.replica,
+      replicas=config.replicas,
+      logdir=config.logdir,
+      batch_size=config.batch_size,
+      batch_length=config.batch_length,
+      report_length=config.report_length,
+      consec_train=config.consec_train,
+      consec_report=config.consec_report,
+      replay_context=config.replay_context,
+  )
+  run.train(
+      bind(make_agent_fn, config),
+      bind(make_replay, config, 'replay'),
+      bind(make_env, config),
+      bind(make_stream, config),
+      bind(make_logger, config),
+      args)
 
 
 def agent_config(config):
   return Config(
       agent=dict(config.agent),
+      logdir=config.logdir,
       seed=config.seed,
       torch=dict(config.torch),
       batch_size=config.batch_size,
       batch_length=config.batch_length,
       replay_context=config.replay_context,
+      replay_size=float(config.replay.size) if 'replay' in config else 1e6,
+      report_length=config.report_length,
+      replica=config.replica,
+      replicas=config.replicas,
   )
 
 
@@ -62,6 +122,56 @@ def make_env(config, index, **overrides):
   return wrap_env(env, config)
 
 
+def make_logger(config):
+  step = Counter()
+  logdir = config.logdir
+  multiplier = dict(config.env).get(
+      config.task.split('_')[0], {}).get('repeat', 1)
+  outputs = [TerminalOutput(config.logger.filter, 'Agent')]
+  for output in config.logger.outputs:
+    if output == 'jsonl':
+      outputs.append(JSONLOutput(logdir, 'metrics.jsonl'))
+      outputs.append(ScoreOutput(
+          logdir, task=config.task, method=config.method, seed=config.seed))
+    elif output == 'tensorboard':
+      outputs.append(TensorBoardOutput(logdir, config.logger.fps))
+    elif output == 'wandb':
+      outputs.append(WandBOutput(logdir, name='/'.join(
+          str(logdir).split('/')[-2:])))
+    elif output == 'terminal':
+      pass  # Always included above.
+    elif output == 'scope':
+      pass  # Metrics viewer not bundled; jsonl covers the data.
+    else:
+      raise NotImplementedError(output)
+  return Logger(step, outputs, multiplier)
+
+
+def make_replay(config, folder, mode='train'):
+  batlen = config.batch_length if mode == 'train' else config.report_length
+  consec = config.consec_train if mode == 'train' else config.consec_report
+  capacity = config.replay.size if mode == 'train' else config.replay.size / 10
+  length = consec * batlen + config.replay_context
+  assert config.batch_size * length <= capacity
+
+  directory = Path(config.logdir) / folder
+  if config.replicas > 1:
+    directory = directory / f'{config.replica:05}'
+  kwargs = dict(
+      length=length, capacity=int(capacity), online=config.replay.online,
+      chunksize=config.replay.chunksize, directory=directory)
+
+  fracs = dict(config.replay.fracs)
+  if fracs.get('uniform', 1.0) < 1 and mode == 'train':
+    prio = dict(config.replay.prio)
+    kwargs['selector'] = selectorlib.Mixture(dict(
+        uniform=selectorlib.Uniform(),
+        priority=selectorlib.Prioritized(**prio),
+        recency=selectorlib.Recency(config.replay.recexp),
+    ), fracs)
+  return core.Replay(**kwargs)
+
+
 def wrap_env(env, config):
   for name, space in env.act_space.items():
     if not space.discrete:
@@ -72,3 +182,28 @@ def wrap_env(env, config):
     if not space.discrete:
       env = core.wrappers.ClipAction(env, name)
   return env
+
+
+def make_stream(config, replay, mode):
+  length = config.batch_length if mode == 'train' else config.report_length
+  consec = config.consec_train if mode == 'train' else config.consec_report
+  # Validate the Consec window contract here, on the main thread, with the
+  # config knobs in the message.
+  need = consec * length + config.replay_context
+  if replay.length < need:
+    raise ValueError(
+        f"Stream '{mode}' needs sampled windows of consec*length+context="
+        f"{consec}*{length}+{config.replay_context}={need} steps, but the "
+        f"replay it draws from stores sequences of {replay.length}. "
+        f"Decrease report_length/consec_report or increase "
+        f"batch_length/consec_train.")
+  fn = bind(replay.sample, config.batch_size, mode)
+  stream = streamlib.Stateless(fn)
+  stream = streamlib.Consec(
+      stream,
+      length=length,
+      consec=consec,
+      prefix=config.replay_context,
+      strict=(mode == 'train'),
+      contiguous=True)
+  return stream

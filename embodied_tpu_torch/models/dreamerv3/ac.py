@@ -2,13 +2,13 @@
 
 Counterpart of embodied_tpu/models/dreamerv3/ac.py: TD(lambda) returns,
 the imagination policy and value losses, the replay value loss and their
-diagnostics. The return recurrence runs as a reverse loop over time, where
-JAX solves it with an associative scan: the same affine recurrence, summed
-in another order. `openloop_video` belongs to the report path and is not
-ported yet.
+diagnostics, and the report's open-loop video. The return recurrence runs
+as a reverse loop over time, where JAX solves it with an associative scan:
+the same affine recurrence, summed in another order.
 """
 
 import torch
+import torch.nn.functional as F
 
 
 def lambda_return(last, term, rew, val, boot, disc, lam):
@@ -116,3 +116,26 @@ def _diagnostics(adv, rew, con, weight, ret, val, slowval, tar):
   metrics['ret_max'] = ret.max()
   metrics['ret_rate'] = (ret.abs() >= 1.0).float().mean()
   return metrics
+
+
+def openloop_video(true, obs_recon, img_recon, split):
+  """Side-by-side truth/prediction/error video with phase-colored borders,
+  (T, H + 4, B (W + 4), C) uint8 from (B, T, H, W, C) frames: truth uint8,
+  reconstructions in [0, 1]. The first `split` frames (green border) are
+  posterior reconstructions; the rest (red border) are open-loop
+  imagination."""
+  pred = torch.cat([obs_recon, img_recon], 1)
+  pred = torch.clamp(pred * 255, 0, 255).to(torch.uint8)
+  error = ((pred.int() - true.int() + 255) // 2).to(torch.uint8)
+  panel = torch.cat([true, pred, error], 2)
+  frames = panel.shape[1]
+  panel = F.pad(panel, (0, 0, 2, 2, 2, 2))
+  interior = torch.zeros(panel.shape, dtype=torch.bool, device=panel.device)
+  interior[:, :, 2:-2, 2:-2, :] = True
+  colors = lambda c: torch.tensor(c, dtype=torch.uint8, device=panel.device)
+  edge = torch.where(
+      (torch.arange(frames, device=panel.device) < split)[:, None],
+      colors([0, 255, 0]), colors([255, 0, 0]))
+  panel = torch.where(interior, panel, edge[None, :, None, None, :])
+  B, T, H, W, C = panel.shape
+  return panel.permute(1, 2, 0, 3, 4).reshape(T, H, B * W, C)

@@ -1,11 +1,26 @@
-"""DreamerV3 entry point of the port: builds the agent for a config.
+"""DreamerV3 entry point of the port: builds the agent for a config and
+runs a script.
+
+    python -m embodied_tpu_torch.models.dreamerv3.main --configs size12m \
+        --task dummy_disc --logdir DIR --run.driver thread   # on the card
+    python -m embodied_tpu_torch.models.dreamerv3.main --configs debug \
+        --task dummy_disc --logdir DIR                      # on the CPU
+
+Or from Python:
 
     config = common.assemble_config(CONFIGS, ['--configs', 'size12m'])
     agent = make_agent(config)               # on the card
     agent = make_agent(config, device='cpu')  # on the CPU
 """
 
+import os
 import pathlib
+import sys
+
+if __name__ == '__main__' and __package__ is None:
+  sys.path.insert(0, os.path.abspath(
+      os.path.join(os.path.dirname(__file__), '..', '..', '..')))
+  __package__ = 'embodied_tpu_torch.models.dreamerv3'
 
 from ... import nn
 from ... import parallel
@@ -27,3 +42,12 @@ def make_agent(config, device=None):
   model = Model(obs_space, act_space, acfg,
                 cdtype=nn.DTYPES[config.torch.compute_dtype])
   return parallel.Agent(model, obs_space, act_space, acfg, device)
+
+
+def main(argv=None):
+  config = common.assemble_config(CONFIGS, argv)
+  common.run_script(config, make_agent)
+
+
+if __name__ == '__main__':
+  main()

@@ -7,8 +7,11 @@ optimizer, with the JAX store's parameter and state paths. `policy` acts;
 `train_step` resumes the window's carry from stored latents, computes the
 world-model, imagination and replay-value losses, differentiates them and
 updates parameters, slots, normalizers and the slow value in place. (It is
-not called `train`, which torch.nn.Module already defines.) The report
-path comes in a later slice.
+not called `train`, which torch.nn.Module already defines.) `report`
+computes the losses without updates, optionally a gradient norm per loss,
+and the open-loop video: the posterior over the first half of the window,
+imagination over the second half driven by the recorded actions, both
+decoded.
 """
 
 import numpy as np
@@ -133,6 +136,9 @@ class Model(nn.Module):
             {k: zeros(v) for k, v in self.act_space.items()})
 
   def init_train(self, batch_size):
+    return self.init_policy(batch_size)
+
+  def init_report(self, batch_size):
     return self.init_policy(batch_size)
 
   # --- Policy -------------------------------------------------------------
@@ -373,6 +379,58 @@ class Model(nn.Module):
         self.valnorm, update=training, horizon=self.acfg.horizon,
         **dict(self.acfg.repl_loss))
     return losses, metrics
+
+  # --- Report -------------------------------------------------------------
+
+  def report(self, carry, data, draws):
+    """Metrics of a (B, T + replay_context) batch without updates: the
+    losses and their metrics, under `report_gradnorms` the norm of each
+    loss key's gradient over the trained parameters, and for each image
+    key the open-loop video of the first min(6, B) sequences. Returns
+    (carry, metrics)."""
+    if not self.acfg.report:
+      return carry, {}
+    carry, obs, prevact, _ = self._resume_window(carry, data)
+    _, dyn_carry, dec_carry = carry
+    B, T = obs['is_first'].shape
+    RB = min(6, B)
+    gradnorms = bool(self.acfg.report_gradnorms)
+    with torch.set_grad_enabled(gradnorms):
+      _, (new_carry, _, outs, mets) = self.loss(
+          carry, obs, prevact, False, draws)
+    metrics = dict(mets)
+    if gradnorms:
+      # One backward per key through the graph of one loss computation:
+      # the JAX model recomputes the loss per key with the same draws.
+      params = [p for p in self.parameters() if p.requires_grad]
+      for key in self.scales:
+        grads = torch.autograd.grad(
+            outs['losses'][key].float().mean(), params, retain_graph=True,
+            allow_unused=True)
+        metrics[f'gradnorm/{key}'] = torch.sqrt(sum(
+            (g.float().square().sum() for g in grads if g is not None),
+            torch.zeros((), device=self.device)))
+    observed = lambda xs: {k: v[:RB, :T // 2] for k, v in xs.items()}
+    imagined = lambda xs: {k: v[:RB, T // 2:] for k, v in xs.items()}
+    with torch.no_grad():
+      dyn_carry = {k: v[:RB] for k, v in dyn_carry.items()}
+      dec_carry = {k: v[:RB] for k, v in dec_carry.items()}
+      reset = obs['is_first'][:RB]
+      dyn_carry, _, obsfeat = self.dyn.observe(
+          dyn_carry, outs['tokens'][:RB, :T // 2], observed(prevact),
+          reset[:, :T // 2], training=False, draws=draws)
+      _, imgfeat, _ = self.dyn.imagine(
+          dyn_carry, imagined(prevact), T - T // 2, training=False,
+          draws=draws)
+      _, _, obsrecons = self.dec(dec_carry, obsfeat, reset[:, :T // 2])
+      _, _, imgrecons = self.dec(
+          dec_carry, imgfeat, torch.zeros_like(reset[:, T // 2:]))
+      for key in self.dec.imgkeys:
+        metrics[f'openloop/{key}'] = ac.openloop_video(
+            obs[key][:RB], obsrecons[key].pred(), imgrecons[key].pred(),
+            split=T // 2)
+    lastact = {k: data[k][:, -1] for k in self.act_space}
+    return (*new_carry, lastact), metrics
 
   # --- Replay context -----------------------------------------------------
 

@@ -13,11 +13,15 @@ the Hopper kernels for CUDA tensors:
   - the observe step through `ops.observe.obs_step`, a core step alone
     through `ops.blockgru.core_step`;
   - under auto/imag, the whole observe window through
-    `ops.observe_seq.observe_seq` (forward and backward kernels);
+    `ops.observe_seq.observe_seq` (forward and backward kernels); under
+    fused, a window runs step by step through `obs_step` (forward and
+    backward kernels);
   - under auto, with a policy whose shape the kernel takes, the whole
-    imagination rollout through `ops.imagine_seq.imagine_seq`.
-Otherwise a window or a rollout runs step by step. `kernel: off` keeps
-the plain layer-by-layer path. Random numbers come from a `dists.Draws`
+    imagination rollout through `ops.imagine_seq.imagine_seq`; under
+    imag, a rollout step (core, prior and sample) through
+    `ops.imagine.imag_step`.
+Otherwise a window or a rollout runs step by step, its core steps
+through `core_step`. `kernel: off` keeps the plain layer-by-layer path. Random numbers come from a `dists.Draws`
 (or, for a single step, a generator or the noise itself).
 """
 
@@ -29,7 +33,7 @@ import torch.nn.functional as F
 
 from ... import nn
 from ...nn import dists
-from ...ops import blockgru, imagine_seq, observe, observe_seq
+from ...ops import blockgru, imagine, imagine_seq, observe, observe_seq
 from ...utils import Space
 
 
@@ -250,31 +254,53 @@ class RSSM(nn.Module):
   # --- Imagination path ---------------------------------------------------
 
   def imagine_single(self, carry, policy, draws):
-    """One rollout step: `policy(carry, draws)` samples the action from the
-    carry (its gradient stopped), then the core, the prior and a sample."""
-    action = policy({k: v.detach() for k, v in carry.items()}, draws)
+    """One rollout step: the action from `policy(carry, draws)` (its
+    gradient stopped at the carry) or, where `policy` is not callable, the
+    given action dict; then the core, the prior and a sample. The noise is
+    drawn in that order (the policy's, then the state's)."""
+    if callable(policy):
+      action = policy({k: v.detach() for k, v in carry.items()}, draws)
+    else:
+      action = policy
     actfeat = self._action_feat(self.cast(action))
-    deter = self._core(carry['deter'], carry['stoch'], actfeat, kernel=True)
-    logit = self._prior(deter)
-    B = deter.shape[0]
-    stoch = self.cast(self._dist(logit).sample(
-        noise=draws.gumbel((B, self.stoch, self.classes))))
+    B = actfeat.shape[0]
+    S, C = self.stoch, self.classes
+    gum = draws.gumbel((B, S * C))
+    if self._imag_kernel_eligible():
+      # One call for the core, the prior and the sample (ops/imagine.py).
+      deter, stoch, logit = imagine.imag_step(
+          self.cast(carry['deter']).contiguous(),
+          self.cast(carry['stoch'].reshape((B, -1))).contiguous(),
+          self.cast(actfeat).contiguous(), gum, self._imag_params(), C,
+          self.unimix)
+      stoch = stoch.reshape((B, S, C))
+      logit = logit.reshape((B, S, C))
+    else:
+      deter = self._core(carry['deter'], carry['stoch'], actfeat,
+                         kernel=True)
+      logit = self._prior(deter)
+      stoch = self._dist(logit).sample(noise=gum.reshape((B, S, C)))
     carry = self.cast(dict(deter=deter, stoch=stoch))
     feat = self.cast(dict(deter=deter, stoch=stoch, logit=logit))
     return carry, (feat, action)
 
   def imagine(self, carry, policy, length, training=False, draws=None):
-    """Roll out `length` steps from the carry with `policy`. Takes the
-    whole-horizon kernel when eligible and the policy offers a
-    `fused_spec()`, else a step at a time."""
+    """Roll out `length` steps from the carry with `policy`: a callable
+    that samples each step's action, or a dict of action sequences
+    (B, length, ...), as the report's open loop replays the recorded
+    actions. A callable takes the whole-horizon kernel when eligible and
+    it offers a `fused_spec()`; otherwise the rollout runs a step at a
+    time."""
     carry = self.cast(carry)
-    if self._imag_seq_eligible():
+    if callable(policy) and self._imag_seq_eligible():
       spec = getattr(policy, 'fused_spec', lambda: None)()
       if spec is not None:
         return self._imagine_fused(carry, spec, length, draws)
     feats, acts = [], []
-    for _ in range(length):
-      carry, (feat, action) = self.imagine_single(carry, policy, draws)
+    for t in range(length):
+      step = policy if callable(policy) else {
+          k: v[:, t] for k, v in policy.items()}
+      carry, (feat, action) = self.imagine_single(carry, step, draws)
       feats.append(feat)
       acts.append(action)
     stack = lambda xs: {k: torch.stack([x[k] for x in xs], 1) for k in xs[0]}
@@ -347,6 +373,13 @@ class RSSM(nn.Module):
     structure of the fused observe step, under auto or imag (`fused`
     keeps the per-step kernels)."""
     return self.kernel in ('auto', 'imag') and self._obs_kernel_eligible()
+
+  def _imag_kernel_eligible(self):
+    """Whether a rollout step's core, prior and sample run as one kernel
+    call (ops/imagine.py): the core's structure and the 2-layer prior,
+    under imag."""
+    return (self.kernel == 'imag' and self._kernel_eligible() and
+            len(self.img_layers) == 2)
 
   def _imag_seq_eligible(self):
     """Whether the whole rollout may run as one kernel call (the policy

@@ -1,14 +1,22 @@
-"""One block-diagonal GRU core step: a CUDA kernel and its plain version.
+"""One block-diagonal GRU core step: CUDA kernels for its forward and
+backward, and their plain versions.
 
-Replaces the Pallas TPU kernel embodied_tpu/ops/blockgru.py:fused_core_step
-(forward only; the backward comes with the train step). The kernel lives
-in csrc/blockgru.cu and csrc/blockgru_common.cuh, whose notes give the
-stages, what bounds it on an H100 (weight bytes at acting batch) and what
-its design does about that.
+Replaces the Pallas TPU kernels embodied_tpu/ops/blockgru.py:
+fused_core_step and fused_core_bwd. The kernels live in csrc/blockgru.cu
+(the forward's stages in csrc/blockgru_common.cuh, the backward's in
+csrc/seq_common.cuh, shared with the observe window), whose notes give
+what bounds them on an H100 (weight bytes at acting batch) and what the
+design does about that.
 
 `core_step` is the wrapper: a CPU tensor takes the plain version
-`reference_step`; a CUDA tensor launches the kernel or raises. It counts
-its launches in `core_step.launches`.
+`reference_step`, which autograd differentiates; a CUDA tensor launches
+the forward kernel or raises. Where autograd needs the step's gradient,
+the call runs a `torch.autograd.Function` that keeps the inputs and whose
+backward calls `core_step_bwd`, which launches the backward kernel (plain
+version `reference_step_bwd`, autograd of `reference_step`). Without a
+gradient to take (under torch.no_grad, or on inputs that need none) the
+kernel runs alone and keeps nothing. Each wrapper counts its launches in
+`.launches`.
 
 Weight layout (as rssm.RSSM's parameters; FIELDS order):
   w0 (D, H),  b0 (H),  s0 (H)    dynin0 + rms scale     (deter proj)
@@ -75,19 +83,9 @@ def shapes(B, D, H, S, A, g):
       wg=(g, dg, 3 * dg), bg=(3 * D,))
 
 
-def refuse_grad(named, backward):
-  """Raise if autograd would need the gradient of a kernel that has no
-  backward yet: the kernel's output would carry no graph, and autograd
-  would drop the gradient without a word. `backward` names the TPU
-  backward kernel still to be ported."""
-  if not torch.is_grad_enabled():
-    return
-  needy = [name for name, x in named.items() if x.requires_grad]
-  if needy:
-    raise RuntimeError(
-        f'{needy[0]} requires grad, but the CUDA kernel has no backward '
-        f'yet ({backward} is still to be ported). Run under torch.no_grad() '
-        "or on the plain path (kernel: off).")
+def needs_grad(*tensors):
+  """Whether autograd will ask for the gradient of a call on `tensors`."""
+  return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
 def check_inputs(named, want, tile=16, floats=()):
@@ -150,7 +148,16 @@ def _lib():
   lib = build.library('blockgru')
   build.bind(lib, 'blockgru_core_step', 6,
              [ctypes.c_int] * 7 + [ctypes.c_float])
+  build.bind(lib, 'blockgru_core_bwd', 10,
+             [ctypes.c_int] * 7 + [ctypes.c_float])
   return lib
+
+
+def check_widths(**widths):
+  """Raise unless each width fits the backward's 16-column tiles."""
+  for name, width in widths.items():
+    if width % 16:
+      raise ValueError(f'{name} width {width} is not a multiple of 16')
 
 
 def launch(deter, stoch_flat, actfeat, params, eps=1e-4):
@@ -176,14 +183,92 @@ def launch(deter, stoch_flat, actfeat, params, eps=1e-4):
   return out
 
 
+def reference_step_bwd(deter, stoch_flat, actfeat, params, dout, eps=1e-4):
+  """Plain version of the backward: autograd of `reference_step`. Returns
+  (ddeter, dstoch, dact, dparams), each in its input's dtype."""
+  with torch.enable_grad():
+    ins = [x.detach().requires_grad_() for x in (
+        deter, stoch_flat, actfeat, *params)]
+    out = reference_step(ins[0], ins[1], ins[2], ins[3:], eps)
+    grads = torch.autograd.grad(out, ins, dout.to(out.dtype))
+  return grads[0], grads[1], grads[2], tuple(grads[3:])
+
+
+def launch_bwd(deter, stoch_flat, actfeat, params, dout, eps=1e-4):
+  """Run the backward kernel on CUDA tensors (no counting, no dispatch).
+  `dout` may come in any float dtype."""
+  p = dict(zip(FIELDS, params))
+  g, dg, _ = p['wblk'].shape
+  B, D = deter.shape
+  H, S, A = p['w0'].shape[1], stoch_flat.shape[1], actfeat.shape[1]
+  dout = dout.float().contiguous()
+  want = dict(shapes(B, D, H, S, A, g), dout=(B, D))
+  device = check_inputs(
+      dict(deter=deter, stoch=stoch_flat, act=actfeat, dout=dout, **p), want,
+      floats=('dout',))
+  check_widths(stoch=S, action=A, block=dg)
+  ddeter = torch.empty_like(deter)
+  dstoch = torch.empty_like(stoch_flat)
+  dact = torch.empty_like(actfeat)
+  dparams = [torch.empty_like(x) for x in params]
+  lib = _lib()
+  ints = [B, D, H, S, A, g, _sms(device)]
+  ws = workspace(lib, 'blockgru_core_bwd_workspace', ints, device)
+  array, pp = _pointers(params)
+  garray, gp = _pointers(dparams)
+  with torch.cuda.device(device):
+    code = lib.blockgru_core_bwd(
+        *_ptrs([deter, stoch_flat, actfeat]), pp,
+        *_ptrs([dout, ddeter, dstoch, dact]), gp, *_ptrs([ws]), *ints, eps,
+        _stream(device))
+  del array, garray
+  build.check(code, 'blockgru_core_bwd')
+  return ddeter, dstoch, dact, tuple(dparams)
+
+
+def core_step_bwd(deter, stoch_flat, actfeat, params, dout, eps=1e-4):
+  """The step's backward for the upstream gradient `dout` of the new
+  deter: (ddeter, dstoch, dact, dparams), weight gradients in the weight
+  dtype and norm-scale gradients in float32. CPU tensors take
+  `reference_step_bwd`; CUDA tensors launch the kernel and raise on what
+  it does not take."""
+  if deter.device.type == 'cpu':
+    return reference_step_bwd(deter, stoch_flat, actfeat, params, dout, eps)
+  out = launch_bwd(deter, stoch_flat, actfeat, params, dout, eps)
+  core_step_bwd.launches += 1
+  return out
+
+
+core_step_bwd.launches = 0
+
+
+class _CoreStep(torch.autograd.Function):
+  """The forward kernel, with the backward kernel as its gradient."""
+
+  @staticmethod
+  def forward(ctx, deter, stoch_flat, actfeat, eps, *params):
+    ctx.save_for_backward(deter, stoch_flat, actfeat, *params)
+    ctx.eps = eps
+    return launch(deter, stoch_flat, actfeat, params, eps)
+
+  @staticmethod
+  def backward(ctx, dout):
+    deter, stoch_flat, actfeat, *params = ctx.saved_tensors
+    ddeter, dstoch, dact, dparams = core_step_bwd(
+        deter, stoch_flat, actfeat, params, dout, ctx.eps)
+    return (ddeter, dstoch, dact, None, *dparams)
+
+
 def core_step(deter, stoch_flat, actfeat, params, eps=1e-4):
   """One core step. CPU tensors take `reference_step`; CUDA tensors launch
-  the kernel (bf16 only) and raise on what it does not take."""
+  the kernel (bf16 only), and the backward kernel when autograd asks for
+  gradients, and raise on what the kernels do not take."""
   if deter.device.type == 'cpu':
     return reference_step(deter, stoch_flat, actfeat, params, eps)
-  refuse_grad(dict(deter=deter, stoch=stoch_flat, act=actfeat,
-                   **dict(zip(FIELDS, params))), 'blockgru.fused_core_bwd')
-  out = launch(deter, stoch_flat, actfeat, params, eps)
+  if needs_grad(deter, stoch_flat, actfeat, *params):
+    out = _CoreStep.apply(deter, stoch_flat, actfeat, eps, *params)
+  else:
+    out = launch(deter, stoch_flat, actfeat, params, eps)
   core_step.launches += 1
   return out
 
@@ -208,3 +293,16 @@ def work(B, D, H, S, A, g, L=0, K=0):
   nbytes = 2 * (weights + vectors + acts) + 4 * scales
   flops = 2 * B * weights
   return nbytes, flops
+
+
+def work_bwd(B, D, H, S, A, g, L=0, K=0):
+  """Bytes and flops of the backward: it reads the forward's inputs, the
+  weights and the f32 upstream gradients, writes the input and weight
+  gradients (norm scales in f32), and does three times the forward's
+  products (the recompute, the input and the weight gradients). L and
+  K > 0 add the posterior head."""
+  nbytes, flops = work(B, D, H, S, A, g, L, K)
+  outs = B * D + B * L                     # the forward's outputs, bf16
+  weights = nbytes - 2 * (B * (D + S + A + K) + outs)
+  ins = 2 * B * (D + S + A + K) + 4 * (B * D + B * L)
+  return 2 * weights + ins + 2 * B * (D + S + A + K), 3 * flops

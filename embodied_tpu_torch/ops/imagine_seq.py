@@ -3,7 +3,8 @@ its plain version.
 
 Replaces the Pallas TPU kernel embodied_tpu/ops/imagine_seq.py:
 fused_imagine_seq (forward). The kernel lives in csrc/imagine_seq.cu (its
-stages in csrc/blockgru_common.cuh and csrc/seq_common.cuh), whose notes
+stages in csrc/blockgru_common.cuh and csrc/seq_common.cuh; the core, the
+prior and the sample are the per-step kernel's, ops/imagine.py), whose notes
 give the stages, what bounds it on an H100 (operations, at B = 1024 rows
 per step) and what the design does about it.
 
@@ -36,11 +37,10 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import blockgru, build
+from . import blockgru, build, imagine
 from .blockgru import _rms, _silu
-from .observe_seq import group_probs, gumbel_max, straight_through
+from .imagine import PRIOR_FIELDS, _layer, _mm
 
-PRIOR_FIELDS = ('wp0', 'bp0', 'sp0', 'wp1', 'bp1', 'sp1', 'wpl', 'bpl')
 EMBED_FIELDS = ('wa', 'ba', 'sa')
 HEAD_BIASES = ('bh', 'bhm', 'bhs')  # f32, as the JAX kernel takes them
 TILE = 16
@@ -57,15 +57,6 @@ def fields(npol, disc):
 def scales(npol):
   return blockgru.SCALES + ('sp0', 'sp1', 'sa') + tuple(
       f'sm{i}' for i in range(npol))
-
-
-def _mm(a, b):
-  """bf16 operands, f32 products, as the kernel multiplies."""
-  return a.float() @ b.float()
-
-
-def _layer(x, w, b, s, eps):
-  return _silu(_rms(_mm(x, w) + b.float(), s, eps)).to(x.dtype)
 
 
 def policy_action(p, deter, stoch, noise, npol, disc, minstd, maxstd,
@@ -97,7 +88,7 @@ def reference_imagine_seq(deter0, stoch0, params, npol, disc, C,
   one-hot actions `acts` (H, B, A); continuous actions are recomputed from
   `noise`. Returns time-major (deter, stoch, logits f32, actions f32)."""
   p = dict(zip(fields(npol, disc), params))
-  core = params[:len(blockgru.FIELDS)]
+  step = params[:len(imagine.FIELDS)]
   cdt = deter0.dtype
   deter, stoch = deter0, stoch0
   outs = [], [], [], []
@@ -110,14 +101,9 @@ def reference_imagine_seq(deter0, stoch0, params, npol, disc, C,
           p, deter.detach(), stoch.detach(), noise[t], npol, disc, minstd,
           maxstd, eps)
     actfeat = _layer(act_in, p['wa'], p['ba'], p['sa'], eps)
-    deter = blockgru.reference_step(deter, stoch, actfeat, core, eps)
-    x = _layer(deter, p['wp0'], p['bp0'], p['sp0'], eps)
-    x = _layer(x, p['wp1'], p['bp1'], p['sp1'], eps)
-    logit = _mm(x, p['wpl']) + p['bpl'].float()
-    probs = group_probs(logit, C, unimix)
-    onehot = (gumbel_max(probs, gumbel[t]) if hard is None else
-              hard[t].float().reshape(probs.shape))
-    stoch = straight_through(probs, onehot, stoch0.shape, cdt)
+    deter, stoch, logit = imagine.reference_imag_step(
+        deter, stoch, actfeat, gumbel[t], step, C, unimix, eps,
+        hard=None if hard is None else hard[t])
     for out, value in zip(outs, (deter, stoch, logit, act_rec)):
       out.append(value)
   return tuple(torch.stack(x) for x in outs)

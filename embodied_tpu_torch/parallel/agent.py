@@ -1,17 +1,18 @@
 """Device layer: wraps a model (an nn.Module tree) into the Agent API.
 
 The one-device part of embodied_tpu/parallel/agent.py: `init_policy`,
-`policy`, `init_train`, `train`, `save` and `load`. Parameters live on one
-device, chosen at construction: 'cuda' unless the caller asks for 'cpu',
-and construction raises when CUDA is asked for and there is no card.
-`policy` and `train` take host numpy arrays (or tensors) and return host
-numpy arrays and, for train metrics, host floats; carries stay on the
-device. Each call samples from a fresh generator seeded from (seed, call
-counter, kind), as the JAX agent folds the counter into its key. The
-store (`save`/`load`) holds parameters and state by flat JAX path: the
-optimizer's step and flat moments, the normalizers, the slow value and
-its counter. Report, meshes, the latent table, torch.compile and CUDA
-graphs come in later slices.
+`policy`, `init_train`, `train`, `init_report`, `report`, `stream`, `save`
+and `load`. Parameters live on one device, chosen at construction: 'cuda'
+unless the caller asks for 'cpu', and construction raises when CUDA is
+asked for and there is no card. `policy`, `train` and `report` take host
+numpy arrays (or tensors) and return host numpy arrays and, for metrics,
+host floats (arrays, such as the report's videos, as numpy); carries stay
+on the device. Each call samples from a fresh generator seeded from
+(seed, call counter, kind), as the JAX agent folds the counter into its
+key. The store (`save`/`load`) holds parameters and state by flat JAX
+path: the optimizer's step and flat moments, the normalizers, the slow
+value and its counter. Prefetching streams to the device, meshes, the
+latent table, torch.compile and CUDA graphs come in later slices.
 """
 
 import numpy as np
@@ -43,7 +44,7 @@ class Agent(corelib.Agent):
     self.act_space = {k: v for k, v in act_space.items() if k != 'reset'}
     self.config = config
     self.seed = int(config.seed)
-    self._counters = {'policy': 0, 'train': 0}
+    self._counters = {'policy': 0, 'train': 0, 'report': 0}
     nn.init_params(model, self.seed)
     model.to(self.device)
     model.eval()
@@ -60,6 +61,9 @@ class Agent(corelib.Agent):
 
   def init_train(self, batch_size):
     return self.model.init_train(batch_size)
+
+  def init_report(self, batch_size):
+    return self.model.init_report(batch_size)
 
   def policy(self, carry, obs, mode='train'):
     obs = {k: self._to_device(v) for k, v in obs.items()
@@ -82,18 +86,47 @@ class Agent(corelib.Agent):
             if not k.startswith('log/')}
     carry = nn.core.tree_map(self._to_device, carry)
     self._counters['train'] += 1
-    gen = torch.Generator(self.device).manual_seed(
-        call_seed(self.seed, self._counters['train'], salt=2_000_003))
     carry, outs, mets = self.model.train_step(
-        carry, data, nn.dists.Draws(gen, self.device))
+        carry, data, self._draws('train', 2_000_003))
     carry = nn.core.tree_map(lambda x: x.detach(), carry)
     outs = {k: {kk: vv.detach().cpu().numpy() for kk, vv in v.items()}
             for k, v in outs.items()}
-    keys = sorted(mets)
-    values = torch.stack([torch.as_tensor(mets[k], device=self.device)
-                          .detach().float().reshape(()) for k in keys])
-    mets = dict(zip(keys, values.cpu().tolist()))
-    return carry, outs, mets
+    return carry, outs, self._fetch(mets)
+
+  def report(self, carry, data):
+    """Metrics of a (B, T + replay_context) batch without updates (see
+    Model.report): scalars as host floats, videos as uint8 numpy arrays."""
+    data = {k: self._to_device(v) for k, v in data.items()
+            if not k.startswith('log/')}
+    carry = nn.core.tree_map(self._to_device, carry)
+    self._counters['report'] += 1
+    carry, mets = self.model.report(
+        carry, data, self._draws('report', 3_000_003))
+    carry = nn.core.tree_map(lambda x: x.detach(), carry)
+    return carry, self._fetch(mets)
+
+  def stream(self, source):
+    """The stream that train and report read. The JAX agent prefetches
+    batches to its devices here; the port hands each batch over in
+    `train` and `report`, and prefetching is later work."""
+    return source
+
+  def _draws(self, kind, salt):
+    gen = torch.Generator(self.device).manual_seed(
+        call_seed(self.seed, self._counters[kind], salt=salt))
+    return nn.dists.Draws(gen, self.device)
+
+  def _fetch(self, mets):
+    """Device metrics to the host in one transfer for the scalars: floats,
+    and numpy arrays for the rest."""
+    mets = {k: torch.as_tensor(v, device=self.device).detach()
+            for k, v in mets.items()}
+    keys = sorted(k for k, v in mets.items() if v.ndim == 0)
+    out = {k: v.cpu().numpy() for k, v in mets.items() if v.ndim}
+    if keys:
+      values = torch.stack([mets[k].float() for k in keys])
+      out.update(zip(keys, values.cpu().tolist()))
+    return out
 
   def _example_batch(self, batch_size, length, spaces=None):
     """Zeros of every replay key at (batch_size, length), as numpy."""

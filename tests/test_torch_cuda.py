@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from embodied_tpu_torch.ops import blockgru, imagine_seq, observe, observe_seq
+from embodied_tpu_torch.ops import (
+    blockgru, imagine, imagine_seq, observe, observe_seq)
 
 TOL = 3e-2
 # The window kernels' gradients against autograd of the plain replay in
@@ -100,19 +101,108 @@ def test_wrappers_raise_rather_than_fall_back(card):
   assert blockgru.core_step.launches == before
 
 
+def relerr(got, want):
+  got, want = got.float(), want.float()
+  return float((got - want).norm() / want.norm().clamp(min=1e-12))
+
+
 @pytest.mark.cuda
-def test_core_and_obs_step_refuse_to_drop_gradients(card):
+@pytest.mark.parametrize('B', [16, 40])
+def test_step_backward_kernels_match_autograd(card, B):
+  """Kernels 2 and 4 against autograd of the plain versions in float32,
+  every input and weight gradient, by relative error."""
+  rng = np.random.default_rng(7)
+  params, ins = make(rng, card, B, **DIMS)
+  core = params[:len(blockgru.FIELDS)]
+  dout = torch.tensor(rng.standard_normal((B, DIMS['D'])), device=card)
+  dlogit = torch.tensor(rng.standard_normal((B, DIMS['L'])), device=card)
+  f32 = lambda xs: [x.float() for x in xs]
+  before = blockgru.core_step_bwd.launches, observe.obs_step_bwd.launches
+  got = blockgru.core_step_bwd(*ins[:3], core, dout)
+  want = blockgru.reference_step_bwd(*f32(ins[:3]), f32(core), dout)
+  names = ('deter', 'stoch', 'act') + blockgru.FIELDS
+  for name, a, b in zip(names, [*got[:3], *got[3]], [*want[:3], *want[3]]):
+    assert a.dtype == (torch.float32 if name in blockgru.SCALES else
+                       torch.bfloat16), name
+    assert relerr(a, b) < GRAD_RTOL, (name, relerr(a, b))
+  got = observe.obs_step_bwd(*ins, params, dout, dlogit)
+  want = observe.reference_obs_step_bwd(*f32(ins), f32(params), dout, dlogit)
+  names = ('deter', 'stoch', 'act', 'tok') + observe.FIELDS
+  for name, a, b in zip(names, [*got[:4], *got[4]], [*want[:4], *want[4]]):
+    assert relerr(a, b) < GRAD_RTOL, (name, relerr(a, b))
+  torch.cuda.synchronize()
+  after = blockgru.core_step_bwd.launches, observe.obs_step_bwd.launches
+  assert after == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_core_and_obs_step_carry_gradients(card):
+  """Where autograd needs a gradient, core_step and obs_step launch their
+  forward kernels and, on backward, their backward kernels; under
+  no_grad the forward runs alone."""
   params, ins = make(np.random.default_rng(7), card, 16, **DIMS)
   core = [p.clone().requires_grad_() for p in params[:len(blockgru.FIELDS)]]
-  before = blockgru.core_step.launches, observe.obs_step.launches
-  with pytest.raises(RuntimeError, match='fused_core_bwd'):
-    blockgru.core_step(*ins[:3], core)
-  with pytest.raises(RuntimeError, match='fused_obs_bwd'):
-    observe.obs_step(ins[0].requires_grad_(), *ins[1:], params)
+  wrappers = (blockgru.core_step, blockgru.core_step_bwd, observe.obs_step,
+              observe.obs_step_bwd)
+  before = [w.launches for w in wrappers]
+  deter = ins[0].clone().requires_grad_()
+  out = blockgru.core_step(deter, *ins[1:3], core)
+  assert out.grad_fn is not None
+  out.float().square().sum().backward()
+  want = blockgru.reference_step_bwd(
+      *[x.float() for x in ins[:3]], [p.float() for p in core],
+      2 * out.detach().float())
+  assert relerr(deter.grad, want[0]) < GRAD_RTOL
+  for name, p, w in zip(blockgru.FIELDS, core, want[3]):
+    assert relerr(p.grad, w) < GRAD_RTOL, name
+  new, logit = observe.obs_step(deter, *ins[1:], params)
+  (new.float().sum() + logit.float().square().sum()).backward()
   with torch.no_grad():
-    blockgru.core_step(*ins[:3], core)
-  after = blockgru.core_step.launches, observe.obs_step.launches
-  assert after == (before[0] + 1, before[1])
+    blockgru.core_step(deter, *ins[1:3], core)
+  torch.cuda.synchronize()
+  after = [w.launches for w in wrappers]
+  assert [a - b for a, b in zip(after, before)] == [2, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,H', [(6, 32), (200, 64)])
+def test_imagination_step(card, B, H):
+  """Kernel 7 against the plain version replaying its sample, the sample
+  against the plain draw from the same noise; 200 rows take the tensor
+  cores."""
+  rng = np.random.default_rng(10)
+  D, S, C, G = 256, 4, 16, 4
+  L = S * C
+  core, _ = make(rng, card, B, D=D, H=H, S=L, G=G, K=16, L=L)
+  bf = lambda *s: torch.tensor(0.1 * rng.standard_normal(s),
+                               dtype=torch.bfloat16, device=card)
+  f32 = lambda *s: torch.tensor(1 + 0.1 * rng.standard_normal(s),
+                                dtype=torch.float32, device=card)
+  params = list(core[:len(blockgru.FIELDS)]) + [
+      bf(D, H), bf(H), f32(H), bf(H, H), bf(H), f32(H), bf(H, L), bf(L)]
+  deter = torch.tanh(bf(B, D).float()).to(torch.bfloat16)
+  stoch = torch.nn.functional.one_hot(
+      torch.tensor(rng.integers(0, C, (B, S)), device=card), C).reshape(
+          B, L).to(torch.bfloat16)
+  act = bf(B, H)
+  gum = -torch.log(-torch.log(torch.tensor(
+      rng.uniform(1e-6, 1 - 1e-6, (B, L)), dtype=torch.float32,
+      device=card)))
+  before = imagine.imag_step.launches
+  with torch.no_grad():
+    new, onehot, logit = imagine.imag_step(deter, stoch, act, gum, params, C)
+    rd, _, rl = imagine.reference_imag_step(deter, stoch, act, gum, params,
+                                            C, hard=onehot)
+    _, drawn, _ = imagine.reference_imag_step(deter, stoch, act, gum, params,
+                                              C)
+  assert imagine.imag_step.launches == before + 1
+  assert onehot.dtype == torch.bfloat16 and logit.dtype == torch.float32
+  close(new, rd, 'deter')
+  close(logit, rl, 'logit')
+  s4 = onehot.float().reshape(B, S, C)
+  assert torch.equal(s4.sum(-1), torch.ones_like(s4.sum(-1)))
+  agree = (drawn.float().reshape(B, S, C).argmax(-1) == s4.argmax(-1))
+  assert agree.float().mean() >= 0.95, agree.float().mean()
 
 
 SEQ = dict(T=5, B=24, D=256, H=32, S=4, C=16, G=4, K=48)
@@ -133,11 +223,6 @@ def seq_case(rng, card, T, B, D, H, S, C, G, K):
       rng.uniform(1e-6, 1 - 1e-6, (T, B, L)), dtype=torch.float32,
       device=card)))
   return params, deter0, stoch0, bf(T, B, H), bf(T, B, K), keep, gum
-
-
-def relerr(got, want):
-  got, want = got.float(), want.float()
-  return float((got - want).norm() / want.norm().clamp(min=1e-12))
 
 
 @pytest.mark.cuda

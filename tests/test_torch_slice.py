@@ -269,11 +269,25 @@ def torch_data(data):
   return {k: torch.from_numpy(v.copy()) for k, v in data.items()}
 
 
-@pytest.mark.parametrize('kernel', ['auto', 'off'])
-def test_slice_losses_and_grads_match_jax(jax_recorded, kernel):
+# The RSSM's kernel modes, and flags for both models: auto (the window and
+# rollout kernels), off (the plain path), fused (the per-step observe
+# kernels), imag (the per-step imagination kernel) and a 2-layer posterior
+# (the core-step kernel on the BPTT path).
+MODES = [
+    pytest.param('auto', [], id='auto'),
+    pytest.param('off', [], id='off'),
+    pytest.param('fused', [], id='fused'),
+    pytest.param('imag', [], id='imag'),
+    pytest.param('auto', ['--agent.dyn.rssm.obslayers', '2'],
+                 id='obslayers2'),
+]
+
+
+@pytest.mark.parametrize('kernel,extra', MODES)
+def test_slice_losses_and_grads_match_jax(jax_recorded, kernel, extra):
   rec = jax_recorded
-  jm = jax_model(SIZE)
-  agent = port_agent(SIZE, kernel)
+  jm = jax_model(SIZE + extra)
+  agent = port_agent(SIZE + extra, kernel)
   data = make_batch(agent, 6)
   store, meta = jax_store(jm, data, rec)
   total, mets, grads = jax_loss_and_grads(jm, store, meta, data, rec, 7)
@@ -376,3 +390,150 @@ def test_agent_trains_saves_and_loads(jax_recorded):
   assert not nn.load_store(agent.model, store)
   for path, value in nn.store(agent.model).items():
     np.testing.assert_array_equal(value.numpy(), store[path], err_msg=path)
+
+
+def counting(module, name, calls):
+  """A stand-in for module.name that records, per call, whether autograd
+  will need its gradient."""
+  fn = getattr(module, name)
+
+  def wrapper(*args, **kw):
+    flat = [y for x in args
+            for y in (x if isinstance(x, (list, tuple)) else [x])]
+    calls.append((name, torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in flat)))
+    return fn(*args, **kw)
+  return wrapper
+
+
+# Calls per loss of a (B, T) window and an imag_length-step rollout, and
+# how many of them carry a graph: (name, with gradient) -> count. The
+# rollout's features are detached afterwards, so it keeps no graph.
+H_IMAG = 5  # the debug preset's imag_length
+
+
+@pytest.mark.parametrize('kernel,extra,want', [
+    ('auto', [], {('observe_seq', True): 1, ('imagine_seq', False): 1}),
+    ('fused', [], {('obs_step', True): T, ('core_step', False): H_IMAG}),
+    ('imag', [], {('observe_seq', True): 1, ('imag_step', False): H_IMAG}),
+    ('auto', ['--agent.dyn.rssm.obslayers', '2'],
+     {('core_step', True): T, ('imagine_seq', False): 1}),
+    ('off', [], {}),
+], ids=['auto', 'fused', 'imag', 'obslayers2', 'off'])
+def test_kernel_modes_dispatch(monkeypatch, kernel, extra, want):
+  """Which kernel wrapper each mode's train loss calls, how often, and
+  with a graph where the BPTT path needs one."""
+  from embodied_tpu_torch.models.dreamerv3 import rssm
+  agent = port_agent(SIZE + extra, kernel)
+  calls = []
+  for module, name in ((rssm.observe, 'obs_step'),
+                       (rssm.blockgru, 'core_step'),
+                       (rssm.observe_seq, 'observe_seq'),
+                       (rssm.imagine, 'imag_step'),
+                       (rssm.imagine_seq, 'imagine_seq')):
+    monkeypatch.setattr(module, name, counting(module, name, calls))
+  model = agent.model
+  data = torch_data(make_batch(agent, 11))
+  carry, obs, prevact, _ = model._resume_window(model.init_train(B), data)
+  draws = nn.dists.Draws(torch.Generator().manual_seed(0), 'cpu')
+  total, _ = model.loss(carry, obs, prevact, True, draws)
+  got = {}
+  for call in calls:
+    got[call] = got.get(call, 0) + 1
+  assert got == want
+  total.backward()
+
+
+def test_report_matches_jax(jax_recorded):
+  """Model.report against the JAX model's: the loss metrics without
+  updates, the gradient norm per loss key (JAX's gradient of each key's
+  loss on the same store, batch and noise) and the open-loop video, uint8
+  within 1."""
+  rec = jax_recorded
+  jm = jax_model(SIZE)
+  agent = port_agent(SIZE + ['--agent.report_gradnorms', 'True'])
+  data = make_batch(agent, 12)
+  store, meta = jax_store(jm, data, rec)
+  rec.start(13)
+  report = lambda ctx, data: jm.report(ctx, jm.init_report(ctx, B), data)
+  _, (_, want) = jax.jit(jnn.pure(report, meta))(
+      store, jax.random.PRNGKey(3), data)
+  draws = rec.replay()
+  # Each loss key's gradient norm in JAX, from the loss on the same noise.
+  params = {k: v for k, v in store.items() if meta.get(k) == 'param'}
+
+  def losses(params):
+    rec.start(13)
+    ctx = jnn.core.Ctx({**store, **params}, key=jax.random.PRNGKey(3),
+                       meta=meta)
+    carry, obs, prevact, _ = jm._resume_window(jm.init_report(ctx, B), data)
+    _, (_, _, outs, _) = jm.loss(ctx, carry, obs, prevact, False)
+    return {k: v.astype(jnp.float32).mean()
+            for k, v in outs['losses'].items()}
+
+  @jax.jit
+  def gradnorms(params):
+    # One forward, then one backward per key (a one-hot cotangent).
+    values, vjp = jax.vjp(losses, params)
+    norms = {}
+    for key in values:
+      (grads,) = vjp({k: jnp.float32(k == key) for k in values})
+      norms[f'gradnorm/{key}'] = jnp.sqrt(sum(
+          jnp.square(g.astype(jnp.float32)).sum() for g in grads.values()))
+    return norms
+  norms = {k: float(v) for k, v in gradnorms(params).items()}
+  agent.load({'store': convert.from_jax(store)})
+  model = agent.model
+  carry, got = model.report(model.init_report(B), torch_data(data), draws)
+  assert draws.used_all()
+  assert sorted(got) == sorted(list(want) + list(norms))
+  for key, value in want.items():
+    if key.startswith('openloop/'):
+      value, mine = np.asarray(value), got[key].numpy()
+      assert mine.dtype == value.dtype == np.uint8, key
+      assert mine.shape == value.shape, (mine.shape, value.shape)
+      assert np.abs(mine.astype(int) - value.astype(int)).max() <= 1, key
+    else:
+      close(torch.as_tensor(got[key]), value, key)
+  for key, value in norms.items():
+    grad_close(torch.as_tensor(got[key]).reshape(1),
+               np.asarray([value], np.float32), key)
+  assert carry[-1]['action'].shape == (B,)
+
+
+def test_agent_report_gives_host_values():
+  agent = port_agent(SIZE)
+  data = make_batch(agent, 14)
+  carry = agent.init_report(B)
+  for _ in range(2):
+    carry, mets = agent.report(carry, data)
+  assert agent._counters['report'] == 2
+  video = mets['openloop/image']
+  assert isinstance(video, np.ndarray) and video.dtype == np.uint8
+  # (T, H + 4, B (W + 4), C): the truth, prediction and error panels stacked
+  # along the height of each of the B sequences.
+  assert video.shape == (T, 3 * 64 + 4, B * (64 + 4), 3), video.shape
+  scalars = {k: v for k, v in mets.items() if k != 'openloop/image'}
+  assert all(isinstance(v, float) and np.isfinite(v)
+             for v in scalars.values()), scalars
+  assert agent.stream('source') == 'source'
+  assert float(agent.model.opt.step) == 0  # nothing updated
+
+
+def test_imagine_takes_an_action_sequence():
+  """RSSM.imagine replays a dict of action sequences step by step."""
+  agent = port_agent(SIZE)
+  dyn = agent.model.dyn
+  draws = nn.dists.Draws(torch.Generator().manual_seed(1), 'cpu')
+  acts = {'action': torch.tensor([[1, 2, 3], [4, 0, 1]], dtype=torch.int32)}
+  carry = dyn.initial(B)
+  _, feat, action = dyn.imagine(carry, acts, 3, draws=draws)
+  assert torch.equal(action['action'], acts['action'])
+  assert feat['deter'].shape == (B, 3, dyn.deter)
+  # One step at a time gives the same rollout from the same noise.
+  draws = nn.dists.Draws(torch.Generator().manual_seed(1), 'cpu')
+  for t in range(3):
+    carry, (step, _) = dyn.imagine_single(
+        carry, {'action': acts['action'][:, t]}, draws)
+    torch.testing.assert_close(step['deter'], feat['deter'][:, t])
+    torch.testing.assert_close(step['stoch'], feat['stoch'][:, t])
