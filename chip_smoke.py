@@ -18,12 +18,17 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            against the plain draw from the same noise, and the backward
            kernels (the window's, the core step's and the observe
            step's) against autograd of the plain version in float32.
+           Then kernels 3, 5, 6 and 8 and the int8 window (kernel 9) at
+           the default configuration's dims, the same way; the rows of
+           the windows and the rollout add the streamed floor, the time
+           to read their weights once per step, which at these dims
+           exceed the L2.
   slice    the acting path of size12m on dummy_disc with 16 envs, through
            make_agent -> init_policy -> Driver(agent.policy), in train and
            eval mode. The launch counts show that it ran on the kernels;
            its outputs are checked against the plain path on the card.
   train    the train step of size12m: a 16 x 65 batch collected by the
-           acting path, then Agent.train for a few warm-up and 20 timed
+           acting path, then Agent.train for a few warm-up and 10 timed
            steps on dummy_disc (each launching the window's forward and
            backward kernels and the rollout kernel once), the first step's
            losses against the plain path (kernel: off), and a profile of
@@ -35,10 +40,19 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            imagination-step kernel) and `obslayers: 2` (the core step's
            kernels, forward and backward), each first step's losses
            against `kernel: off`.
+  qcore    the int8 window's validation at the default dims (the port of
+           runs/validate_qcore_tpu.py): weight MB in int8 and bf16, the
+           int8 window against the window on the dequantized weights, its
+           deter against the bf16 window's (the quantization error), and
+           the int8 and bf16 window kernels timed in turns (CUDA events).
+  default  the default configuration (no preset, 202,982,304 parameters):
+           policy calls, Agent.train steps with the losses against
+           kernel: off and a profile, and main.main with the process
+           driver (train steps, a report and a save).
   script   the port's `train` script, main.main([...]) in-process, on
-           size12m with 16 dummy_disc envs and the thread driver: it
-           trains, reports, logs and saves, then runs again on the same
-           logdir and must resume from the checkpoint.
+           size12m with 16 dummy_disc envs and the default process
+           driver: it trains, reports, logs and saves, then runs again on
+           the same logdir and must resume from the checkpoint.
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
@@ -131,8 +145,11 @@ SOURCES = dict(  # kernel: (its source, the TPU kernel it replaces)
     observe_seq_bwd=('embodied_tpu_torch/csrc/observe_seq.cu',
                      'embodied_tpu/ops/observe_seq.py:437'),
     imagine_seq=('embodied_tpu_torch/csrc/imagine_seq.cu',
-                 'embodied_tpu/ops/imagine_seq.py:196'))
-LIBRARIES = ('blockgru', 'observe', 'observe_seq', 'imagine_seq', 'imagine')
+                 'embodied_tpu/ops/imagine_seq.py:196'),
+    qobs_window=('embodied_tpu_torch/csrc/qcore.cu',
+                 'embodied_tpu/ops/qcore.py:174'))
+LIBRARIES = ('blockgru', 'observe', 'observe_seq', 'imagine_seq', 'imagine',
+             'qcore')
 
 
 def phase_build():
@@ -170,8 +187,8 @@ def makers(torch, gen, dev=None):
 
 
 def size12m_params(torch, gen, D=2048, H=256, S=512, g=8, K=2304, L=512):
-  """Core and posterior weights of size12m from a seed, in the FIELDS
-  order."""
+  """Core and posterior weights from a seed, in the FIELDS order; size12m's
+  by default."""
   dg = D // g
   mat, vec, norm = makers(torch, gen)
   core = (mat(D, H), vec(H), norm(H), mat(S, H), vec(H), norm(H),
@@ -295,18 +312,31 @@ def phase_kernels(torch):
   results += step_backward_kernels(torch, gen, core, head, flush)
   for B in (IMAG_STARTS, 6):
     results.append(imag_step_kernel(torch, gen, core, B, flush))
+  results += default_kernels(torch, gen, flush)
   emit(phase='kernels', ok=True)
   return results
 
 
-def timings(torch, kernel, plain, flush, nbytes, flops):
+def timings(torch, kernel, plain, flush, nbytes, flops, streamed=None):
+  """Device, call and cold times of the kernel and its plain version, the
+  bound, and with `streamed` (bytes) the streamed floor: the time to read
+  those bytes once at the peak rate, for a kernel whose weights do not stay
+  in the L2 and are read again at every step."""
   bound_ms, bound_by = bound(nbytes, flops)
-  return dict(ms=device_ms(torch, kernel, iters=5),
-              plain_ms=device_ms(torch, plain, iters=5),
-              call_ms=cuda_ms(torch, kernel, warmup=2, iters=10),
-              plain_call_ms=cuda_ms(torch, plain, warmup=2, iters=10),
-              ms_cold=cuda_ms(torch, kernel, warmup=1, iters=5, flush=flush),
-              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+  row = dict(ms=device_ms(torch, kernel, iters=5),
+             plain_ms=device_ms(torch, plain, iters=5),
+             call_ms=cuda_ms(torch, kernel, warmup=2, iters=10),
+             plain_call_ms=cuda_ms(torch, plain, warmup=2, iters=10),
+             ms_cold=cuda_ms(torch, kernel, warmup=1, iters=5, flush=flush),
+             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+  if streamed is not None:
+    row.update(streamed_bytes=streamed,
+               streamed_floor_ms=streamed / PEAK_BYTES * 1e3)
+  return row
+
+
+def tensor_bytes(tensors):
+  return sum(x.numel() * x.element_size() for x in tensors)
 
 
 def relerr(got, want):
@@ -314,12 +344,12 @@ def relerr(got, want):
   return float((got - want).norm() / want.norm().clamp(min=1e-12))
 
 
-def agreement(onehot, logit, gumbel):
+def agreement(onehot, logit, gumbel, C=CLASSES):
   """Share of (row, group) samples of the kernel that equal the plain
   draw from the plain logits of the same step, with the same noise."""
   from embodied_tpu_torch.ops import observe_seq
   drawn = observe_seq.gumbel_max(
-      observe_seq.group_probs(logit, CLASSES, UNIMIX), gumbel)
+      observe_seq.group_probs(logit, C, UNIMIX), gumbel)
   hard = onehot.float().reshape(drawn.shape)
   return float((drawn.argmax(-1) == hard.argmax(-1)).float().mean())
 
@@ -415,12 +445,12 @@ def imag_step_kernel(torch, gen, core, B, flush, D=2048, H=256, S=32):
 
 
 def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
-                   H=256, S=32, K=2304):
+                   H=256, S=32, K=2304, C=CLASSES, config='size12m'):
   """The observe window's forward and backward kernels at a train step's
   shapes, against the plain version replaying the kernel's samples."""
   from embodied_tpu_torch.nn import dists
   from embodied_tpu_torch.ops import observe_seq as ops
-  C, L = CLASSES, S * CLASSES
+  L = S * C
   deter0, stoch0, _, _ = step_inputs(torch, gen, B, D, H, S, C, K)
   bf = lambda x: x.to(torch.bfloat16).contiguous()
   acts = bf(torch.nn.functional.silu(
@@ -436,7 +466,7 @@ def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
     rd, rs, rl = ops.reference_observe_seq(*ins, params, C, UNIMIX,
                                            hard=sseq)
   errs = [compare(torch, a, b) for a, b in ((dseq, rd), (lseq, rl))]
-  share = agreement(sseq, rl, gum)
+  share = agreement(sseq, rl, gum, C)
   problems = []
   if not all(ok for _, ok in errs):
     problems.append(f'outputs off the replay: {errs}')
@@ -447,9 +477,11 @@ def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
                                             gumbel=gum)
   dims = (T, B, D, H, L, H, K, 8)
   with torch.no_grad():
-    fwd = dict(batch=B, steps=T, max_abs_err=max(e for e, _ in errs),
+    fwd = dict(config=config, batch=B, steps=T,
+               max_abs_err=max(e for e, _ in errs),
                tol=TOL, sample_agreement=share, min_agreement=SAMPLE_AGREEMENT,
-               **timings(torch, kernel, plain, flush, *ops.work(*dims)))
+               **timings(torch, kernel, plain, flush, *ops.work(*dims),
+                         streamed=T * tensor_bytes(params)))
   rows = [check_row('observe_seq', fwd, problems)]
 
   # The backward, with random upstream gradients of all three outputs.
@@ -469,21 +501,23 @@ def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
   ups_bf = [u.to(x.dtype) for u, x in zip(ups, (dseq, sseq, lseq))]
   plain = lambda: ops.reference_observe_seq_bwd(
       deter0, stoch0, sseq, acts, toks, keep, params, *ups_bf, C, UNIMIX)
-  bwd = dict(batch=B, steps=T, max_abs_err=err, relative_errors=rel,
-             rtol=GRAD_RTOL,
-             **timings(torch, kernel, plain, flush, *ops.work_bwd(*dims)))
+  bwd = dict(config=config, batch=B, steps=T, max_abs_err=err,
+             relative_errors=rel, rtol=GRAD_RTOL,
+             **timings(torch, kernel, plain, flush, *ops.work_bwd(*dims),
+                       streamed=2 * T * tensor_bytes(params)))
   rows.append(check_row('observe_seq_bwd', bwd, problems))
   return rows
 
 
 def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
-                   B=IMAG_STARTS, D=2048, H=256, S=32, U=256, npol=3):
+                   B=IMAG_STARTS, D=2048, H=256, S=32, U=256, npol=3,
+                   C=CLASSES, config='size12m'):
   """The imagination rollout at a train step's shapes (15 steps from
   16 x 64 starts) for a categorical (5 actions) or bounded normal (6)
   head, against the plain version replaying the kernel's samples."""
   from embodied_tpu_torch.nn import dists
   from embodied_tpu_torch.ops import imagine_seq as ops
-  C, L = CLASSES, S * CLASSES
+  L = S * C
   adim = 5 if disc else 6
   mat, vec, norm = makers(torch, gen)
   f32vec = lambda n: vec(n).float()
@@ -508,7 +542,7 @@ def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
         acts=aseq)
     outs = [(dseq, rd), (lseq, rl)] + ([] if disc else [(aseq, ra)])
     errs = [compare(torch, a, b) for a, b in outs]
-    share = agreement(sseq, rl, gum)
+    share = agreement(sseq, rl, gum, C)
     # The same replay in float32 (the bf16 weights and inputs widened),
     # which rounds nowhere: how far the kernel and the plain bf16 version
     # each sit from it, on the logits.
@@ -542,12 +576,181 @@ def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
       deter0, stoch0, params, *spec, gumbel=gum, noise=noise)
   work = ops.work(steps, B, D, H, L, H, U, adim, npol, 8, disc)
   with torch.no_grad():
-    row = dict(batch=B, steps=steps, head='categorical' if disc else
+    row = dict(config=config, batch=B, steps=steps,
+               head='categorical' if disc else
                'bounded_normal', max_abs_err=max(e for e, _ in errs),
                tol=TOL, sample_agreement=share, action_agreement=act_share,
                min_agreement=SAMPLE_AGREEMENT, logit_err_vs_f32=f32_replay,
-               **timings(torch, kernel, plain, flush, *work))
+               **timings(torch, kernel, plain, flush, *work,
+                         streamed=steps * tensor_bytes(params)))
   return check_row('imagine_seq', row, problems)
+
+
+# The default configuration's dims (configs.yaml `defaults`, no preset):
+# deter 8192 in 8 blocks, hidden 1024, stoch 32 x 64, the dummy_disc
+# encoder's 4 x 4 x 512 + 1024 tokens, a 3-layer policy of 1024 units.
+DEFAULT = dict(D=8192, H=1024, S=32, C=64, K=9216, U=1024)
+
+
+DEFAULT_KERNELS = ('obs_step', 'observe_seq', 'observe_seq_bwd',
+                   'imagine_seq', 'qobs_window')
+
+
+def default_kernels(torch, gen, flush, D=DEFAULT['D'], H=DEFAULT['H'],
+                    S=DEFAULT['S'], C=DEFAULT['C'], K=DEFAULT['K'],
+                    U=DEFAULT['U']):
+  """Kernels 3, 5, 6, 8 and 9 at the default configuration's dims, each
+  against its plain version as at size12m."""
+  from embodied_tpu_torch.ops import observe
+  L = S * C
+  core, head = size12m_params(torch, gen, D=D, H=H, S=L, K=K, L=L)
+  deter, stoch, act, tokens = step_inputs(torch, gen, ENVS, D, H, S, C, K)
+  args = (deter, stoch, act, tokens, core + head)
+  kernel = lambda: observe.obs_step(*args)
+  plain = lambda: observe.reference_obs_step(*args)
+  got, want = kernel(), plain()
+  torch.cuda.synchronize()
+  errs = [compare(torch, a, b) for a, b in zip(got, want)]
+  problems = [] if all(ok for _, ok in errs) else [f'off the plain: {errs}']
+  row = dict(config='default', batch=ENVS, max_abs_err=max(e for e, _ in errs),
+             tol=TOL, **timings(torch, kernel, plain, flush, *observe.work(
+                 ENVS, D, H, L, H, 8, K, L)))
+  rows = [check_row('obs_step', row, problems)]
+  rows += window_kernels(torch, gen, core + head, flush, D=D, H=H, S=S, K=K,
+                         C=C, config='default')
+  rows.append(rollout_kernel(torch, gen, core, True, flush, D=D, H=H, S=S,
+                             U=U, C=C, config='default'))
+  rows.append(qobs_kernel(torch, gen, core + head, flush, D=D, H=H, S=S, K=K,
+                          C=C))
+  return rows
+
+
+def qobs_kernel(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048, H=256,
+                S=32, K=2304, C=CLASSES):
+  """Kernel 9, the int8 window, on the quantized `params`: against its
+  plain version replaying the kernel's samples, the samples against the
+  plain draw from the same noise."""
+  from embodied_tpu_torch.nn import dists
+  from embodied_tpu_torch.ops import qcore
+  L = S * C
+  qparams, scales = qcore.quantize_params(params)
+  deter0, stoch0, _, _ = step_inputs(torch, gen, B, D, H, S, C, K)
+  bf = lambda x: x.to(torch.bfloat16).contiguous()
+  acts = bf(torch.nn.functional.silu(
+      torch.randn((T, B, H), generator=gen, device=DEV)))
+  toks = bf(torch.randn((T, B, K), generator=gen, device=DEV))
+  keep = torch.ones((T, B), device=DEV)
+  keep[T // 2, ::4] = 0
+  gum = dists.gumbel((T, B, L), gen, DEV)
+  ins = (deter0, stoch0, acts, toks, keep)
+  with torch.no_grad():
+    dseq, sseq, lseq = qcore.qobs_window(*ins, gum, qparams, scales, C,
+                                         UNIMIX)
+    torch.cuda.synchronize()
+    rd, _, rl = qcore.reference_qobs_window(*ins, qparams, scales, C, UNIMIX,
+                                            hard=sseq)
+  errs = [compare(torch, a, b) for a, b in ((dseq, rd), (lseq, rl))]
+  share = agreement(sseq, rl, gum, C)
+  problems = []
+  if not all(ok for _, ok in errs):
+    problems.append(f'outputs off the replay: {errs}')
+  if share < SAMPLE_AGREEMENT:
+    problems.append(f'samples agree for {share:.4f} of the groups')
+  kernel = lambda: qcore.qobs_window(*ins, gum, qparams, scales, C, UNIMIX)
+  plain = lambda: qcore.reference_qobs_window(*ins, qparams, scales, C,
+                                              UNIMIX, gumbel=gum)
+  streamed = T * qcore.weight_bytes(D, H, L, H, K, 8)
+  with torch.no_grad():
+    row = dict(config='default', batch=B, steps=T,
+               max_abs_err=max(e for e, _ in errs), tol=TOL,
+               sample_agreement=share, min_agreement=SAMPLE_AGREEMENT,
+               **timings(torch, kernel, plain, flush,
+                         *qcore.work(T, B, D, H, L, H, K, 8),
+                         streamed=streamed))
+  return check_row('qobs_window', row, problems)
+
+
+def phase_qcore(torch, T=WINDOW, B=ENVS, D=DEFAULT['D'], H=DEFAULT['H'],
+                S=DEFAULT['S'], C=DEFAULT['C'], K=DEFAULT['K'], g=8):
+  """The int8 window's validation (runs/validate_qcore_tpu.py on the TPU)
+  at the default dims: weights and inputs from the seed as that script
+  makes them, the int8 window (kernel 9) against the dequantized
+  reference, its deter against the bf16 window's replay of its samples
+  (the quantization error), and the two kernels timed in turns with CUDA
+  events on the same inputs. The launch counts are set to 0 before and
+  read after."""
+  from embodied_tpu_torch.nn import dists
+  from embodied_tpu_torch.ops import observe_seq, qcore
+  gen = torch.Generator(DEV).manual_seed(SEED + 2)
+  dg, L = D // g, S * C
+  randn = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+  bf = lambda x: x.to(torch.bfloat16).contiguous()
+  init = lambda *shape: bf(0.05 * randn(*shape))
+  zeros = lambda n: torch.zeros(n, dtype=torch.bfloat16, device=DEV)
+  ones = lambda n: torch.ones(n, device=DEV)
+  params = (init(D, H), zeros(H), ones(H), init(L, H), zeros(H), ones(H),
+            init(g, dg, dg), zeros(D), init(3 * H, D), ones(D),
+            init(g, dg, 3 * dg), zeros(3 * D),
+            init(D + K, H), zeros(H), ones(H), init(H, L), zeros(L))
+  deter0 = bf(0.5 * randn(B, D))
+  index = torch.randint(0, C, (B, S), generator=gen, device=DEV)
+  stoch0 = bf(torch.nn.functional.one_hot(index, C).reshape(B, L))
+  ins = (deter0, stoch0, bf(0.5 * randn(T, B, H)), bf(0.5 * randn(T, B, K)),
+         torch.ones((T, B), device=DEV))
+  gum = dists.gumbel((T, B, L), gen, DEV)
+  wrappers = (qcore.qobs_window, observe_seq.observe_seq)
+  for wrapper in wrappers:
+    wrapper.launches = 0
+  qparams, scales = qcore.quantize_params(params)
+  mb = lambda xs: tensor_bytes(xs) / 1e6
+  with torch.no_grad():
+    qfn = lambda: qcore.qobs_window(*ins, gum, qparams, scales, C, UNIMIX,
+                                    nch=8)
+    bfn = lambda: observe_seq.observe_seq(*ins, gum, params, C, UNIMIX)
+    dseq, sseq, _ = qfn()
+    bseq, bsto, _ = bfn()
+    torch.cuda.synchronize()
+    deq = qcore.dequantize_params(qparams, scales)
+    rd = observe_seq.reference_observe_seq(*ins, deq, C, UNIMIX, hard=sseq)[0]
+    qd = observe_seq.reference_observe_seq(*ins, params, C, UNIMIX,
+                                           hard=sseq)[0]
+    diff = lambda a, b: float((a.float() - b.float()).abs().max())
+    same = float((sseq.reshape(T, B, S, C).argmax(-1) ==
+                  bsto.reshape(T, B, S, C).argmax(-1)).float().mean())
+    # In turns, int8 then bf16 then bf16 then int8, 10 timed calls each.
+    turns = [(name, cuda_ms(torch, fn, warmup=2, iters=10))
+             for name, fn in (('int8', qfn), ('bf16', bfn), ('bf16', bfn),
+                              ('int8', qfn))]
+  q_ms = statistics.mean(t for n, t in turns if n == 'int8')
+  b_ms = statistics.mean(t for n, t in turns if n == 'bf16')
+  w = observe_seq.weights(D, H, L, H, K, g)
+  row = dict(
+      phase='qcore', dims=dict(T=T, B=B, D=D, H=H, L=L, K=K, g=g),
+      weight_mb_bf16=mb(params), weight_mb_int8=mb(qparams),
+      scale_mb=mb(scales.values()),
+      matrices_mb=dict(bf16=2 * w / 1e6, int8=w / 1e6),
+      deter_maxdiff_vs_dequantized=diff(dseq, rd),
+      deter_maxdiff_vs_bf16_window=diff(dseq, qd),
+      deter_maxdiff_vs_bf16_kernel=diff(dseq, bseq),
+      sample_agreement_with_bf16_kernel=same,
+      int8_window_ms=q_ms, bf16_window_ms=b_ms, speedup=b_ms / q_ms,
+      turns_ms=turns,
+      streamed_floor_ms=dict(
+          bf16=T * 2 * w / PEAK_BYTES * 1e3,
+          int8=T * qcore.weight_bytes(D, H, L, H, K, g) / PEAK_BYTES * 1e3),
+      launches={fn.__name__: fn.launches for fn in wrappers})
+  # As the TPU script: the int8 window sits near the window on the
+  # dequantized weights (bf16 rounds elsewhere).
+  problems = []
+  if not row['deter_maxdiff_vs_dequantized'] < 0.15:
+    problems.append('the int8 window is off the dequantized reference')
+  if not all(math.isfinite(v) for v in (q_ms, b_ms)):
+    problems.append('no timing')
+  row['ok'] = not problems
+  emit(**row)
+  if problems:
+    fail('qcore', '; '.join(problems))
+  return row['launches']['qobs_window']
 
 
 def drive(argv, calls, modes):
@@ -560,7 +763,8 @@ def drive(argv, calls, modes):
   config = common.assemble_config(main.CONFIGS, argv)
   agent = main.make_agent(config)
   driver = core.Driver(
-      [lambda i=i: common.make_env(config, i) for i in range(ENVS)])
+      [lambda i=i: common.make_env(config, i) for i in range(ENVS)],
+      parallel=False)
   stats = dict(policy_ms=[], bad_actions=0, nonfinite=0)
   space = agent.act_space['action']
   last = {}
@@ -635,6 +839,8 @@ def phase_slice(torch, paths=SLICE_PATHS):
   for label, argv, calls, modes, name in paths:
     for wrapper in wrappers.values():
       wrapper.launches = 0
+    if torch.cuda.is_available():
+      torch.cuda.reset_peak_memory_stats()
     agent, stats, last = drive(argv, calls, modes)
     counts = {k: w.launches for k, w in wrappers.items()}
     launches[name] = counts[name]
@@ -684,7 +890,8 @@ def collect_batch(agent, config):
   B = config.batch_size
   T = config.batch_length + config.replay_context
   driver = core.Driver(
-      [lambda i=i: common.make_env(config, i) for i in range(B)])
+      [lambda i=i: common.make_env(config, i) for i in range(B)],
+      parallel=False)
   rows = [[] for _ in range(B)]
   driver.on_step(lambda row, i, **kw: rows[i].append(row))
   driver.reset(agent.init_policy)
@@ -975,85 +1182,145 @@ def phase_modes(torch, modes=MODES):
   return launches
 
 
-SCRIPT_STEPS = (3000, 4500)  # env steps of the first run and the resumed one
+# The train script's runs: (label, flags, env steps of each run on one
+# logdir, the log and report interval and the save interval in seconds).
+# Each run goes through the default process driver with ENVS envs.
+SCRIPTS = (
+    # size12m, then again to more steps: the second run resumes.
+    ('size12m', ['--configs', 'size12m', '--run.envs', str(ENVS)],
+     (3000, 4500), 2, 2),
+)
+# The default configuration (no preset), once: train steps begin after
+# some 2,100 env steps fill the replay. A save writes its 2.4 GB of
+# parameters and optimizer slots (5-10 s), so saves come less often than
+# at size12m, or they would take the run.
+DEFAULT_SCRIPT = ('default', [], (4000,), 10, 20)
 
 
-def phase_script(torch):
-  """The train script in-process, twice on one logdir under build/: the
-  second run must load the checkpoint and continue the step counter. The
-  log, report and save intervals are short enough that each fires in
-  both runs; the report's results are read as the script computes them."""
+def phase_script(torch, scripts=SCRIPTS):
+  """The train script in-process on each configuration, with the launch
+  counts set to 0 before each run and read after, on a logdir under
+  build/; where a configuration runs twice, the second run must load the
+  checkpoint and continue the step counter. The log, report and save
+  intervals are short enough that each fires in each run; the report's
+  results are read as the script computes them, and the transport of
+  every driver the script makes is recorded. Returns each configuration's
+  launches."""
   import pickle
   import shutil
   from embodied_tpu_torch.models.dreamerv3 import main as dmain
   from embodied_tpu_torch.run import loop
-  logdir = os.path.join(ROOT, 'build', 'chip_smoke_logdir')
-  shutil.rmtree(logdir, ignore_errors=True)
   wrappers = train_wrappers()
-  reports = []
+  reports, drivers = [], []
   reporter_call = loop.Reporter.__call__
+  make_driver = loop.make_driver
 
   def recorded(self):
     mets = reporter_call(self)
     reports.append({k: list(getattr(v, 'shape', ())) for k, v in
                     mets.items()})
     return mets
+
+  def made(*args):
+    drivers.append(make_driver(*args))
+    return drivers[-1]
   loop.Reporter.__call__ = recorded
-  rows, problems = [], []
-  previous = None
-  for steps in SCRIPT_STEPS:
-    for wrapper in wrappers.values():
-      wrapper.launches = 0
-    nreports = len(reports)
-    argv = ['--configs', 'size12m', '--task', 'dummy_disc',
-            '--run.envs', str(ENVS), '--run.driver', 'thread',
-            '--logdir', logdir, '--run.steps', str(steps),
-            '--run.log_every', '2', '--run.report_every', '2',
-            '--run.save_every', '2']
-    start = time.perf_counter()
-    dmain.main(argv)
-    wall = time.perf_counter() - start
-    with open(os.path.join(logdir, 'checkpoint.pkl'), 'rb') as f:
-      saved = pickle.load(f)
-    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
-      lines = [json.loads(line) for line in f]
-    # The checkpoint holds the step of the last save, a little before the
-    # run's end; the run itself steps until it reaches `steps`.
-    step, counters = int(saved['step']), saved['agent']['counters']
-    first = previous['step'] if previous else 0
-    row = dict(
-        phase='script', argv=argv, wall_s=wall, checkpoint_step=step,
-        resumed_from_step=previous and previous['step'],
-        env_steps_per_s=(steps - first) / wall,
-        train_steps=counters['train'] - (
-            previous['train'] if previous else 0),
-        agent_counters=counters,
-        launches={k: w.launches for k, w in wrappers.items()},
-        reports=len(reports) - nreports,
-        report_keys=reports[-1] if len(reports) > nreports else None,
-        logged_report_keys=len({k for l in lines for k in l
-                                if k.startswith('report/')}))
-    if not first < step <= steps:
-      problems.append(f'saved at step {step}, resumed from {first}')
-    if row['reports'] < 1 or not row['logged_report_keys']:
-      problems.append('the report did not run')
-    if row['train_steps'] < 1 or not all(
-        row['launches'][k] for k in TRAIN_KERNELS):
-      problems.append(f'no train steps on the kernels: {row["launches"]}')
-    if previous and not (step >= previous['step'] and
-                         counters['train'] > previous['train']):
-      problems.append(f'did not resume: {previous} -> {counters}, {step}')
-    if previous and row['train_steps'] > (steps - first) * 2:
-      problems.append('the resumed run retrained from the start')
-    rows.append(row)
-    emit(**row, ok=not problems)
-    previous = dict(step=step, train=counters['train'])
+  loop.make_driver = made
+  launches = {}
+  for label, flags, runs, every, save_every in scripts:
+    logdir = os.path.join(ROOT, 'build', f'chip_smoke_{label}')
+    shutil.rmtree(logdir, ignore_errors=True)
+    rows, problems = [], []
+    previous = None
+    for steps in runs:
+      for wrapper in wrappers.values():
+        wrapper.launches = 0
+      nreports = len(reports)
+      argv = ['--task', 'dummy_disc', *flags, '--logdir', logdir,
+              '--run.steps', str(steps), '--run.log_every', str(every),
+              '--run.report_every', str(every), '--run.save_every',
+              str(save_every)]
+      torch.cuda.reset_peak_memory_stats()
+      start = time.perf_counter()
+      dmain.main(argv)
+      wall = time.perf_counter() - start
+      with open(os.path.join(logdir, 'checkpoint.pkl'), 'rb') as f:
+        saved = pickle.load(f)
+      with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+        lines = [json.loads(line) for line in f]
+      # The checkpoint holds the step of the last save; the run steps its
+      # ENVS envs a tick at a time until it reaches `steps`, so a save
+      # after the last tick may hold up to ENVS - 1 steps more.
+      step, counters = int(saved['step']), saved['agent']['counters']
+      del saved
+      first = previous['step'] if previous else 0
+      row = dict(
+          phase='script', config=label, argv=argv, wall_s=wall,
+          driver=drivers[-1].parallel, checkpoint_step=step,
+          resumed_from_step=previous and previous['step'],
+          env_steps_per_s=(steps - first) / wall,
+          train_steps=counters['train'] - (
+              previous['train'] if previous else 0),
+          agent_counters=counters,
+          launches={k: w.launches for k, w in wrappers.items()},
+          reports=len(reports) - nreports,
+          report_keys=reports[-1] if len(reports) > nreports else None,
+          logged_report_keys=len({k for l in lines for k in l
+                                  if k.startswith('report/')}),
+          peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+      if row['driver'] != 'process':
+        problems.append(f'the script stepped its envs by {row["driver"]}')
+      if not first < step < steps + ENVS:
+        problems.append(f'saved at step {step}, resumed from {first}')
+      if row['reports'] < 1 or not row['logged_report_keys']:
+        problems.append('the report did not run')
+      if row['train_steps'] < 1 or not all(
+          row['launches'][k] for k in TRAIN_KERNELS + ('obs_step',)):
+        problems.append(f'no train steps on the kernels: {row["launches"]}')
+      if previous and not (step >= previous['step'] and
+                           counters['train'] > previous['train']):
+        problems.append(f'did not resume: {previous} -> {counters}, {step}')
+      if previous and row['train_steps'] > (steps - first) * 2:
+        problems.append('the resumed run retrained from the start')
+      rows.append(row)
+      emit(**row, ok=not problems)
+      previous = dict(step=step, train=counters['train'])
+    video = (rows[-1]['report_keys'] or {}).get('openloop/image')
+    emit(phase='script', config=label, ok=not problems,
+         open_loop_video_shape=video)
+    if problems:
+      fail('script', f'{label}: ' + '; '.join(problems))
+    launches[label] = rows[-1]['launches']
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
   loop.Reporter.__call__ = reporter_call
-  video = (rows[-1]['report_keys'] or {}).get('openloop/image')
-  emit(phase='script', ok=not problems, open_loop_video_shape=video)
-  if problems:
-    fail('script', '; '.join(problems))
-  torch.cuda.empty_cache()
+  loop.make_driver = make_driver
+  return launches
+
+
+# The default configuration's acting and train paths: (label, argv, policy
+# calls, modes, kernel) as SLICE_PATHS, and (label, argv, warm-up steps,
+# timed steps, against kernel: off) as TRAIN_PATHS.
+DEFAULT_ARGV = ['--task', 'dummy_disc']
+DEFAULT_SLICE = (('acting default', DEFAULT_ARGV, 20, ('train',),
+                  'obs_step'),)
+DEFAULT_TRAIN = (('train default', DEFAULT_ARGV, 1, 3, True),)
+
+
+def phase_default(torch):
+  """The default configuration (configs.yaml `defaults`, 202,982,304
+  parameters on dummy_disc) through the entry points a user calls: policy
+  calls (kernel 3 once each) against the plain path, Agent.train steps
+  (kernels 5, 6 and 8 once each) with the first step's losses against
+  kernel: off and a profile, and main.main with the process driver. Each
+  path runs with the launch counts set to 0 before it and read after.
+  Returns the launches of the policy calls and of the train steps."""
+  launches = phase_slice(torch, DEFAULT_SLICE)
+  trained = phase_train(torch, DEFAULT_TRAIN)[DEFAULT_TRAIN[0][0]]
+  launches.update({k: trained[k] for k in TRAIN_KERNELS})
+  phase_script(torch, (DEFAULT_SCRIPT,))
+  emit(phase='default', ok=True, launches=launches)
+  return launches
 
 
 def main():
@@ -1073,6 +1340,7 @@ def main():
     print(f'chip_smoke: run from a checkout of the repository ({e})',
           file=sys.stderr)
     sys.exit(2)
+  start = time.perf_counter()
   phase_device(torch)
   phase_build()
   rows = phase_kernels(torch)
@@ -1087,23 +1355,34 @@ def main():
       core_step_bwd=modes['obslayers: 2']['core_step_bwd'],
       obs_step_bwd=modes['kernel: fused']['obs_step_bwd'],
       imag_step=modes['kernel: imag']['imag_step'])
+  # This slice's paths: kernel 9 on the int8 window's validation, kernels
+  # 3, 5, 6 and 8 on the default configuration.
+  launches['qobs_window'] = phase_qcore(torch)
+  launches.update(phase_default(torch))
   phase_script(torch)
   kernels = []
   for row in rows:
-    # The list holds each kernel at its main path's shapes.
-    if row['name'] in ('core_step', 'obs_step') and row['batch'] != ENVS:
+    # The list holds each kernel once: at the default configuration's dims
+    # where this slice runs it there, else at size12m's main-path shapes.
+    name = row['name']
+    if name in DEFAULT_KERNELS and row.get('config') != 'default':
       continue
-    if row['name'] == 'imag_step' and row['batch'] != IMAG_STARTS:
+    if name in ('core_step', 'obs_step') and row['batch'] != ENVS:
+      continue
+    if name == 'imag_step' and row['batch'] != IMAG_STARTS:
       continue
     if row.get('head', 'categorical') != 'categorical':
       continue
-    source, replaces = SOURCES[row['name']]
+    source, replaces = SOURCES[name]
     kernels.append(dict(
-        name=row['name'], route='cuda', source=source,
-        replaces=replaces, launches=launches[row['name']],
-        max_abs_err=row['max_abs_err'], ms=row['ms'],
-        plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
-        bound_by=row['bound_by'], library_ms=None))
+        name=name, route='cuda', source=source, replaces=replaces,
+        launches=launches[name], max_abs_err=row['max_abs_err'],
+        ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
+        bound_by=row['bound_by'], library_ms=None,
+        config=row.get('config', 'size12m')))
+  if sorted(k['name'] for k in kernels) != sorted(SOURCES):
+    fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
+  emit(phase='total', ok=True, seconds=time.perf_counter() - start)
   print(json.dumps({'kernels': kernels}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -41,12 +41,23 @@
 // tensor cores instead (mma_kernel: mma.sync m16n8k16 tiles, no split).
 // The tiles stage through shared memory without TMA, double buffering or
 // wgmma; those, and one persistent launch, are later work.
+//
+// The FMA stages take their weight matrices in bf16 or in int8 (the
+// template parameter W): int8 weights (qcore.cu) carry per-output-column
+// f32 scales, which each stage applies to its (B, cols) sums, split by
+// split, before split 0 adds the bias. The scale is linear, so the splits'
+// sum is the scaled product, up to f32 rounding. With bf16 weights the
+// scales are null and the stages compute what they always did. The tensor
+// cores take bf16 weights only; int8 weights run the FMA stages at every
+// batch.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace blockgru {
 
@@ -60,6 +71,14 @@ constexpr int FIN_THREADS = 256;  // threads of a finish block (one row)
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+// v times the column scale scale[col], or v where there is no scale (bf16
+// weights).
+__device__ __forceinline__ float scaled(float v, const float* scale,
+                                        size_t col) {
+  return scale ? v * scale[col] : v;
+}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
@@ -119,6 +138,18 @@ struct LoadBf16 {
   }
 };
 
+// The 16 / sizeof(W) weights at p (16-byte aligned) as floats, from one
+// 16-byte load: 8 bf16 or 16 int8 values. An int8 value is exact in float
+// (|q| <= 127), so the product's sum sees the stored integers.
+template <class W>
+__device__ __forceinline__ void load16(const W* p, float* dst) {
+  constexpr int V = 16 / sizeof(W);
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const W* e = reinterpret_cast<const W*>(&v);
+#pragma unroll
+  for (int q = 0; q < V; ++q) dst[q] = to_f(e[q]);
+}
+
 // Split z of a contraction of depth K cut into ns nearly equal parts.
 __device__ __forceinline__ void split_range(int K, int ns, int z, int* lo,
                                             int* hi) {
@@ -130,14 +161,17 @@ __device__ __forceinline__ void split_range(int K, int ns, int z, int* lo,
 
 // acc[j] += sum_k X(row, k) * W_j[k, c] over k in [lo, hi), for the
 // thread's (row, c) of the tile. W_j = w + j * wstep points at column 0 of
-// the tile in a row-major bf16 matrix with row stride ldw. The NW weight
-// tiles share the staged input chunk. Requires ldw and the tile's column
-// offset to be multiples of 8 and w 16-byte aligned (16-byte loads); the
-// wrapper checks the shapes. All threads of the block must call it alike.
-template <int NW, class Loader>
+// the tile in a row-major bf16 or int8 matrix with row stride ldw. The NW
+// weight tiles share the staged input chunk. Requires ldw and the tile's
+// column offset to be multiples of 16 / sizeof(W) and w 16-byte aligned
+// (16-byte loads); the wrapper checks the shapes. All threads of the
+// block must call it alike.
+template <int NW, class Loader, class W>
 __device__ void tile_mm(float (&acc)[NW], const Loader& load, int lo, int hi,
-                        const bf16* w, int wstep, int ldw, int row0, int B,
+                        const W* w, int wstep, int ldw, int row0, int B,
                         float* xs, float* ws) {
+  // V weights per 16-byte load, P loads per staged row of the tile.
+  constexpr int V = 16 / sizeof(W), P = TN / V;
   const int t = threadIdx.x, r = t / TN, c = t % TN;
   for (int k0 = lo; k0 < hi; k0 += KC) {
     for (int i = t; i < TM * KC; i += THREADS) {
@@ -145,19 +179,15 @@ __device__ void tile_mm(float (&acc)[NW], const Loader& load, int lo, int hi,
       const int row = row0 + rr, k = k0 + kk;
       xs[i] = (row < B && k < hi) ? load(row, k) : 0.f;
     }
-    for (int i = t; i < NW * KC * 2; i += THREADS) {
-      const int j = i / (KC * 2), rem = i % (KC * 2);
-      const int kk = rem / 2, half = rem % 2, k = k0 + kk;
-      float* dst = ws + (j * KC + kk) * TN + half * 8;
+    for (int i = t; i < NW * KC * P; i += THREADS) {
+      const int j = i / (KC * P), rem = i % (KC * P);
+      const int kk = rem / P, part = rem % P, k = k0 + kk;
+      float* dst = ws + (j * KC + kk) * TN + part * V;
       if (k < hi) {
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            w + (size_t)j * wstep + (size_t)k * ldw + half * 8);
-        const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) dst[q] = to_f(e[q]);
+        load16(w + (size_t)j * wstep + (size_t)k * ldw + part * V, dst);
       } else {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) dst[q] = 0.f;
+        for (int q = 0; q < V; ++q) dst[q] = 0.f;
       }
     }
     __syncthreads();
@@ -175,9 +205,9 @@ __device__ void tile_mm(float (&acc)[NW], const Loader& load, int lo, int hi,
 // The part of segment [seg, seg + len) of a concatenated contraction that
 // falls in this split's [lo, hi): X and W are indexed from the segment's
 // start. The condition is the same for every thread of the block.
-template <class Loader>
+template <class Loader, class W>
 __device__ void segment_mm(float (&acc)[1], const Loader& load, int seg,
-                           int len, int lo, int hi, const bf16* w, int ldw,
+                           int len, int lo, int hi, const W* w, int ldw,
                            int row0, int B, float* xs, float* ws) {
   const int a = max(lo - seg, 0), b = min(hi - seg, len);
   if (a < b) tile_mm<1>(acc, load, a, b, w, 0, ldw, row0, B, xs, ws);
@@ -341,12 +371,13 @@ struct XSeg {
 };
 
 // out[z][row, col] (row stride N): split z of [a | b](row, :) @ w, where
-// w (a.len + b.len, N) stacks the rows for a over those for b; split 0 adds
-// the bias (bf16 or f32). Grid (N / TN, ceil(B / TM), ns).
-template <class Bias, class Out>
+// w (a.len + b.len, N) stacks the rows for a over those for b, times the
+// column scale (int8 w; one scale for both parts); split 0 adds the bias
+// (bf16 or f32). Grid (N / TN, ceil(B / TM), ns).
+template <class Bias, class Out, class W>
 __global__ void __launch_bounds__(THREADS)
-mm_kernel(XSeg a, XSeg b, const bf16* w, const Bias* bias, Out* out, int B,
-          int N, int ns) {
+mm_kernel(XSeg a, XSeg b, const W* w, const Bias* bias, const float* scale,
+          Out* out, int B, int N, int ns) {
   __shared__ float xs[TM * KC];
   __shared__ float ws[KC * TN];
   const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM, z = blockIdx.z;
@@ -360,24 +391,29 @@ mm_kernel(XSeg a, XSeg b, const bf16* w, const Bias* bias, Out* out, int B,
   const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
   if (row < B) {
     const float add = (z == 0 && bias) ? to_f(bias[col]) : 0.f;
-    store(out + ((size_t)z * B + row) * N + col, acc[0] + add);
+    store(out + ((size_t)z * B + row) * N + col,
+          scaled(acc[0], scale, col) + add);
   }
 }
 
-// [a | b] @ w + bias into `out`: f32 split partials (ns of them), or with
-// ns == 1 the finished product in f32 or bf16.
-template <class Bias, class Out>
-inline void mm(XSeg a, XSeg b, const bf16* w, const Bias* bias, Out* out,
-               int B, int N, int ns, cudaStream_t st) {
-  if (ns == 1 && use_mma(B, N, N, a.len, b.len)) {
-    tc_mm(dense(a.x, a.ld, w, N, a.len),
-          b.len ? dense(b.x, b.ld, w + (size_t)a.len * N, N, b.len)
-                : no_mseg(),
-          bias, out, N, B, N, st);
-    return;
+// [a | b] @ w (times the column scales of an int8 w) + bias into `out`:
+// f32 split partials (ns of them), or with ns == 1 the finished product in
+// f32 or bf16.
+template <class Bias, class Out, class W>
+inline void mm(XSeg a, XSeg b, const W* w, const Bias* bias, Out* out,
+               int B, int N, int ns, cudaStream_t st,
+               const float* scale = nullptr) {
+  if constexpr (std::is_same<W, bf16>::value) {
+    if (ns == 1 && use_mma(B, N, N, a.len, b.len)) {
+      tc_mm(dense(a.x, a.ld, w, N, a.len),
+            b.len ? dense(b.x, b.ld, w + (size_t)a.len * N, N, b.len)
+                  : no_mseg(),
+            bias, out, N, B, N, st);
+      return;
+    }
   }
-  mm_kernel<Bias, Out><<<grid_for(N, B, ns), THREADS, 0, st>>>(
-      a, b, w, bias, out, B, N, ns);
+  mm_kernel<Bias, Out, W><<<grid_for(N, B, ns), THREADS, 0, st>>>(
+      a, b, w, bias, scale, out, B, N, ns);
 }
 
 // out[row, g W + c] (row stride ldo) = bf16(silu(x * rstd * scale_g[c])),
@@ -436,12 +472,15 @@ inline void mask(const bf16* x, int ldx, int W, const float* keep, bf16* out,
 }
 
 // The input projections, split z = blockIdx.z: pre[z][:, :H] and
-// pre[z][:, H:], the split's partial sums of deter @ w0 and stoch @ w1;
-// split 0 adds b0, b1. Grid (2 * H / TN, ceil(B / TM), ns).
+// pre[z][:, H:], the split's partial sums of deter @ w0 and stoch @ w1
+// (times q0, q1 for int8 weights); split 0 adds b0, b1. Grid
+// (2 * H / TN, ceil(B / TM), ns).
+template <class W>
 __global__ void __launch_bounds__(THREADS)
-in_proj_kernel(const bf16* deter, const bf16* stoch, const bf16* w0,
-               const bf16* b0, const bf16* w1, const bf16* b1, float* pre,
-               int B, int D, int S, int H, int ns) {
+in_proj_kernel(const bf16* deter, const bf16* stoch, const W* w0,
+               const bf16* b0, const W* w1, const bf16* b1, const float* q0,
+               const float* q1, float* pre, int B, int D, int S, int H,
+               int ns) {
   __shared__ float xs[TM * KC];
   __shared__ float ws[KC * TN];
   const int tiles = H / TN, z = blockIdx.z;
@@ -457,45 +496,53 @@ in_proj_kernel(const bf16* deter, const bf16* stoch, const bf16* w0,
   if (row < B) {
     const float bias = z ? 0.f : to_f((second ? b1 : b0)[col]);
     pre[((size_t)z * B + row) * 2 * H + (second ? H : 0) + col] =
-        acc[0] + bias;
+        scaled(acc[0], second ? q1 : q0, col) + bias;
   }
 }
 
 // Split z of [deter block (dg) | x (lx)] @ [wblk[blk]; win] for the GRU
 // hidden layer, where x = [xd, x0, act] (row stride ldx) and blk is the GRU
-// block of the tile's columns; split 0 adds bblk. Grid (D / TN,
-// ceil(B / TM), ns); a column tile lies inside one GRU block.
+// block of the tile's columns; split 0 adds bblk. Int8 weights keep the two
+// products' sums apart, each times its own column scales (qblk (g, dg)
+// flat, qin (D)). Grid (D / TN, ceil(B / TM), ns); a column tile lies
+// inside one GRU block.
+template <class W>
 __global__ void __launch_bounds__(THREADS)
 hidden_kernel(const bf16* x, int ldx, int lx, const bf16* deter,
-              const bf16* wblk, const bf16* bblk, const bf16* win,
-              float* hpre, int B, int D, int g, int ns) {
+              const W* wblk, const bf16* bblk, const W* win,
+              const float* qblk, const float* qin, float* hpre, int B, int D,
+              int g, int ns) {
   __shared__ float xs[TM * KC];
   __shared__ float ws[KC * TN];
   const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM, z = blockIdx.z;
   const int dg = D / g, blk = col0 / dg;
   int lo, hi;
   split_range(dg + lx, ns, z, &lo, &hi);
-  float acc[1] = {0.f};
+  float acc[1] = {0.f}, accin[1] = {0.f};
   segment_mm(acc, LoadBf16{deter + (size_t)blk * dg, D}, 0, dg, lo, hi,
              wblk + (size_t)blk * dg * dg + (col0 - blk * dg), dg, row0, B,
              xs, ws);
-  segment_mm(acc, LoadBf16{x, ldx}, dg, lx, lo, hi, win + col0, D, row0, B,
-             xs, ws);
+  segment_mm(qin ? accin : acc, LoadBf16{x, ldx}, dg, lx, lo, hi,
+             win + col0, D, row0, B, xs, ws);
   const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
   if (row < B) {
     const float bias = z ? 0.f : to_f(bblk[col]);
-    hpre[((size_t)z * B + row) * D + col] = acc[0] + bias;
+    const float v =
+        qin ? scaled(acc[0], qblk, col) + scaled(accin[0], qin, col) : acc[0];
+    hpre[((size_t)z * B + row) * D + col] = v + bias;
   }
 }
 
 // The gate products of block blk for the tile's columns i (reset i,
 // candidate dg + i, update 2 dg + i of wg[blk]) and the GRU update; with
 // `gates`, also saves the gate pre-activations (bias included, f32, in
-// wg's column layout [blk][reset | cand | update], row stride 3D). Grid
-// (D / TN, ceil(B / TM)).
+// wg's column layout [blk][reset | cand | update], row stride 3D). Int8
+// weights scale each gate product by qg (g, 3 dg) flat, in wg's column
+// layout. Grid (D / TN, ceil(B / TM)).
+template <class W>
 __global__ void __launch_bounds__(THREADS)
-gru_kernel(const bf16* h, const bf16* wg, const bf16* bg, const bf16* deter,
-           bf16* out, float* gates, int B, int D, int g) {
+gru_kernel(const bf16* h, const W* wg, const bf16* bg, const float* qg,
+           const bf16* deter, bf16* out, float* gates, int B, int D, int g) {
   __shared__ float xs[TM * KC];
   __shared__ float ws[3 * KC * TN];
   const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM;
@@ -507,9 +554,9 @@ gru_kernel(const bf16* h, const bf16* wg, const bf16* bg, const bf16* deter,
   const int row = row0 + threadIdx.x / TN, c = threadIdx.x % TN;
   if (row < B) {
     const size_t gb = (size_t)blk * 3 * dg + i0 + c;
-    const float gr = acc[0] + to_f(bg[gb]);
-    const float gc = acc[1] + to_f(bg[gb + dg]);
-    const float gu = acc[2] + to_f(bg[gb + 2 * dg]);
+    const float gr = scaled(acc[0], qg, gb) + to_f(bg[gb]);
+    const float gc = scaled(acc[1], qg, gb + dg) + to_f(bg[gb + dg]);
+    const float gu = scaled(acc[2], qg, gb + 2 * dg) + to_f(bg[gb + 2 * dg]);
     const float r = sigmoid(gr);
     const float cand = tanhf(r * gc);
     const float u = sigmoid(gu - 1.f);
@@ -542,16 +589,26 @@ __global__ void gru_update_kernel(const float* gates, const bf16* deter,
 
 // --- The core step and the posterior head -----------------------------------
 
-// The core's weights in ops/blockgru.py FIELDS order.
-struct Core {
-  const bf16 *w0, *b0;
+// The core's weights in ops/blockgru.py FIELDS order: the matrices in W
+// (bf16, or int8 with the column scales q0..qg of ops/qcore.py; null for
+// bf16), biases bf16, norm scales f32.
+template <class W>
+struct CoreT {
+  const W* w0;
+  const bf16* b0;
   const float* s0;
-  const bf16 *w1, *b1;
+  const W* w1;
+  const bf16* b1;
   const float* s1;
-  const bf16 *wblk, *bblk, *win;
+  const W* wblk;
+  const bf16* bblk;
+  const W* win;
   const float* sh;
-  const bf16 *wg, *bg;
+  const W* wg;
+  const bf16* bg;
+  const float *q0, *q1, *qblk, *qin, *qg;
 };
+typedef CoreT<bf16> Core;
 
 inline Core core_weights(const void* const* p) {
   auto b = [&](int i) { return (const bf16*)p[i]; };
@@ -572,47 +629,59 @@ struct CoreSave {
 // The core stages of one step. x (B, 2H + A) holds the action embedding in
 // its last A columns; the stages write [xd, x0] into its first 2H, the
 // hidden activation into h (B, D) and the new deter into out (B, D).
-// `parts` holds core_parts floats.
-inline void core_stages(const Core& w, const bf16* deter, const bf16* stoch,
-                        bf16* x, bf16* h, bf16* out, float* parts,
-                        const CoreSave& save, int B, int D, int H, int S,
-                        int A, int g, int sms, float eps, cudaStream_t st) {
+// `parts` holds core_parts floats. A stage takes the tensor cores where
+// its widths and the batch allow and its weights are bf16 (`tc`).
+template <class W>
+inline void core_stages(const CoreT<W>& w, const bf16* deter,
+                        const bf16* stoch, bf16* x, bf16* h, bf16* out,
+                        float* parts, const CoreSave& save, int B, int D,
+                        int H, int S, int A, int g, int sms, float eps,
+                        cudaStream_t st) {
+  constexpr bool tc = std::is_same<W, bf16>::value;
   const int dg = D / g, lx = 2 * H + A;
   int ns1 = 1;
-  if (use_mma(B, H, H, D, S)) {
-    tc_mm(dense(deter, D, w.w0, H, D), no_mseg(), w.b0, parts, 2 * H, B, H,
-          st);
-    tc_mm(dense(stoch, S, w.w1, H, S), no_mseg(), w.b1, parts + H, 2 * H, B,
-          H, st);
+  if (tc && use_mma(B, H, H, D, S)) {
+    if constexpr (tc) {
+      tc_mm(dense(deter, D, w.w0, H, D), no_mseg(), w.b0, parts, 2 * H, B,
+            H, st);
+      tc_mm(dense(stoch, S, w.w1, H, S), no_mseg(), w.b1, parts + H, 2 * H,
+            B, H, st);
+    }
   } else {
     ns1 = splits(2 * H, B, D > S ? D : S, sms);
-    in_proj_kernel<<<grid_for(2 * H, B, ns1), THREADS, 0, st>>>(
-        deter, stoch, w.w0, w.b0, w.w1, w.b1, parts, B, D, S, H, ns1);
+    in_proj_kernel<W><<<grid_for(2 * H, B, ns1), THREADS, 0, st>>>(
+        deter, stoch, w.w0, w.b0, w.w1, w.b1, w.q0, w.q1, parts, B, D, S, H,
+        ns1);
   }
   finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
          save.rstd01, st);
   int ns2 = 1;
-  if (use_mma(B, D, dg, dg, lx)) {
-    tc_mm(MSeg{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg, dg},
-          dense(x, lx, w.win, D, lx), w.bblk, parts, D, B, D, st);
+  if (tc && use_mma(B, D, dg, dg, lx)) {
+    if constexpr (tc) {
+      tc_mm(MSeg{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg, dg},
+            dense(x, lx, w.win, D, lx), w.bblk, parts, D, B, D, st);
+    }
   } else {
     ns2 = splits(D, B, dg + lx, sms);
-    hidden_kernel<<<grid_for(D, B, ns2), THREADS, 0, st>>>(
-        x, lx, lx, deter, w.wblk, w.bblk, w.win, parts, B, D, g, ns2);
+    hidden_kernel<W><<<grid_for(D, B, ns2), THREADS, 0, st>>>(
+        x, lx, lx, deter, w.wblk, w.bblk, w.win, w.qblk, w.qin, parts, B, D,
+        g, ns2);
   }
   finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
          save.rstdh, st);
-  if (use_mma(B, 3 * D, 3 * dg, dg, 0)) {
-    // The gate pre-activations into `parts` (or the backward's save), then
-    // the update.
-    float* gates = save.gates ? save.gates : parts;
-    tc_mm(MSeg{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, 3 * dg, dg},
-          no_mseg(), w.bg, gates, 3 * D, B, 3 * D, st);
-    gru_update_kernel<<<dim3((D + 255) / 256, B), 256, 0, st>>>(
-        gates, deter, out, B, D, g);
+  if (tc && use_mma(B, 3 * D, 3 * dg, dg, 0)) {
+    if constexpr (tc) {
+      // The gate pre-activations into `parts` (or the backward's save),
+      // then the update.
+      float* gates = save.gates ? save.gates : parts;
+      tc_mm(MSeg{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, 3 * dg, dg},
+            no_mseg(), w.bg, gates, 3 * D, B, 3 * D, st);
+      gru_update_kernel<<<dim3((D + 255) / 256, B), 256, 0, st>>>(
+          gates, deter, out, B, D, g);
+    }
   } else {
-    gru_kernel<<<grid_for(D, B), THREADS, 0, st>>>(h, w.wg, w.bg, deter, out,
-                                                   save.gates, B, D, g);
+    gru_kernel<W><<<grid_for(D, B), THREADS, 0, st>>>(
+        h, w.wg, w.bg, w.qg, deter, out, save.gates, B, D, g);
   }
 }
 
@@ -626,12 +695,18 @@ inline size_t core_parts(int B, int D, int H, int S, int A, int g, int sms) {
 }
 
 // The posterior head's weights in ops/observe.py FIELDS order (after the
-// core's 12).
-struct Head {
-  const bf16 *wo, *bo;
+// core's 12); int8 matrices carry the column scales qo (one for both parts
+// of wo) and ql.
+template <class W>
+struct HeadT {
+  const W* wo;
+  const bf16* bo;
   const float* so;
-  const bf16 *wl, *bl;
+  const W* wl;
+  const bf16* bl;
+  const float *qo, *ql;
 };
+typedef HeadT<bf16> Head;
 
 inline Head head_weights(const void* const* p) {
   return Head{(const bf16*)p[0], (const bf16*)p[1], (const float*)p[2],
@@ -647,16 +722,18 @@ inline size_t head_parts(int B, int D, int H, int K, int sms) {
 // xo (B, H) bf16 and the logits (B, L), f32 or bf16 (not computed where
 // `logit` is null). With `preo`, also saves the hidden pre-activation and
 // its rstd for the backward.
-template <class Logit>
-inline void post_head(const Head& w, const bf16* out, const bf16* tok,
+template <class W, class Logit>
+inline void post_head(const HeadT<W>& w, const bf16* out, const bf16* tok,
                       bf16* xo, Logit* logit, float* parts, float* preo,
                       float* rstdo, int B, int D, int H, int K, int L,
                       int sms, float eps, cudaStream_t st) {
   const int ns = splits(H, B, D + K, sms);
-  mm(XSeg{out, D, D}, XSeg{tok, K, K}, w.wo, w.bo, parts, B, H, ns, st);
+  mm(XSeg{out, D, D}, XSeg{tok, K, K}, w.wo, w.bo, parts, B, H, ns, st,
+     w.qo);
   finish(parts, ns, B, H, H, 1, w.so, w.so, eps, xo, H, preo, rstdo, st);
   if (logit)
-    mm(XSeg{xo, H, H}, XSeg{nullptr, 0, 0}, w.wl, w.bl, logit, B, L, 1, st);
+    mm(XSeg{xo, H, H}, XSeg{nullptr, 0, 0}, w.wl, w.bl, logit, B, L, 1, st,
+       w.ql);
 }
 
 }  // namespace blockgru

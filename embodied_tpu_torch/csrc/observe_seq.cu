@@ -34,43 +34,13 @@
 
 #include "seq_common.cuh"
 
-namespace seq {
-
-struct FwdScratch {
-  bf16 *dm, *sm, *x, *h, *xo;
-  float* parts;
-};
-
-inline FwdScratch carve_fwd(Arena& a, const Dims& d) {
-  FwdScratch s;
-  s.dm = a.take<bf16>((size_t)d.B * d.D);
-  s.sm = a.take<bf16>((size_t)d.B * d.L);
-  s.x = a.take<bf16>((size_t)d.B * (2 * d.H + d.A));
-  s.h = a.take<bf16>((size_t)d.B * d.D);
-  s.xo = a.take<bf16>((size_t)d.B * d.H);
-  const size_t core = core_parts(d.B, d.D, d.H, d.L, d.A, d.g, d.sms);
-  const size_t head = head_parts(d.B, d.D, d.H, d.K, d.sms);
-  s.parts = a.take<float>(core > head ? core : head);
-  return s;
-}
-
-// The window's dimensions: the stoch entering a step is the previous
-// step's sample, L wide.
-inline Dims window(int T, int B, int D, int H, int L, int A, int K, int g,
-                   int C, int sms) {
-  return Dims{T, B, D, H, L, L, A, K, g, C, sms, true};
-}
-
-}  // namespace seq
-
 using seq::bf16;
 
 extern "C" size_t observe_seq_fwd_workspace(int T, int B, int D, int H,
                                             int L, int A, int K, int g,
                                             int C, int sms) {
-  seq::Arena a{nullptr, 0};
-  seq::carve_fwd(a, seq::window(T, B, D, H, L, A, K, g, C, sms));
-  return a.used + 256;
+  return seq::window_fwd_workspace(
+      seq::window(T, B, D, H, L, A, K, g, C, sms));
 }
 
 extern "C" size_t observe_seq_bwd_workspace(int T, int B, int D, int H,
@@ -91,26 +61,11 @@ extern "C" int observe_seq_fwd(
     void* deter_seq, void* stoch_seq, void* logit_seq, void* workspace,
     int T, int B, int D, int H, int L, int A, int K, int g, int C, int sms,
     float eps, float unimix, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const seq::Dims d = seq::window(T, B, D, H, L, A, K, g, C, sms);
-  seq::Arena a{(char*)workspace, 0};
-  const seq::FwdScratch s = seq::carve_fwd(a, d);
-  const seq::ObsWeights w = seq::obs_weights(params, true);
-  bf16* dseq = (bf16*)deter_seq;
-  bf16* sseq = (bf16*)stoch_seq;
-  float* lseq = (float*)logit_seq;
-  for (int t = 0; t < T; ++t) {
-    const size_t o = (size_t)t * B, p = o - B;
-    const bf16* deter = t ? dseq + p * D : (const bf16*)deter0;
-    const bf16* stoch = t ? sseq + p * L : (const bf16*)stoch0;
-    seq::obs_step(w, d, deter, stoch, (const bf16*)act + o * A,
-                  (const bf16*)tok + o * K, (const float*)keep + o, s.dm,
-                  s.sm, s.x, s.h, dseq + o * D, s.xo, lseq + o * L, s.parts,
-                  seq::CoreSave{}, nullptr, nullptr, eps, st);
-    seq::sample(lseq + o * L, (const float*)gum + o * L, B, L / C, C, unimix,
-                sseq + o * L, st);
-  }
-  return (int)cudaGetLastError();
+  return seq::window_fwd(seq::obs_weights(params, true),
+                         seq::window(T, B, D, H, L, A, K, g, C, sms), deter0,
+                         stoch0, act, tok, keep, gum, deter_seq, stoch_seq,
+                         logit_seq, workspace, eps, unimix,
+                         (cudaStream_t)stream);
 }
 
 // Inputs: the states entering each step, deter_prev (T, B, D) and

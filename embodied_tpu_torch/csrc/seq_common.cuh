@@ -363,10 +363,12 @@ inline void colsum(const float* Y, int R, int ldy, int N, bf16* outb,
 // The observe window (observe_seq.cu) runs these T times; the per-step
 // kernels (blockgru.cu, observe.cu) once, at T = 1.
 
-struct ObsWeights {
-  Core core;
-  Head head;
+template <class W>
+struct ObsWeightsT {
+  CoreT<W> core;
+  HeadT<W> head;
 };
+typedef ObsWeightsT<bf16> ObsWeights;
 
 // The core's 12 weights, then (with `head`) the posterior head's 5.
 inline ObsWeights obs_weights(const void* const* p, bool head) {
@@ -387,12 +389,13 @@ struct Dims {
 // core into h and the new deter `out` and, with d.head, the posterior head
 // into xo and the f32 logits (skipped where `logit` is null). With `save`,
 // `preo` and `rstdo`, also keeps what the backward needs.
-inline void obs_step(const ObsWeights& w, const Dims& d, const bf16* deter,
-                     const bf16* stoch, const bf16* act, const bf16* tok,
-                     const float* keep, bf16* dm, bf16* sm, bf16* x, bf16* h,
-                     bf16* out, bf16* xo, float* logit, float* parts,
-                     const CoreSave& save, float* preo, float* rstdo,
-                     float eps, cudaStream_t st) {
+template <class W>
+inline void obs_step(const ObsWeightsT<W>& w, const Dims& d,
+                     const bf16* deter, const bf16* stoch, const bf16* act,
+                     const bf16* tok, const float* keep, bf16* dm, bf16* sm,
+                     bf16* x, bf16* h, bf16* out, bf16* xo, float* logit,
+                     float* parts, const CoreSave& save, float* preo,
+                     float* rstdo, float eps, cudaStream_t st) {
   const int B = d.B, D = d.D, H = d.H, S = d.S, A = d.A;
   const int lx = 2 * H + A;
   mask(deter, D, D, keep, dm, D, B, st);
@@ -404,6 +407,77 @@ inline void obs_step(const ObsWeights& w, const Dims& d, const bf16* deter,
     post_head(w.head, out, tok, xo, logit, parts, preo, rstdo, B, D, H, d.K,
               d.L, d.sms, eps, st);
 }
+
+// --- The observe window's forward -------------------------------------------
+//
+// observe_seq.cu runs it on bf16 weights, qcore.cu on int8 weights with
+// column scales: one copy of the window's step.
+
+struct FwdScratch {
+  bf16 *dm, *sm, *x, *h, *xo;
+  float* parts;
+};
+
+inline FwdScratch carve_fwd(Arena& a, const Dims& d) {
+  FwdScratch s;
+  s.dm = a.take<bf16>((size_t)d.B * d.D);
+  s.sm = a.take<bf16>((size_t)d.B * d.L);
+  s.x = a.take<bf16>((size_t)d.B * (2 * d.H + d.A));
+  s.h = a.take<bf16>((size_t)d.B * d.D);
+  s.xo = a.take<bf16>((size_t)d.B * d.H);
+  const size_t core = core_parts(d.B, d.D, d.H, d.L, d.A, d.g, d.sms);
+  const size_t head = head_parts(d.B, d.D, d.H, d.K, d.sms);
+  s.parts = a.take<float>(core > head ? core : head);
+  return s;
+}
+
+// The window's dimensions: the stoch entering a step is the previous
+// step's sample, L wide.
+inline Dims window(int T, int B, int D, int H, int L, int A, int K, int g,
+                   int C, int sms) {
+  return Dims{T, B, D, H, L, L, A, K, g, C, sms, true};
+}
+
+// The bytes of workspace window_fwd carves.
+inline size_t window_fwd_workspace(const Dims& d) {
+  Arena a{nullptr, 0};
+  carve_fwd(a, d);
+  return a.used + 256;
+}
+
+// The window's forward: for each step, the masked observe step from the
+// previous step's outputs (deter0, stoch0 at t = 0), then the sample.
+// Inputs time-major: act (T, B, A), tok (T, B, K), keep (T, B) f32, gum
+// (T, B, L) f32. Outputs deter_seq (T, B, D), stoch_seq (T, B, L)
+// one-hots, logit_seq (T, B, L) f32.
+template <class W>
+inline int window_fwd(const ObsWeightsT<W>& w, const Dims& d,
+                      const void* deter0, const void* stoch0, const void* act,
+                      const void* tok, const void* keep, const void* gum,
+                      void* deter_seq, void* stoch_seq, void* logit_seq,
+                      void* workspace, float eps, float unimix,
+                      cudaStream_t st) {
+  const int B = d.B, D = d.D, L = d.L, A = d.A, K = d.K, C = d.C;
+  Arena a{(char*)workspace, 0};
+  const FwdScratch s = carve_fwd(a, d);
+  bf16* dseq = (bf16*)deter_seq;
+  bf16* sseq = (bf16*)stoch_seq;
+  float* lseq = (float*)logit_seq;
+  for (int t = 0; t < d.T; ++t) {
+    const size_t o = (size_t)t * B, p = o - B;
+    const bf16* deter = t ? dseq + p * D : (const bf16*)deter0;
+    const bf16* stoch = t ? sseq + p * L : (const bf16*)stoch0;
+    obs_step(w, d, deter, stoch, (const bf16*)act + o * A,
+             (const bf16*)tok + o * K, (const float*)keep + o, s.dm, s.sm,
+             s.x, s.h, dseq + o * D, s.xo, lseq + o * L, s.parts,
+             CoreSave{}, nullptr, nullptr, eps, st);
+    sample(lseq + o * L, (const float*)gum + o * L, B, L / C, C, unimix,
+           sseq + o * L, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// --- The observe step's backward ---------------------------------------------
 
 struct BwdScratch {
   // (T B, .) rows of the recompute: the products' X operands.

@@ -1,10 +1,12 @@
 """DreamerV3 entry point of the port: builds the agent for a config and
 runs a script.
 
+    python -m embodied_tpu_torch.models.dreamerv3.main \
+        --task dummy_disc --logdir DIR           # the defaults, on the card
     python -m embodied_tpu_torch.models.dreamerv3.main --configs size12m \
-        --task dummy_disc --logdir DIR --run.driver thread   # on the card
+        --task dummy_disc --logdir DIR           # a smaller model
     python -m embodied_tpu_torch.models.dreamerv3.main --configs debug \
-        --task dummy_disc --logdir DIR                      # on the CPU
+        --task dummy_disc --logdir DIR           # on the CPU
 
 Or from Python:
 

@@ -187,7 +187,8 @@ class Model(nn.Module):
     kernel (ops/imagine_seq.py), or None where the kernel does not take
     the policy: it needs one action key with a categorical (scalar
     discrete) or bounded_normal (vector continuous) head, a biased
-    rms/silu MLP trunk of at least one layer. Head biases stay float32,
+    rms/silu MLP trunk of at least one layer, whose width fits the
+    kernel's column tile. Head biases stay float32,
     as the JAX kernel takes them."""
     if len(self.act_space) != 1:
       return None
@@ -204,7 +205,7 @@ class Model(nn.Module):
     if not disc and (impl != 'bounded_normal' or len(space.shape) != 1):
       return None
     npol = int(pcfg['layers'])
-    if npol < 1:
+    if npol < 1 or int(pcfg['units']) % rssm.KERNEL_TILE:
       return None
     params = []
     for linear, norm in self.pol.mlp.layers:

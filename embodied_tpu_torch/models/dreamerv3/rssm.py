@@ -7,7 +7,8 @@ losses with free nats, the packed replay entries and their unpacking.
 Parameter paths, shapes and math are the JAX ones.
 
 Where the structure allows (`kernel` in auto/imag/fused, one dyn layer,
-one obs layer, rms/silu, not `absolute`), the work runs through the
+one obs layer, rms/silu, not `absolute`) and the widths fit the kernels'
+16-column tile (`kernel_widths`), the work runs through the
 kernel wrappers, which take the plain version for CPU tensors and launch
 the Hopper kernels for CUDA tensors:
   - the observe step through `ops.observe.obs_step`, a core step alone
@@ -35,6 +36,19 @@ from ... import nn
 from ...nn import dists
 from ...ops import blockgru, imagine, imagine_seq, observe, observe_seq
 from ...utils import Space
+
+# The column tile of the CUDA kernels: every width they take is a multiple.
+KERNEL_TILE = 16
+
+
+def kernel_widths(deter, blocks, hidden, stoch, classes):
+  """Whether the block width D/g, the hidden and action-embedding width H
+  and the flat stoch width S * C are multiples of KERNEL_TILE, the column
+  tile of the CUDA kernels (their 16-byte weight loads and 16-column
+  output tiles). The JAX package's lane condition on D/g plays this part
+  for the TPU."""
+  widths = (deter // blocks, hidden, stoch * classes)
+  return all(w % KERNEL_TILE == 0 for w in widths)
 
 
 def space_to_depth(x, s):
@@ -80,6 +94,7 @@ class RSSM(nn.Module):
     assert kernel in ('auto', 'imag', 'fused', 'off'), kernel
     self.latents = latents
     self.kernel = kernel
+    self.token_dim = token_dim
     self.act_space = act_space
     self.deter = deter
     self.hidden = hidden
@@ -356,17 +371,23 @@ class RSSM(nn.Module):
   # --- Internals ----------------------------------------------------------
 
   def _kernel_eligible(self):
-    """Whether the fused core step applies: a kernel mode and the default
-    layer stack with rms/silu math. Shapes the kernel cannot take make the
-    CUDA wrapper raise."""
+    """Whether the fused core step applies: a kernel mode, the default
+    layer stack with rms/silu math, and widths the CUDA kernels take
+    (`kernel_widths`). Decided from the config alone, before any launch
+    and alike on every device; the CUDA wrappers still raise on a width
+    they cannot take."""
     return (self.kernel in ('auto', 'imag', 'fused') and
             self.dynlayers == 1 and self.norm == 'rms' and
-            self.act == 'silu')
+            self.act == 'silu' and kernel_widths(
+                self.deter, self.blocks, self.hidden, self.stoch,
+                self.classes))
 
   def _obs_kernel_eligible(self):
-    """Whether the fused observe step (core + posterior head) applies."""
+    """Whether the fused observe step (core + posterior head) applies: the
+    token width must fit the tile too."""
     return (self._kernel_eligible() and not self.absolute and
-            len(self.obs_layers) == 1)
+            len(self.obs_layers) == 1 and
+            self.token_dim % KERNEL_TILE == 0)
 
   def _obs_seq_eligible(self):
     """Whether the whole observe window runs as one kernel call: the

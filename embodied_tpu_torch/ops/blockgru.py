@@ -88,17 +88,17 @@ def needs_grad(*tensors):
   return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
-def check_inputs(named, want, tile=16, floats=()):
+def check_inputs(named, want, tile=16, floats=(), int8s=()):
   """Raise unless every tensor lies on one CUDA device, is contiguous and
   has the expected shape and dtype (float32 for the norm scales in SCALES
-  and the names in `floats`, bf16 for the rest), and the widths fit the
-  kernel's 16-column tiles."""
+  and the names in `floats`, int8 for the names in `int8s`, bf16 for the
+  rest), and the widths fit the kernel's 16-column tiles."""
   device = next(iter(named.values())).device
   for name, x in named.items():
     if x.device != device or x.device.type != 'cuda':
       raise ValueError(f'{name} on {x.device}, expected one CUDA device')
     dtype = (torch.float32 if name in SCALES or name in floats else
-             torch.bfloat16)
+             torch.int8 if name in int8s else torch.bfloat16)
     if x.dtype != dtype:
       raise TypeError(f'{name} has dtype {x.dtype}, the kernel takes {dtype}')
     if tuple(x.shape) != want[name]:

@@ -1,7 +1,6 @@
 """Shared building blocks for the run protocols.
 
-A copy of embodied_tpu/run/loop.py, but for make_driver, which refuses the
-Driver's process transport (not ported yet) with a clear error.
+A copy of embodied_tpu/run/loop.py.
 
 The reference implements each protocol (train / train_eval / eval_only /
 pretrain, the reference's embodied/run/) as a standalone script with
@@ -161,8 +160,4 @@ class Deadline:
 def make_driver(make_env, n, args):
   ctors = [bind(make_env, i) for i in range(n)]
   parallel = False if args.debug else args.driver
-  if parallel in (True, 'process'):
-    raise NotImplementedError(
-        "run.driver: process needs the Driver's process transport, which "
-        'the port does not have yet; pass --run.driver thread')
   return core.Driver(ctors, parallel=parallel)

@@ -142,7 +142,7 @@ def profile_policy(argv, envs, calls):
     raise RuntimeError('profile_policy measures the card: no CUDA device')
   driver = core.Driver(
       [lambda i=i: common.make_env(config, i) for i in range(envs)],
-      mode='train')
+      parallel=False, mode='train')
   last, stats = {}, {}
 
   def policy(carry, obs, mode='train'):

@@ -6,6 +6,11 @@ needed, and this file imports nothing of JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
+The int8 window (kernel 9) is held against its plain version on the same
+int8 weights, and the `debug` and `size1m` presets act and train under
+`kernel: auto`: the first off the kernels (its widths are not multiples
+of 16), the second on them.
+
 Widths are multiples of 16, as the kernels take them, and deep enough
 that every matmul stage splits its contraction (2, 2 and 5 parts on a
 132-SM card), with uneven parts; B = 40 spans three row tiles. Tolerance
@@ -17,8 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from embodied_tpu_torch import core
+from embodied_tpu_torch.models import common
+from embodied_tpu_torch.models.dreamerv3 import main
 from embodied_tpu_torch.ops import (
-    blockgru, imagine, imagine_seq, observe, observe_seq)
+    blockgru, imagine, imagine_seq, observe, observe_seq, qcore)
 
 TOL = 3e-2
 # The window kernels' gradients against autograd of the plain replay in
@@ -320,3 +328,87 @@ def check_rollout(card, disc, adim, B, H, U):
   close(dseq, rd, 'deter')
   close(lseq, rl, 'logit')
   close(aseq, ra, 'action')
+
+
+@pytest.mark.cuda
+def test_int8_window(card):
+  """Kernel 9 against the plain version replaying its samples on the same
+  int8 weights and column scales, the samples against the plain draw."""
+  rng = np.random.default_rng(11)
+  C = SEQ['C']
+  params, deter0, stoch0, acts, toks, keep, gum = seq_case(rng, card, **SEQ)
+  qparams, scales = qcore.quantize_params(params)
+  before = qcore.qobs_window.launches
+  with torch.no_grad():
+    dseq, sseq, lseq = qcore.qobs_window(
+        deter0, stoch0, acts, toks, keep, gum, qparams, scales, C)
+    rd, _, rl = qcore.reference_qobs_window(
+        deter0, stoch0, acts, toks, keep, qparams, scales, C, hard=sseq)
+    _, drawn, _ = qcore.reference_qobs_window(
+        deter0, stoch0, acts, toks, keep, qparams, scales, C, gumbel=gum)
+  assert qcore.qobs_window.launches == before + 1
+  assert lseq.dtype == torch.float32 and sseq.dtype == torch.bfloat16
+  close(dseq, rd, 'deter')
+  close(lseq, rl, 'logit')
+  s4 = sseq.float().reshape(*sseq.shape[:2], -1, C)
+  assert torch.equal(s4.sum(-1), torch.ones_like(s4.sum(-1)))
+  agree = (drawn.float().reshape(s4.shape).argmax(-1) == s4.argmax(-1))
+  assert agree.float().mean() >= 0.95, agree.float().mean()
+
+
+@pytest.mark.cuda
+def test_int8_window_raises_rather_than_fall_back(card):
+  rng = np.random.default_rng(12)
+  C = SEQ['C']
+  params, deter0, stoch0, acts, toks, keep, gum = seq_case(rng, card, **SEQ)
+  qparams, scales = qcore.quantize_params(params)
+  before = qcore.qobs_window.launches
+  with pytest.raises(TypeError):
+    qcore.qobs_window(deter0.float(), stoch0, acts, toks, keep, gum,
+                      qparams, scales, C)
+  with pytest.raises(TypeError):  # bf16 weights where int8 belong
+    qcore.qobs_window(deter0, stoch0, acts, toks, keep, gum, params, scales,
+                      C)
+  with pytest.raises(ValueError, match='CUDA'):
+    qcore.qobs_window(deter0, stoch0.cpu(), acts, toks, keep, gum, qparams,
+                      scales, C)
+  with pytest.raises(ValueError, match='CUDA'):
+    qcore.qobs_window(deter0, stoch0, acts, toks, keep, gum, qparams,
+                      dict(scales, wg=scales['wg'].cpu()), C)
+  assert qcore.qobs_window.launches == before
+
+
+def batch(agent, config):
+  """A (batch_size, batch_length + replay_context) batch of zeros with
+  every replay key, fresh windows (consec 0)."""
+  return agent._example_batch(
+      config.batch_size, config.batch_length + config.replay_context)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('preset,kernels', [('debug', False),
+                                            ('size1m', True)])
+def test_presets_act_and_train_under_auto(card, preset, kernels):
+  """A preset acts and trains on the card under kernel: auto: the debug
+  widths (deter 8, hidden 3) are not eligible and take the plain path;
+  size1m's widths are multiples of 16 and take the kernels."""
+  config = common.assemble_config(main.CONFIGS, [
+      '--configs', preset, '--task', 'dummy_disc', '--torch.device', 'cuda',
+      '--batch_size', '4', '--batch_length', '8'])
+  agent = main.make_agent(config)
+  assert agent.model.dyn._obs_seq_eligible() is kernels
+  wrappers = (observe.obs_step, observe_seq.observe_seq,
+              observe_seq.observe_seq_bwd, imagine_seq.imagine_seq)
+  before = [w.launches for w in wrappers]
+  driver = core.Driver(
+      [lambda i=i: common.make_env(config, i) for i in range(2)],
+      parallel=False)
+  driver.reset(agent.init_policy)
+  driver(agent.policy, steps=2 * 3)
+  driver.close()
+  _, _, mets = agent.train(agent.init_train(config.batch_size),
+                           batch(agent, config))
+  torch.cuda.synchronize()
+  assert all(np.isfinite(v) for v in mets.values())
+  got = [w.launches - b for w, b in zip(wrappers, before)]
+  assert got == ([3, 1, 1, 1] if kernels else [0, 0, 0, 0]), got
