@@ -105,3 +105,38 @@ extern "C" int blockgru_core_bwd(const void* deter, const void* stoch,
   weight_grads(d, s, nullptr, grads, st);
   return (int)cudaGetLastError();
 }
+
+// The 16-row tensor-core product and the weight gradient of the stages on
+// their own, for the card tests (ops/blockgru.py stage_product,
+// stage_wgrad). Block-diagonal in g groups of K rows: x (B, g K), w
+// (g, K, N / g) and out[q] = x[:, q] @ w[q] forward; with `trans`, x f32
+// (rounded to bf16), w (g, N / g, K) and out[q] = x[:, q] @ w[q]^T. Writes
+// the ns split partials (ns, B, N) f32; ns <= 0 takes tc_splits.
+extern "C" int blockgru_stage_product(const void* x, const void* w,
+                                      void* out, int trans, int B, int N,
+                                      int K, int g, int ns, int sms,
+                                      void* stream) {
+  using namespace blockgru;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int gN = N / g;
+  if (ns <= 0) ns = tc_splits(N, gN, B, K, sms);
+  const size_t wgs = (size_t)K * gN;
+  if (trans)
+    tc16<true>(Opnd{x, g * K, K, (const bf16*)w, K, wgs, K}, no_opnd(), gN,
+               (const bf16*)nullptr, (float*)out, N, B, N, ns, st);
+  else
+    tc16<false>(Opnd{x, g * K, K, (const bf16*)w, gN, wgs, K}, no_opnd(),
+                gN, (const bf16*)nullptr, (float*)out, N, B, N, ns, st);
+  const int code = (int)cudaGetLastError();
+  return code ? -code : ns;
+}
+
+// out[q] = x[:, q]^T @ bf16(y[:, q]) over R rows: x (R, g M) bf16, y
+// (R, g N) f32, out (g, M, N) bf16.
+extern "C" int blockgru_stage_wgrad(const void* x, const void* y, void* out,
+                                    int R, int M, int N, int g,
+                                    void* stream) {
+  seq::wgrad((const bf16*)x, g * M, M, (const float*)y, g * N, N, R, M, N, g,
+             (bf16*)out, N, (size_t)M * N, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}

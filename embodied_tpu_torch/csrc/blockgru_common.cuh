@@ -26,30 +26,30 @@
 // Bound on an H100: at acting batch (B = 16) a step reads each weight byte
 // once and does 2 B = 32 flops per bf16 weight (16 per byte), far below the
 // ~295 per byte the card needs to be bound by operations, so the bound is
-// bytes (weights over 3.35 TB/s). What the design does about it: one block
-// per 16 x 16 output tile reads its weight tile once per row tile, with
-// 16-byte loads, and every row of the tile reuses it from shared memory. A
-// matmul stage with few output tiles (the input projection has 32 at
-// B = 16, the posterior head 16) would leave most of the 132 SMs idle while
-// a few blocks walk K thousands deep, so the contraction is split (split-K,
-// grid z): every split writes its own f32 partial sums and the consumer
-// adds them in a fixed order, so the result does not depend on scheduling.
-// The split count follows the batch and the SM count (`splits`).
+// bytes (weights over 3.35 TB/s). What the design does about it: below
+// MMA_ROWS rows every bf16 product runs on the 16-row tensor-core stage
+// (tc16_kernel: mma.sync m16n8k16, whose 16 rows are the batch, one
+// 16 x 64 output tile per block, the weight tile streamed through a ring
+// of cp.async stages and read once per row tile). A stage with few output
+// tiles (the input projection has 32 at the default dims, the posterior
+// head 16) would leave most of the 132 SMs idle while a few blocks walk K
+// thousands deep, so the contraction is split (split-K, grid z): every
+// split writes its own f32 partial sums and the consumer adds them in a
+// fixed order, so the result does not depend on scheduling. The split
+// count follows the batch and the SM count (`tc_splits`).
 //
 // From MMA_ROWS (128) rows on, operations bind (B = 1024: about 9 GFLOP per
 // core step against 18 MB), and a stage whose widths allow it runs on the
-// tensor cores instead (mma_kernel: mma.sync m16n8k16 tiles, no split).
-// The tiles stage through shared memory without TMA, double buffering or
-// wgmma; those, and one persistent launch, are later work.
+// tensor cores in 32 x 64 tiles (mma_kernel: mma.sync, no split); narrower
+// ones on the FMA stages (tile_mm: one output per thread, 16 x 16 tiles).
+// TMA, wgmma and one persistent launch are later work.
 //
 // The FMA stages take their weight matrices in bf16 or in int8 (the
 // template parameter W): int8 weights (qcore.cu) carry per-output-column
 // f32 scales, which each stage applies to its (B, cols) sums, split by
 // split, before split 0 adds the bias. The scale is linear, so the splits'
-// sum is the scaled product, up to f32 rounding. With bf16 weights the
-// scales are null and the stages compute what they always did. The tensor
-// cores take bf16 weights only; int8 weights run the FMA stages at every
-// batch.
+// sum is the scaled product, up to f32 rounding. The tensor cores take
+// bf16 weights only; int8 weights run the FMA stages at every batch.
 
 #pragma once
 
@@ -116,13 +116,37 @@ struct Arena {
   }
 };
 
-// Enough 16 x 16 tiles times parts for two blocks per SM, and at least one
-// 128-deep chunk per part; 1 when the batch alone gives enough tiles.
-inline int splits(int cols, int B, int K, int sms) {
-  const int tiles = (cols / TN) * ((B + TM - 1) / TM);
-  const int want = (2 * sms + tiles - 1) / tiles;
-  const int most = (K + KC - 1) / KC;
+// `want` parts, at least 1 and at most one per chunk of a K-deep
+// contraction.
+inline int clamp_splits(int want, int K, int chunk) {
+  const int most = (K + chunk - 1) / chunk;
   return want < most ? (want > 1 ? want : 1) : (most > 1 ? most : 1);
+}
+
+// The FMA stages: enough 16 x 16 tiles times parts for two blocks per SM,
+// and at least one 128-deep chunk per part; 1 when the batch alone gives
+// enough tiles.
+inline int fma_splits(int cols, int B, int K, int sms) {
+  const int tiles = (cols / TN) * ((B + TM - 1) / TM);
+  return clamp_splits((2 * sms + tiles - 1) / tiles, K, KC);
+}
+
+// The 16-row tensor-core stage (tc16_kernel below): enough 16 x TC_BN
+// tiles times parts for two blocks per SM, and at least one TC_BK-deep
+// chunk per part. N columns in groups of gN; a tile never straddles a
+// group.
+constexpr int TC_BN = 64, TC_BK = 64;
+inline int tc_splits(int N, int gN, int B, int K, int sms) {
+  const int tiles = (N / gN) * ((gN + TC_BN - 1) / TC_BN) * ((B + 15) / 16);
+  return clamp_splits((2 * sms + tiles - 1) / tiles, K, TC_BK);
+}
+
+// The most parts either rule gives a dense product: what a buffer of
+// split partials is sized for (a grouped product has at least as many
+// tiles, so no more parts).
+inline int most_splits(int N, int B, int K, int sms) {
+  const int a = fma_splits(N, B, K, sms), b = tc_splits(N, N, B, K, sms);
+  return a > b ? a : b;
 }
 
 inline dim3 grid_for(int cols, int B, int ns = 1) {
@@ -157,7 +181,7 @@ __device__ __forceinline__ void split_range(int K, int ns, int z, int* lo,
   *hi = (int)((long long)K * (z + 1) / ns);
 }
 
-// --- FMA products (small batch) ---------------------------------------------
+// --- FMA products (int8 weights; narrow stages from MMA_ROWS rows on) -------
 
 // acc[j] += sum_k X(row, k) * W_j[k, c] over k in [lo, hi), for the
 // thread's (row, c) of the tile. W_j = w + j * wstep points at column 0 of
@@ -261,6 +285,63 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i + 7 giving
+// the row addresses of matrix i; with `trans`, each matrix transposed.
+template <bool trans>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  if constexpr (trans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem(p)));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem(p)));
+  }
+}
+
+// 16 bytes from global to shared memory, asynchronously; the first
+// `bytes` come from src and the rest are zeros (bytes = 0: all zeros, src
+// unread but valid).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int pending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+}
+
+// Eight f32 values at p (16-byte aligned) rounded to bf16, as one 16-byte
+// store to shared memory at dst; zeros where !ok.
+__device__ __forceinline__ void store8_bf16(bf16* dst, const float* p,
+                                            bool ok) {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  if (ok) {
+    a = reinterpret_cast<const float4*>(p)[0];
+    b = reinterpret_cast<const float4*>(p)[1];
+  }
+  __align__(16) __nv_bfloat162 v[4] = {__floats2bfloat162_rn(a.x, a.y),
+                         __floats2bfloat162_rn(a.z, a.w),
+                         __floats2bfloat162_rn(b.x, b.y),
+                         __floats2bfloat162_rn(b.z, b.w)};
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
+
 typedef bf16 MTile[MM_BK + 8];  // a staged row, padded (see mma_kernel)
 
 // acc += the products of one segment for the warp's 16 x 32 sub-tile
@@ -360,6 +441,215 @@ inline MSeg dense(const bf16* x, int ldx, const bf16* w, int N, int len) {
 
 inline MSeg no_mseg() { return MSeg{nullptr, 0, 0, nullptr, 0, 0, MM_BN, 0}; }
 
+// --- Tensor-core products at 16 rows (below MMA_ROWS) -----------------------
+//
+// mma.sync m16n8k16 takes 16 rows, the acting and window batch exactly.
+// A block computes one 16 x TC_BN output tile over its split's part of the
+// contraction: the four warps own 16 columns each (two n8 tiles), and all
+// of them read the tile's 16 staged rows. Weight tiles (TC_BK x TC_BN bf16,
+// 8 KB) stream through a ring of TC_STAGES shared-memory stages filled by
+// 16-byte cp.async loads, so three chunks are in flight while one is
+// multiplied; fragments come from ldmatrix. The products are bound by the
+// weight bytes, so the split count (tc_splits) keeps about two blocks per
+// SM streaming, and every split writes its own f32 partials (`parts` in the
+// FMA stages' layout), which the consumer adds in split order.
+//
+// The forward product (trans = false) reads X (bf16) against W (K x N,
+// row-major: its tile is staged [k][n] and read by ldmatrix.trans); the
+// transposed product of the backward (trans = true) reads Y (f32, staged
+// as it lies and rounded to bf16 as its fragments are formed: the dY
+// operand in the compute dtype) against the rows of W, contiguous along k
+// (staged [n][k], plain ldmatrix). The ring takes 46 KB of shared memory,
+// 55 KB with f32 rows, so four blocks fit an SM.
+
+constexpr int TC_STAGES = 4, TC_THREADS = 128, TC_PAD = TC_BK + 8;
+
+// One operand pair of a 16-row product. Output column n lies in group
+// q = n / gN at offset j = n - q gN; the segment adds, over k < len,
+//   X(row, k) = x[row * ldx + q * xgs + k]      (bf16; f32 if trans)
+// times
+//   w[q * wgs + k * ldw + j]                    (forward)
+//   w[q * wgs + j * ldw + k]                    (trans)
+// len, ldx, xgs, ldw and wgs are multiples of 8 and gN of 16 (16-byte
+// loads); the wrappers check the widths.
+struct Opnd {
+  const void* x;
+  int ldx;
+  int xgs;
+  const bf16* w;
+  int ldw;
+  size_t wgs;
+  int len;
+};
+
+inline Opnd no_opnd() { return Opnd{nullptr, 0, 0, nullptr, 0, 0, 0}; }
+
+template <bool trans>
+struct TcStage {
+  // The rows, [row][k]: bf16, or f32 for trans, staged as they lie and
+  // rounded to bf16 as the fragments are formed.
+  typename std::conditional<trans, float, bf16>::type x[16][TC_PAD];
+  bf16 w[TC_BK][TC_PAD];  // [k][n] forward, [n][k] trans
+};
+
+// Stage chunk [k0, k0 + TC_BK) of segment o for the tile at column j0 of
+// group q (`valid` columns of it inside the group), rows row0.. < B;
+// zeros outside, all by 16-byte cp.async. Rows padded by 8 values (144
+// bytes of bf16, 288 of f32) keep the 16-byte stores aligned, an
+// ldmatrix's eight rows on distinct banks, and the f32 fragment loads of
+// each half-warp on distinct banks.
+template <bool trans>
+__device__ __forceinline__ void tc_stage(TcStage<trans>& s, const Opnd& o,
+                                         int k0, int q, int j0, int valid,
+                                         int row0, int B) {
+  const int t = threadIdx.x;
+  const bf16* W = o.w + (size_t)q * o.wgs;
+#pragma unroll
+  for (int j = 0; j < TC_BK * TC_BN / 8 / TC_THREADS; ++j) {
+    const int i = t + j * TC_THREADS;
+    const int r = i / (TC_BN / 8), c = (i % (TC_BN / 8)) * 8;
+    const bool ok = trans ? (r < valid && k0 + c < o.len)
+                          : (k0 + r < o.len && c < valid);
+    const bf16* src = trans ? W + (size_t)(j0 + r) * o.ldw + k0 + c
+                            : W + (size_t)(k0 + r) * o.ldw + j0 + c;
+    cp_async16(&s.w[r][c], ok ? src : o.w, ok ? 16 : 0);
+  }
+  // 16 rows of TC_BK, 16 bytes a load: 8 bf16 or 4 f32 values.
+  constexpr int V = 16 / sizeof(s.x[0][0]);
+#pragma unroll
+  for (int j = 0; j < 16 * TC_BK / V / TC_THREADS; ++j) {
+    const int i = t + j * TC_THREADS;
+    const int r = i / (TC_BK / V), c = (i % (TC_BK / V)) * V;
+    const bool ok = row0 + r < B && k0 + c < o.len;
+    const size_t at =
+        (size_t)(row0 + r) * o.ldx + (size_t)q * o.xgs + k0 + c;
+    const void* src = trans ? (const void*)((const float*)o.x + at)
+                            : (const void*)((const bf16*)o.x + at);
+    cp_async16(&s.x[r][c], ok ? src : o.w, ok ? 16 : 0);
+  }
+}
+
+// The A fragment of rows (g, g + 8) and columns (k + 2 tq, + 8) from f32
+// rows, rounded to bf16 (the dY operand in the compute dtype).
+__device__ __forceinline__ uint32_t bf16x2(const float* p) {
+  __nv_bfloat162 h = __float22bfloat162_rn(*reinterpret_cast<const float2*>(p));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// out[z][row, n] (row stride ldo, split stride B ldo): split z of the
+// products of segments a and b (b.len may be 0) for n < N, plus bias[n]
+// (bf16 or f32, optional) in split 0. Every split writes, an empty one
+// zeros. Grid ((N / gN) ceil(gN / TC_BN), ceil(B / 16), ns); the
+// contraction is cut into TC_BK chunks, a's then b's, and split z takes
+// its share of them in order. Fragment layouts: PTX's mma.m16n8k16.
+template <bool trans, class Bias, class Out>
+__global__ void __launch_bounds__(TC_THREADS)
+tc16_kernel(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
+            int B, int ns) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  TcStage<trans>* s = reinterpret_cast<TcStage<trans>*>(tc_smem);
+  const int tpg = (gN + TC_BN - 1) / TC_BN;
+  const int q = blockIdx.x / tpg, j0 = (blockIdx.x % tpg) * TC_BN;
+  const int valid = min(TC_BN, gN - j0);
+  const int row0 = blockIdx.y * 16, z = blockIdx.z;
+  const int ca = (a.len + TC_BK - 1) / TC_BK, cb = (b.len + TC_BK - 1) / TC_BK;
+  int lo, hi;
+  split_range(ca + cb, ns, z, &lo, &hi);
+  const int n = hi - lo;
+  auto stage = [&](int i) {
+    const int c = lo + i;
+    if (c < ca)
+      tc_stage<trans>(s[i % TC_STAGES], a, c * TC_BK, q, j0, valid, row0, B);
+    else
+      tc_stage<trans>(s[i % TC_STAGES], b, (c - ca) * TC_BK, q, j0, valid,
+                      row0, B);
+  };
+#pragma unroll
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (i < n) stage(i);
+    cp_commit();
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m = lane / 8, l8 = lane % 8, nb = warp * 16;
+  const int g = lane / 4, tq = lane % 4;
+  float acc[2][4] = {};
+  for (int i = 0; i < n; ++i) {
+    cp_wait<TC_STAGES - 2>();  // chunk i has landed
+    __syncthreads();           // and every warp is done with chunk i - 1
+    if (i + TC_STAGES - 1 < n) stage(i + TC_STAGES - 1);
+    cp_commit();
+    const TcStage<trans>& c = s[i % TC_STAGES];
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      uint32_t af[4], bfr[4];
+      if constexpr (trans) {
+        const float* x0 = &c.x[g][kk + 2 * tq];
+        const float* x1 = &c.x[g + 8][kk + 2 * tq];
+        af[0] = bf16x2(x0);
+        af[1] = bf16x2(x1);
+        af[2] = bf16x2(x0 + 8);
+        af[3] = bf16x2(x1 + 8);
+        ldsm4<false>(bfr, &c.w[nb + (m >> 1) * 8 + l8][kk + (m & 1) * 8]);
+      } else {
+        ldsm4<false>(af, &c.x[(m & 1) * 8 + l8][kk + (m >> 1) * 8]);
+        ldsm4<true>(bfr, &c.w[kk + (m & 1) * 8 + l8][nb + (m >> 1) * 8]);
+      }
+      mma_bf16(acc[0], af[0], af[1], af[2], af[3], bfr[0], bfr[1]);
+      mma_bf16(acc[1], af[0], af[1], af[2], af[3], bfr[2], bfr[3]);
+    }
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + g + h * 8;
+      if (row >= B) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = nb + nt * 8 + tq * 2 + e;
+        if (cl >= valid) continue;
+        const int col = q * gN + j0 + cl;
+        const float add = (z == 0 && bias) ? to_f(bias[col]) : 0.f;
+        store(out + ((size_t)z * B + row) * ldo + col,
+              acc[nt][h * 2 + e] + add);
+      }
+    }
+  }
+}
+
+}  // namespace blockgru
+
+namespace {
+// Whether this library has allowed an instantiation of tc16_kernel its
+// dynamic shared memory. Internal linkage: each library (each .cu) sets
+// the attribute of its own copy of the kernel. A function-local static of
+// an inline function would be one object for the whole process (GCC makes
+// it a unique symbol across shared libraries), and the second library's
+// kernel would launch without the attribute.
+template <bool trans, class Bias, class Out>
+bool tc16_allowed = false;
+}  // namespace
+
+namespace blockgru {
+
+template <bool trans, class Bias, class Out>
+inline void tc16(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
+                 int B, int N, int ns, cudaStream_t st) {
+  // The ring exceeds the 48 KB of static shared memory with f32 rows: the
+  // kernel takes it dynamically, allowed once per instantiation (the port
+  // runs on one card; a repeated call is harmless).
+  constexpr int bytes = TC_STAGES * sizeof(TcStage<trans>);
+  if (!tc16_allowed<trans, Bias, Out>) {
+    cudaFuncSetAttribute(tc16_kernel<trans, Bias, Out>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    tc16_allowed<trans, Bias, Out> = true;
+  }
+  const dim3 grid((N / gN) * ((gN + TC_BN - 1) / TC_BN), (B + 15) / 16, ns);
+  tc16_kernel<trans, Bias, Out><<<grid, TC_THREADS, bytes, st>>>(
+      a, b, gN, bias, out, ldo, B, ns);
+}
+
 // --- Stages -----------------------------------------------------------------
 
 // One operand of a concatenated contraction: X(row, k) = x[row * ld + k]
@@ -396,14 +686,37 @@ mm_kernel(XSeg a, XSeg b, const W* w, const Bias* bias, const float* scale,
   }
 }
 
+// Whether a stage of B rows on weights W takes the 16-row tensor-core
+// product: bf16 weights below MMA_ROWS rows.
+template <class W>
+constexpr bool use_tc16(int B) {
+  return std::is_same<W, bf16>::value && B < MMA_ROWS;
+}
+
+// The split count of mm for B rows into N columns over a K-deep
+// contraction on weights W.
+template <class W>
+inline int mm_splits(int B, int N, int K, int sms) {
+  return use_tc16<W>(B) ? tc_splits(N, N, B, K, sms)
+                        : fma_splits(N, B, K, sms);
+}
+
 // [a | b] @ w (times the column scales of an int8 w) + bias into `out`:
-// f32 split partials (ns of them), or with ns == 1 the finished product in
-// f32 or bf16.
+// f32 split partials (ns of them, from mm_splits), or with ns == 1 the
+// finished product in f32 or bf16.
 template <class Bias, class Out, class W>
 inline void mm(XSeg a, XSeg b, const W* w, const Bias* bias, Out* out,
                int B, int N, int ns, cudaStream_t st,
                const float* scale = nullptr) {
   if constexpr (std::is_same<W, bf16>::value) {
+    if (use_tc16<W>(B)) {
+      tc16<false>(Opnd{a.x, a.ld, 0, w, N, 0, a.len},
+                  b.len ? Opnd{b.x, b.ld, 0, w + (size_t)a.len * N, N, 0,
+                               b.len}
+                        : no_opnd(),
+                  N, bias, out, N, B, N, ns, st);
+      return;
+    }
     if (ns == 1 && use_mma(B, N, N, a.len, b.len)) {
       tc_mm(dense(a.x, a.ld, w, N, a.len),
             b.len ? dense(b.x, b.ld, w + (size_t)a.len * N, N, b.len)
@@ -571,20 +884,42 @@ gru_kernel(const bf16* h, const W* wg, const bf16* bg, const float* qg,
   }
 }
 
-// The GRU update from the gate pre-activations (bias included, f32, in
-// wg's column layout, row stride 3D): the tensor-core path's last stage.
-__global__ void gru_update_kernel(const float* gates, const bf16* deter,
-                                  bf16* out, int B, int D, int g) {
+// The GRU update from the gate pre-activations, the sum of ns split
+// partials parts[s] (bias included, f32, in wg's column layout, row stride
+// 3D): the tensor-core paths' last stage. With `save`, also keeps the
+// summed pre-activations there (same layout) for the backward.
+__global__ void gru_update_kernel(const float* parts, int ns, float* save,
+                                  const bf16* deter, bf16* out, int B, int D,
+                                  int g) {
   const int row = blockIdx.y;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= D) return;
   const int dg = D / g, blk = j / dg, i = j - blk * dg;
-  const float* gp = gates + (size_t)row * 3 * D + (size_t)blk * 3 * dg + i;
-  const float r = sigmoid(gp[0]);
-  const float cand = tanhf(r * gp[dg]);
-  const float u = sigmoid(gp[2 * dg] - 1.f);
+  const size_t gb = (size_t)row * 3 * D + (size_t)blk * 3 * dg + i;
+  const size_t step = (size_t)B * 3 * D;
+  float gr = 0.f, gc = 0.f, gu = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    gr += parts[s * step + gb];
+    gc += parts[s * step + gb + dg];
+    gu += parts[s * step + gb + 2 * dg];
+  }
+  if (save) {
+    save[gb] = gr;
+    save[gb + dg] = gc;
+    save[gb + 2 * dg] = gu;
+  }
+  const float r = sigmoid(gr);
+  const float cand = tanhf(r * gc);
+  const float u = sigmoid(gu - 1.f);
   const size_t at = (size_t)row * D + j;
   out[at] = __float2bfloat16(u * cand + (1.f - u) * to_f(deter[at]));
+}
+
+inline void gru_update(const float* parts, int ns, float* save,
+                       const bf16* deter, bf16* out, int B, int D, int g,
+                       cudaStream_t st) {
+  gru_update_kernel<<<dim3((D + 255) / 256, B), 256, 0, st>>>(
+      parts, ns, save, deter, out, B, D, g);
 }
 
 // --- The core step and the posterior head -----------------------------------
@@ -629,8 +964,43 @@ struct CoreSave {
 // The core stages of one step. x (B, 2H + A) holds the action embedding in
 // its last A columns; the stages write [xd, x0] into its first 2H, the
 // hidden activation into h (B, D) and the new deter into out (B, D).
-// `parts` holds core_parts floats. A stage takes the tensor cores where
-// its widths and the batch allow and its weights are bf16 (`tc`).
+// `parts` holds core_parts floats. With bf16 weights (`tc`), every stage
+// takes the 16-row tensor-core product below MMA_ROWS rows (core_tc16),
+// and from MMA_ROWS on the tensor cores where its widths allow; int8
+// weights take the FMA stages.
+//
+// core_tc16 is the first case: each product on the 16-row tensor-core
+// stage, into split partials, the gates too (then the update adds their
+// splits).
+inline void core_tc16(const CoreT<bf16>& w, const bf16* deter,
+                      const bf16* stoch, bf16* x, bf16* h, bf16* out,
+                      float* parts, const CoreSave& save, int B, int D,
+                      int H, int S, int A, int g, int sms, float eps,
+                      cudaStream_t st) {
+  const int dg = D / g, lx = 2 * H + A;
+  const Opnd none = no_opnd();
+  // Both input projections take one split count, as finish adds them.
+  const int ns1 = tc_splits(2 * H, 2 * H, B, D > S ? D : S, sms);
+  tc16<false>(Opnd{deter, D, 0, w.w0, H, 0, D}, none, H, w.b0, parts, 2 * H,
+              B, H, ns1, st);
+  tc16<false>(Opnd{stoch, S, 0, w.w1, H, 0, S}, none, H, w.b1, parts + H,
+              2 * H, B, H, ns1, st);
+  finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
+         save.rstd01, st);
+  // The hidden layer: GRU block q of the deter against wblk[q], then x
+  // against win's columns of block q.
+  const int ns2 = tc_splits(D, dg, B, dg + lx, sms);
+  tc16<false>(Opnd{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg},
+              Opnd{x, lx, 0, w.win, D, (size_t)dg, lx}, dg, w.bblk, parts,
+              D, B, D, ns2, st);
+  finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
+         save.rstdh, st);
+  const int ns3 = tc_splits(3 * D, 3 * dg, B, dg, sms);
+  tc16<false>(Opnd{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, dg}, none,
+              3 * dg, w.bg, parts, 3 * D, B, 3 * D, ns3, st);
+  gru_update(parts, ns3, save.gates, deter, out, B, D, g, st);
+}
+
 template <class W>
 inline void core_stages(const CoreT<W>& w, const bf16* deter,
                         const bf16* stoch, bf16* x, bf16* h, bf16* out,
@@ -638,6 +1008,13 @@ inline void core_stages(const CoreT<W>& w, const bf16* deter,
                         int H, int S, int A, int g, int sms, float eps,
                         cudaStream_t st) {
   constexpr bool tc = std::is_same<W, bf16>::value;
+  if constexpr (tc) {
+    if (use_tc16<W>(B)) {
+      core_tc16(w, deter, stoch, x, h, out, parts, save, B, D, H, S, A, g,
+                sms, eps, st);
+      return;
+    }
+  }
   const int dg = D / g, lx = 2 * H + A;
   int ns1 = 1;
   if (tc && use_mma(B, H, H, D, S)) {
@@ -648,7 +1025,7 @@ inline void core_stages(const CoreT<W>& w, const bf16* deter,
             B, H, st);
     }
   } else {
-    ns1 = splits(2 * H, B, D > S ? D : S, sms);
+    ns1 = fma_splits(2 * H, B, D > S ? D : S, sms);
     in_proj_kernel<W><<<grid_for(2 * H, B, ns1), THREADS, 0, st>>>(
         deter, stoch, w.w0, w.b0, w.w1, w.b1, w.q0, w.q1, parts, B, D, S, H,
         ns1);
@@ -662,7 +1039,7 @@ inline void core_stages(const CoreT<W>& w, const bf16* deter,
             dense(x, lx, w.win, D, lx), w.bblk, parts, D, B, D, st);
     }
   } else {
-    ns2 = splits(D, B, dg + lx, sms);
+    ns2 = fma_splits(D, B, dg + lx, sms);
     hidden_kernel<W><<<grid_for(D, B, ns2), THREADS, 0, st>>>(
         x, lx, lx, deter, w.wblk, w.bblk, w.win, w.qblk, w.qin, parts, B, D,
         g, ns2);
@@ -676,8 +1053,7 @@ inline void core_stages(const CoreT<W>& w, const bf16* deter,
       float* gates = save.gates ? save.gates : parts;
       tc_mm(MSeg{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, 3 * dg, dg},
             no_mseg(), w.bg, gates, 3 * D, B, 3 * D, st);
-      gru_update_kernel<<<dim3((D + 255) / 256, B), 256, 0, st>>>(
-          gates, deter, out, B, D, g);
+      gru_update(gates, 1, nullptr, deter, out, B, D, g, st);
     }
   } else {
     gru_kernel<W><<<grid_for(D, B), THREADS, 0, st>>>(
@@ -685,12 +1061,14 @@ inline void core_stages(const CoreT<W>& w, const bf16* deter,
   }
 }
 
-// Floats of split partials the core stages need at most (on the tensor
-// cores: one (B, D) product, or the (B, 3D) gates).
+// Floats of split partials the core stages need at most (the gates' too:
+// split at 16 rows, whole from MMA_ROWS on).
 inline size_t core_parts(int B, int D, int H, int S, int A, int g, int sms) {
-  const size_t a = (size_t)splits(2 * H, B, D > S ? D : S, sms) * B * 2 * H;
-  const size_t b = (size_t)splits(D, B, D / g + 2 * H + A, sms) * B * D;
-  const size_t c = B >= MMA_ROWS ? (size_t)3 * B * D : 0;
+  const int dg = D / g;
+  const size_t a =
+      (size_t)most_splits(2 * H, B, D > S ? D : S, sms) * B * 2 * H;
+  const size_t b = (size_t)most_splits(D, B, dg + 2 * H + A, sms) * B * D;
+  const size_t c = (size_t)most_splits(3 * D, B, dg, sms) * B * 3 * D;
   return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
@@ -715,7 +1093,7 @@ inline Head head_weights(const void* const* p) {
 
 // Floats of split partials the posterior head needs at most.
 inline size_t head_parts(int B, int D, int H, int K, int sms) {
-  return (size_t)splits(H, B, D + K, sms) * B * H;
+  return (size_t)most_splits(H, B, D + K, sms) * B * H;
 }
 
 // The posterior head on the new deter `out` (B, D) and the tokens (B, K):
@@ -727,7 +1105,7 @@ inline void post_head(const HeadT<W>& w, const bf16* out, const bf16* tok,
                       bf16* xo, Logit* logit, float* parts, float* preo,
                       float* rstdo, int B, int D, int H, int K, int L,
                       int sms, float eps, cudaStream_t st) {
-  const int ns = splits(H, B, D + K, sms);
+  const int ns = mm_splits<W>(B, H, D + K, sms);
   mm(XSeg{out, D, D}, XSeg{tok, K, K}, w.wo, w.bo, parts, B, H, ns, st,
      w.qo);
   finish(parts, ns, B, H, H, 1, w.so, w.so, eps, xo, H, preo, rstdo, st);

@@ -13,7 +13,8 @@
 // operations, about 10 GFLOP against 18 MB of weights and rows. From 128
 // rows on, the products whose widths are multiples of 64 run on the tensor
 // cores (mma.sync tiles, no split-K); at the report's B = 6 the stages are
-// bound by the weight bytes and take the split-K FMA products.
+// bound by the weight bytes and take the split-K 16-row tensor-core
+// products (blockgru_common.cuh, tc16_kernel).
 
 #include "seq_common.cuh"
 

@@ -97,9 +97,9 @@ inline ImagScratch carve_imag(Arena& a, const ImagDims& d) {
   s.head = a.take<float>(B * d.NH);
   size_t most = imag_parts(d.B, d.D, d.H, d.L, d.A, d.g, d.sms);
   const size_t stages[] = {
-      (size_t)splits(d.U, d.B, d.D + d.L, d.sms) * B * d.U,
-      (size_t)splits(d.U, d.B, d.U, d.sms) * B * d.U,
-      (size_t)splits(d.A, d.B, d.AP, d.sms) * B * d.A};
+      (size_t)most_splits(d.U, d.B, d.D + d.L, d.sms) * B * d.U,
+      (size_t)most_splits(d.U, d.B, d.U, d.sms) * B * d.U,
+      (size_t)most_splits(d.A, d.B, d.AP, d.sms) * B * d.A};
   for (size_t v : stages) most = v > most ? v : most;
   s.parts = a.take<float>(most);
   return s;
@@ -153,7 +153,7 @@ extern "C" int imagine_seq_fwd(
     const bf16* deter = t ? dseq + p * D : (const bf16*)deter0;
     const bf16* stoch = t ? sseq + p * L : (const bf16*)stoch0;
     // Policy MLP and action.
-    int ns = splits(U, B, D + L, sms);
+    int ns = mm_splits<bf16>(B, U, D + L, sms);
     mm(XSeg{deter, D, D}, XSeg{stoch, L, L}, b(M), b(M + 1), s.parts, B, U,
        ns, st);
     finish(s.parts, ns, B, U, U, 1, f(M + 2), f(M + 2), eps, s.xa, U,
@@ -161,7 +161,7 @@ extern "C" int imagine_seq_fwd(
     bf16* x = s.xa;
     bf16* y = s.xb;
     for (int i = 1; i < npol; ++i) {
-      ns = splits(U, B, U, sms);
+      ns = mm_splits<bf16>(B, U, U, sms);
       mm(XSeg{x, U, U}, none, b(M + 3 * i), b(M + 3 * i + 1), s.parts, B, U,
          ns, st);
       finish(s.parts, ns, B, U, U, 1, f(M + 3 * i + 2), f(M + 3 * i + 2),
@@ -175,7 +175,7 @@ extern "C" int imagine_seq_fwd(
         s.head, NH, (const float*)noise + o * AP, B, adim, AP, disc, minstd,
         maxstd, aseq + o * AP, s.act_in);
     // Action embedding, into the core's input row.
-    ns = splits(A, B, AP, sms);
+    ns = mm_splits<bf16>(B, A, AP, sms);
     mm(XSeg{s.act_in, AP, AP}, none, b(E), b(E + 1), s.parts, B, A, ns, st);
     finish(s.parts, ns, B, A, A, 1, f(E + 2), f(E + 2), eps, s.x + 2 * H, lx,
            nullptr, nullptr, st);

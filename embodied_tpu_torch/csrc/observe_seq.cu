@@ -27,10 +27,15 @@
 // of bf16 weights and does 2 B flops per weight, so one step is bound by
 // bytes, but the 50 MB L2 keeps the weights after the first step, and the
 // whole window's flops over the peak rate bind it (ops/observe_seq.work).
-// What bounds it in practice is the chain of 64 dependent steps of small
-// launches (about 13 forward, 27 backward per step): latency, not bytes or
-// flops. A persistent kernel with grid-wide barriers, tensor cores and a
-// CUDA graph are later work.
+// At the default dims (178 MB of bf16 weights) the weights exceed the L2
+// and every step streams them again: 3.4 ms per window forward and twice
+// that backward at the memory rate. Every 16-row product runs on the
+// tensor-core stage of blockgru_common.cuh (tc16_kernel), the transposed
+// products of the backward too, and the weight gradients on the
+// tensor cores (seq_common.cuh, wgrad_kernel). What remains is the chain
+// of 64 dependent steps of launches (about 13 forward, 27 backward per
+// step); a persistent kernel with grid-wide barriers and a CUDA graph are
+// later work.
 
 #include "seq_common.cuh"
 

@@ -20,11 +20,11 @@
 // and 178 MB in bf16. Either is beyond the 50 MB L2, so unlike the TPU
 // kernel's VMEM residency, every step streams its weights from device
 // memory: 64 x 89 MB over 3.35 TB/s is a floor of 1.7 ms per window (3.4
-// ms in bf16). Its 182 GFLOP run on the 16-row FMA stages (no tensor cores
-// at 16 rows), whose float32 rate (67 TFLOP/s at most) puts them near 2.7
-// ms or more: the products, not the bytes, may bind this kernel, so it
-// need not beat the bf16 window. Tensor-core stages that take int8 weights
-// are later work.
+// ms in bf16). Its 182 GFLOP run on the 16-row FMA stages, whose float32
+// rate (67 TFLOP/s at most) puts them near 2.7 ms or more, while the bf16
+// window runs its products on the tensor-core stage: so this kernel need
+// not beat the bf16 window. Dequantizing the int8 tile into that stage's
+// staged operand is later work.
 
 #include "seq_common.cuh"
 

@@ -30,12 +30,6 @@ namespace seq {
 
 using namespace blockgru;
 
-// The value bf16 would store: products of the backward take their dY
-// operand in the compute dtype, as the TPU kernel casts it.
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 __device__ __forceinline__ float dsilu(float y) {
   const float s = sigmoid(y);
   return s * (1.f + y * (1.f - s));
@@ -89,95 +83,25 @@ inline void sample(const float* logit, const float* gum, int B, int S, int C,
 
 // --- Backward stages --------------------------------------------------------
 
-// dY(row, k) = bf16(y[row * ld + k]) for an f32 gradient.
-struct LoadF32R {
-  const float* y;
-  int ld;
-  __device__ float operator()(int row, int k) const {
-    return round_bf16(y[(size_t)row * ld + k]);
-  }
-};
-
-// acc += sum over k in [lo, hi) of Y(row, k) * w[c * ldw + k]: the product
-// with a transposed weight, for the thread's (row, c) of the tile; w points
-// at the tile's first column. Threads read consecutive k of one weight row.
-template <class Loader>
-__device__ void tile_mmt(float (&acc)[1], const Loader& load, int lo, int hi,
-                         const bf16* w, int ldw, int row0, int B, float* xs,
-                         float* ws) {
-  const int t = threadIdx.x, r = t / TN, c = t % TN;
-  for (int k0 = lo; k0 < hi; k0 += KC) {
-    for (int i = t; i < TM * KC; i += THREADS) {
-      const int rr = i / KC, kk = i % KC;
-      const int row = row0 + rr, k = k0 + kk;
-      xs[i] = (row < B && k < hi) ? load(row, k) : 0.f;
-    }
-    for (int i = t; i < TN * KC; i += THREADS) {
-      const int cc = i / KC, kk = i % KC, k = k0 + kk;
-      ws[kk * TN + cc] = k < hi ? to_f(w[(size_t)cc * ldw + k]) : 0.f;
-    }
-    __syncthreads();
-    const float* xr = xs + r * KC;
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) acc[0] += xr[kk] * ws[kk * TN + c];
-    __syncthreads();
-  }
-}
-
-// One operand of a transposed product. Output column n lies in group
-// q = n / gN at offset j = n % gN; the segment adds
+// One operand of a transposed product (X W^T, X the f32 gradient dY):
+// blockgru_common.cuh's Opnd, read with trans = true. Output column n lies
+// in group q = n / gN at offset j = n % gN; the segment adds
 //   sum over k < len of bf16(y[row * ldy + q * ygs + k]) * w[q * wgs + j * ldw + k].
-// A dense W^T has ygs = 0 and wgs = gN * ldw; a block-diagonal one steps
-// both per block.
-struct TSeg {
-  const float* y;
-  int ldy;
-  int ygs;
-  const bf16* w;
-  int ldw;
-  size_t wgs;
-  int len;
-};
-
-__device__ __forceinline__ void tseg_mm(float (&acc)[1], const TSeg& s,
-                                        int seg, int lo, int hi, int q,
-                                        int j0, int row0, int B, float* xs,
-                                        float* ws) {
-  const int a = max(lo - seg, 0), b = min(hi - seg, s.len);
-  if (a < b) {
-    tile_mmt(acc, LoadF32R{s.y + (size_t)q * s.ygs, s.ldy}, a, b,
-             s.w + (size_t)q * s.wgs + (size_t)j0 * s.ldw, s.ldw, row0, B,
-             xs, ws);
-  }
-}
+// A dense W^T has ygs = 0 and one group; a block-diagonal one steps both
+// per block.
+typedef Opnd TSeg;
 
 // parts[z][row, n] (row stride N): split z of the transposed products of
-// segments a and b (b.len may be 0). Grid (N / TN, ceil(B / TM), ns); a
-// tile never straddles a group (gN % TN == 0).
-__global__ void __launch_bounds__(THREADS)
-mmt_kernel(TSeg a, TSeg b, int gN, float* parts, int B, int N, int ns) {
-  __shared__ float xs[TM * KC];
-  __shared__ float ws[KC * TN];
-  const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM, z = blockIdx.z;
-  const int q = col0 / gN, j0 = col0 - q * gN;
-  int lo, hi;
-  split_range(a.len + b.len, ns, z, &lo, &hi);
-  float acc[1] = {0.f};
-  tseg_mm(acc, a, 0, lo, hi, q, j0, row0, B, xs, ws);
-  tseg_mm(acc, b, a.len, lo, hi, q, j0, row0, B, xs, ws);
-  const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
-  if (row < B) parts[((size_t)z * B + row) * N + col] = acc[0];
-}
-
+// segments a and b (b.len may be 0) on the 16-row tensor-core stage.
+// Returns the split count.
 inline int mmt(TSeg a, TSeg b, int gN, float* parts, int B, int N, int sms,
                cudaStream_t st) {
-  const int ns = splits(N, B, a.len + b.len, sms);
-  mmt_kernel<<<grid_for(N, B, ns), THREADS, 0, st>>>(a, b, gN, parts, B, N,
-                                                     ns);
+  const int ns = tc_splits(N, gN, B, a.len + b.len, sms);
+  tc16<true>(a, b, gN, (const bf16*)nullptr, parts, N, B, N, ns, st);
   return ns;
 }
 
-inline TSeg no_seg() { return TSeg{nullptr, 0, 0, nullptr, 0, 0, 0}; }
+inline TSeg no_seg() { return no_opnd(); }
 
 // The backward of silu(rms(pre) * scale) for group g = blockIdx.y of W
 // columns of one row (blockIdx.x). dx = the sum of ns partials
@@ -303,42 +227,115 @@ __global__ void st_bwd_kernel(const float* logit, const float* dstoch,
   }
 }
 
-// Weight gradient over all R rows at once:
+// Weight gradient over all R rows at once, on the tensor cores:
 //   out[q][m, n] = sum over r < R of X[r, q xgs + m] * bf16(Y[r, q ygs + n])
-// (X bf16 row stride ldx, Y f32 row stride ldy), written in bf16 with row
-// stride ldo and group stride ogs. Grid (N / TN, M / TM, groups): one
-// 16 x 16 tile per block walks all R rows in 128-row chunks, so no partial
-// sums cross blocks and the order of the sum is fixed.
-__global__ void __launch_bounds__(THREADS)
-wgrad_kernel(const bf16* X, int ldx, int xgs, const float* Y, int ldy,
-             int ygs, int R, bf16* out, int ldo, size_t ogs) {
-  __shared__ float xs[KC * TM];
-  __shared__ float ys[KC * TN];
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN, q = blockIdx.z;
-  X += (size_t)q * xgs + m0;
-  Y += (size_t)q * ygs + n0;
-  const int t = threadIdx.x, m = t / TN, n = t % TN;
-  float acc = 0.f;
-  for (int r0 = 0; r0 < R; r0 += KC) {
-    for (int i = t; i < KC * TM; i += THREADS) {
-      const int rr = i / TM, c = i % TM, r = r0 + rr;
-      xs[i] = r < R ? to_f(X[(size_t)r * ldx + c]) : 0.f;
-      ys[i] = r < R ? round_bf16(Y[(size_t)r * ldy + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < KC; ++rr) acc += xs[rr * TM + m] * ys[rr * TN + n];
-    __syncthreads();
+// (X bf16 row stride ldx, Y f32 row stride ldy, rounded to bf16 as it is
+// staged), written in bf16 with row stride ldo and group stride ogs. A
+// block owns one WG_BM x WG_BN output tile (four warps of 32 x 32) and
+// walks all R rows in WG_BR-row chunks, double-buffered (X by cp.async),
+// so no partial sums cross blocks and the order of the sum is fixed. X^T
+// reaches the A fragments through ldmatrix.trans, Y the B fragments too.
+// M and N are multiples of 16, ldx, xgs, ldy and ygs of 8.
+constexpr int WG_BM = 64, WG_BN = 64, WG_BR = 32, WG_THREADS = 128;
+
+struct WgStage {
+  bf16 x[WG_BR][WG_BM + 8];  // [r][m], padded as TcStage's rows
+  bf16 y[WG_BR][WG_BN + 8];  // [r][n]
+};
+
+__device__ __forceinline__ void wg_stage(WgStage& s, const bf16* X, int ldx,
+                                         const float* Y, int ldy, int r0,
+                                         int R, int M, int N, int m0,
+                                         int n0) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < WG_BR * WG_BM / 8 / WG_THREADS; ++j) {
+    const int i = t + j * WG_THREADS;
+    const int r = i / (WG_BM / 8), c = (i % (WG_BM / 8)) * 8;
+    const bool ok = r0 + r < R && m0 + c < M;
+    cp_async16(&s.x[r][c], ok ? X + (size_t)(r0 + r) * ldx + m0 + c : X,
+               ok ? 16 : 0);
   }
-  out[(size_t)q * ogs + (size_t)(m0 + m) * ldo + n0 + n] =
-      __float2bfloat16(acc);
+#pragma unroll
+  for (int j = 0; j < WG_BR * WG_BN / 8 / WG_THREADS; ++j) {
+    const int i = t + j * WG_THREADS;
+    const int r = i / (WG_BN / 8), c = (i % (WG_BN / 8)) * 8;
+    store8_bf16(&s.y[r][c], Y + (size_t)(r0 + r) * ldy + n0 + c,
+                r0 + r < R && n0 + c < N);
+  }
+}
+
+// Grid (ceil(N / WG_BN), ceil(M / WG_BM), groups).
+__global__ void __launch_bounds__(WG_THREADS)
+wgrad_kernel(const bf16* X, int ldx, int xgs, const float* Y, int ldy,
+             int ygs, int R, int M, int N, bf16* out, int ldo, size_t ogs) {
+  __shared__ __align__(128) WgStage s[2];
+  const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * WG_BN, q = blockIdx.z;
+  X += (size_t)q * xgs;
+  Y += (size_t)q * ygs;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp % 2) * 32, wn = (warp / 2) * 32;
+  const int mi = lane / 8, l8 = lane % 8;
+  float acc[2][4][4] = {};
+  const int chunks = (R + WG_BR - 1) / WG_BR;
+  wg_stage(s[0], X, ldx, Y, ldy, 0, R, M, N, m0, n0);
+  cp_commit();
+  for (int i = 0; i < chunks; ++i) {
+    if (i + 1 < chunks)
+      wg_stage(s[(i + 1) % 2], X, ldx, Y, ldy, (i + 1) * WG_BR, R, M, N, m0,
+               n0);
+    cp_commit();
+    cp_wait<1>();  // chunk i has landed
+    __syncthreads();
+    const WgStage& c = s[i % 2];
+#pragma unroll
+    for (int kk = 0; kk < WG_BR; kk += 16) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        ldsm4<true>(a[t], &c.x[kk + (mi >> 1) * 8 + l8][wm + t * 16 +
+                                                        (mi & 1) * 8]);
+        ldsm4<true>(b[t], &c.y[kk + (mi & 1) * 8 + l8][wn + t * 16 +
+                                                       (mi >> 1) * 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_bf16(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3],
+                   b[nt / 2][(nt % 2) * 2], b[nt / 2][(nt % 2) * 2 + 1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with chunk i before its refill
+  }
+  const int g = lane / 4, tq = lane % 4;
+  out += (size_t)q * ogs;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + mt * 16 + g + h * 8;
+        if (m >= M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + nt * 8 + tq * 2 + e;
+          if (n < N)
+            out[(size_t)m * ldo + n] = __float2bfloat16(acc[mt][nt][h * 2 + e]);
+        }
+      }
+    }
+  }
 }
 
 inline void wgrad(const bf16* X, int ldx, int xgs, const float* Y, int ldy,
                   int ygs, int R, int M, int N, int groups, bf16* out,
                   int ldo, size_t ogs, cudaStream_t st) {
-  wgrad_kernel<<<dim3(N / TN, M / TM, groups), THREADS, 0, st>>>(
-      X, ldx, xgs, Y, ldy, ygs, R, out, ldo, ogs);
+  const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM, groups);
+  wgrad_kernel<<<grid, WG_THREADS, 0, st>>>(X, ldx, xgs, Y, ldy, ygs, R, M,
+                                            N, out, ldo, ogs);
 }
 
 // Column sums of Y (R rows, row stride ldy, N columns) in row order: the
@@ -528,17 +525,17 @@ inline BwdScratch carve_bwd(Arena& a, const Dims& d) {
   const int dg = D / d.g, sms = d.sms, Bi = d.B;
   size_t most = core_parts(Bi, D, H, S, d.A, d.g, sms);
   const size_t core[] = {
-      (size_t)splits(D, Bi, 3 * dg, sms) * B * D,
-      (size_t)splits(lx, Bi, D, sms) * B * lx,
-      (size_t)splits(D, Bi, dg + H, sms) * B * D,
-      (size_t)splits(S, Bi, H, sms) * B * S};
+      (size_t)most_splits(D, Bi, 3 * dg, sms) * B * D,
+      (size_t)most_splits(lx, Bi, D, sms) * B * lx,
+      (size_t)most_splits(D, Bi, dg + H, sms) * B * D,
+      (size_t)most_splits(S, Bi, H, sms) * B * S};
   for (size_t v : core) most = v > most ? v : most;
   if (d.head) {
     const size_t head[] = {
         head_parts(Bi, D, H, d.K, sms),
-        (size_t)splits(H, Bi, L, sms) * B * H,
-        (size_t)splits(d.K, Bi, H, sms) * B * d.K,
-        (size_t)splits(D, Bi, H, sms) * B * D};
+        (size_t)most_splits(H, Bi, L, sms) * B * H,
+        (size_t)most_splits(d.K, Bi, H, sms) * B * d.K,
+        (size_t)most_splits(D, Bi, H, sms) * B * D};
     for (size_t v : head) most = v > most ? v : most;
   }
   s.parts = a.take<float>(most);
@@ -694,8 +691,8 @@ inline Prior prior_weights(const void* const* p) {
 // Floats of split partials imag_step needs at most.
 inline size_t imag_parts(int B, int D, int H, int L, int A, int g, int sms) {
   size_t most = core_parts(B, D, H, L, A, g, sms);
-  const size_t prior[] = {(size_t)splits(H, B, D, sms) * B * H,
-                          (size_t)splits(H, B, H, sms) * B * H};
+  const size_t prior[] = {(size_t)most_splits(H, B, D, sms) * B * H,
+                          (size_t)most_splits(H, B, H, sms) * B * H};
   for (size_t v : prior) most = v > most ? v : most;
   return most;
 }
@@ -714,10 +711,10 @@ inline void imag_step(const Core& core, const Prior& p, const bf16* deter,
   const XSeg none{nullptr, 0, 0};
   core_stages(core, deter, stoch, x, h, out, parts, CoreSave{}, B, D, H, L,
               A, g, sms, eps, st);
-  int ns = splits(H, B, D, sms);
+  int ns = mm_splits<bf16>(B, H, D, sms);
   mm(XSeg{out, D, D}, none, p.w0, p.b0, parts, B, H, ns, st);
   finish(parts, ns, B, H, H, 1, p.s0, p.s0, eps, px, H, nullptr, nullptr, st);
-  ns = splits(H, B, H, sms);
+  ns = mm_splits<bf16>(B, H, H, sms);
   mm(XSeg{px, H, H}, none, p.w1, p.b1, parts, B, H, ns, st);
   finish(parts, ns, B, H, H, 1, p.s1, p.s1, eps, py, H, nullptr, nullptr, st);
   mm(XSeg{py, H, H}, none, p.wl, p.bl, logit, B, L, 1, st);

@@ -150,11 +150,14 @@ def _lib():
              [ctypes.c_int] * 7 + [ctypes.c_float])
   build.bind(lib, 'blockgru_core_bwd', 10,
              [ctypes.c_int] * 7 + [ctypes.c_float])
+  build.bind(lib, 'blockgru_stage_product', 3, [ctypes.c_int] * 7)
+  build.bind(lib, 'blockgru_stage_wgrad', 3, [ctypes.c_int] * 4)
   return lib
 
 
 def check_widths(**widths):
-  """Raise unless each width fits the backward's 16-column tiles."""
+  """Raise unless each width fits the kernels' 16-byte loads and 16-column
+  tiles."""
   for name, width in widths.items():
     if width % 16:
       raise ValueError(f'{name} width {width} is not a multiple of 16')
@@ -169,6 +172,7 @@ def launch(deter, stoch_flat, actfeat, params, eps=1e-4):
   device = check_inputs(
       dict(deter=deter, stoch=stoch_flat, act=actfeat, **p),
       shapes(B, D, H, S, A, g))
+  check_widths(stoch=S, action=A)
   out = torch.empty((B, D), dtype=deter.dtype, device=device)
   lib = _lib()
   ints = [B, D, H, S, A, g, _sms(device)]
@@ -306,3 +310,66 @@ def work_bwd(B, D, H, S, A, g, L=0, K=0):
   weights = nbytes - 2 * (B * (D + S + A + K) + outs)
   ins = 2 * B * (D + S + A + K) + 4 * (B * D + B * L)
   return 2 * weights + ins + 2 * B * (D + S + A + K), 3 * flops
+
+
+def reference_stage_product(x, w, trans=False):
+  """Plain version of `stage_product`, in float32 on the bf16-rounded
+  operands: (B, N)."""
+  g = w.shape[0]
+  x = x.to(torch.bfloat16).float().reshape(x.shape[0], g, -1)
+  w = w.float().transpose(1, 2) if trans else w.float()
+  return torch.einsum('bgk,gkn->bgn', x, w).reshape(x.shape[0], -1)
+
+
+def stage_product(x, w, trans=False, splits=0):
+  """The 16-row tensor-core product of csrc/blockgru_common.cuh on its own,
+  for the card tests. Block-diagonal in g = w.shape[0] groups: x (B, g K)
+  against w (g, K, N / g), or with `trans` x in float32 (rounded to bf16
+  as the backward stages it) against w (g, N / g, K) transposed. Returns
+  the split partials (ns, B, N) in float32; `splits` <= 0 takes the
+  stage's own split count."""
+  g = w.shape[0]
+  B, gK = x.shape
+  K = w.shape[2] if trans else w.shape[1]
+  N = g * (w.shape[1] if trans else w.shape[2])
+  if x.dtype != (torch.float32 if trans else torch.bfloat16):
+    raise TypeError(f'x has dtype {x.dtype}')
+  if w.dtype != torch.bfloat16 or gK != g * K:
+    raise ValueError(f'x {tuple(x.shape)} does not fit w {tuple(w.shape)}')
+  check_widths(depth=K, columns=N // g)
+  device = x.device
+  lib = _lib()
+  sms = _sms(device)
+  most = max(splits, -(-K // 64))
+  out = torch.zeros((most, B, N), dtype=torch.float32, device=device)
+  x, w = x.contiguous(), w.contiguous()
+  with torch.cuda.device(device):
+    ns = lib.blockgru_stage_product(
+        *_ptrs([x, w, out]), int(trans), B, N, K, g, splits, sms,
+        _stream(device))
+  build.check(max(-ns, 0), 'blockgru_stage_product')
+  return out[:ns]
+
+
+def reference_stage_wgrad(x, y, g=1):
+  """Plain version of `stage_wgrad`: float32 sums of bf16 products."""
+  R = x.shape[0]
+  x = x.float().reshape(R, g, -1)
+  y = y.to(torch.bfloat16).float().reshape(R, g, -1)
+  return torch.einsum('rgm,rgn->gmn', x, y)
+
+
+def stage_wgrad(x, y, g=1):
+  """The weight-gradient GEMM of csrc/seq_common.cuh on its own, for the
+  card tests: out[q] = x[:, q]^T bf16(y[:, q]) over all R rows, x (R, g M)
+  bf16, y (R, g N) float32; returns (g, M, N) bf16."""
+  R, gM = x.shape
+  M, N = gM // g, y.shape[1] // g
+  check_widths(rows=M, columns=N)
+  out = torch.empty((g, M, N), dtype=torch.bfloat16, device=x.device)
+  x, y = x.contiguous(), y.float().contiguous()
+  with torch.cuda.device(x.device):
+    code = _lib().blockgru_stage_wgrad(*_ptrs([x, y, out]), R, M, N, g,
+                                       _stream(x.device))
+  build.check(code, 'blockgru_stage_wgrad')
+  return out

@@ -91,7 +91,7 @@ def launch(deter, stoch_flat, actfeat, gum, params, C, unimix=0.01,
   device = blockgru.check_inputs(
       dict(deter=deter, stoch=stoch_flat, act=actfeat, gum=gum, **p), want,
       floats=('gum',) + SCALES)
-  blockgru.check_widths(stoch=L)
+  blockgru.check_widths(stoch=L, action=A)
   if L % C:
     raise ValueError(f'stoch width {L} is not a multiple of {C} classes')
   out = torch.empty_like(deter)

@@ -75,8 +75,7 @@ def launch(deter, stoch_flat, actfeat, tokens, params, eps=1e-4):
   device = blockgru.check_inputs(
       dict(deter=deter, stoch=stoch_flat, act=actfeat, tok=tokens, **p),
       _want(B, D, H, S, A, g, K, L))
-  if L % 16:
-    raise ValueError(f'logit width {L} is not a multiple of 16')
+  blockgru.check_widths(stoch=S, action=A, tokens=K, logit=L)
   out = torch.empty((B, D), dtype=deter.dtype, device=device)
   logit = torch.empty((B, L), dtype=deter.dtype, device=device)
   lib = _lib()

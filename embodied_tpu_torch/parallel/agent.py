@@ -15,6 +15,8 @@ value and its counter. Prefetching streams to the device, meshes, the
 latent table, torch.compile and CUDA graphs come in later slices.
 """
 
+import re
+
 import numpy as np
 import torch
 
@@ -147,18 +149,22 @@ class Agent(corelib.Agent):
         self.model).items()}
     return {'store': store, 'counters': dict(self._counters)}
 
-  def load(self, data):
+  def load(self, data, regex=None):
     """Load a store {path: array} by flat path, such as `save()` or
-    `convert.from_jax` return: parameters and state. Entries the store
-    lacks keep their values (a store made for acting has no train heads,
-    optimizer slots or normalizers); entries the port lacks are ignored.
-    Both are reported."""
-    missing = sorted(set(nn.store(self.model)) - set(data['store']))
-    unused = nn.load_store(self.model, data['store'], strict=False)
+    `convert.from_jax` return: parameters and state. Without `regex` the
+    store must hold every entry of the model, or this raises naming the
+    first five it lacks; with `regex`, only the store's entries that match
+    it load and the rest keep their values. Entries the port lacks are
+    reported and ignored."""
+    store = data['store']
+    if regex:
+      pattern = re.compile(regex)
+      store = {k: v for k, v in store.items() if pattern.search(k)}
+    missing = sorted(set(nn.store(self.model)) - set(store))
+    if missing and not regex:
+      raise KeyError(f'Checkpoint missing entries: {missing[:5]}')
+    unused = nn.load_store(self.model, store, strict=False)
     if unused:
-      print(f'Ignoring {len(unused)} checkpoint entries the port lacks: '
+      print(f'Ignoring {len(unused)} unexpected checkpoint entries: '
             f'{unused[:5]}')
-    if missing:
-      print(f'Keeping {len(missing)} entries the checkpoint lacks: '
-            f'{missing[:5]}')
     self._counters.update(data.get('counters', {}))

@@ -11,6 +11,11 @@ int8 weights, and the `debug` and `size1m` presets act and train under
 `kernel: auto`: the first off the kernels (its widths are not multiples
 of 16), the second on them.
 
+The 16-row tensor-core product and the tensor-core weight gradient that
+every kernel's stages share are also held on their own against float32
+matmul of the same bf16-rounded operands, and the window's backward is
+run twice for bit-equal gradients.
+
 Widths are multiples of 16, as the kernels take them, and deep enough
 that every matmul stage splits its contraction (2, 2 and 5 parts on a
 132-SM card), with uneven parts; B = 40 spans three row tiles. Tolerance
@@ -84,6 +89,71 @@ def test_kernels_match_plain(card, B):
   torch.cuda.synchronize()
   after = blockgru.core_step.launches, observe.obs_step.launches
   assert after == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('splits', [1, 3, 0])
+@pytest.mark.parametrize('g', [1, 4])
+@pytest.mark.parametrize('trans', [False, True])
+@pytest.mark.parametrize('B', [1, 16, 40])
+def test_tensor_core_stage(card, B, trans, g, splits):
+  """The 16-row tensor-core product, forward and transposed, dense and
+  block-diagonal, in one split, three (uneven over five 64-deep chunks) or
+  the stage's own count, against float32 matmul of the same bf16-rounded
+  operands; 80 columns per group leave a ragged 64-column tile, and
+  B = 40 spans three row tiles."""
+  rng = np.random.default_rng(13)
+  K, gN = 320, 80
+  x = torch.tensor(rng.standard_normal((B, g * K)), device=card,
+                   dtype=torch.float32 if trans else torch.bfloat16)
+  w = torch.tensor(0.1 * rng.standard_normal((g, gN, K) if trans else
+                                             (g, K, gN)),
+                   dtype=torch.bfloat16, device=card)
+  parts = blockgru.stage_product(x, w, trans, splits)
+  assert parts.shape == (splits or parts.shape[0], B, g * gN)
+  if not splits:
+    assert parts.shape[0] > 1
+  close(parts.sum(0), blockgru.reference_stage_product(x, w, trans),
+        'product')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('g', [1, 4])
+@pytest.mark.parametrize('R', [16, 1024])
+def test_tensor_core_weight_gradient(card, R, g):
+  """The weight-gradient GEMM over R rows against float32 matmul of the
+  same bf16-rounded operands; 80 x 48 outputs per group leave ragged
+  64-wide tiles."""
+  rng = np.random.default_rng(14)
+  M, N = 80, 48
+  x = torch.tensor(rng.standard_normal((R, g * M)), dtype=torch.bfloat16,
+                   device=card)
+  y = torch.tensor(rng.standard_normal((R, g * N)), dtype=torch.float32,
+                   device=card)
+  got = blockgru.stage_wgrad(x, y, g)
+  assert got.shape == (g, M, N) and got.dtype == torch.bfloat16
+  close(got, blockgru.reference_stage_wgrad(x, y, g), 'wgrad')
+
+
+@pytest.mark.cuda
+def test_window_backward_is_deterministic(card):
+  """Kernel 6 gives bit-equal gradients in two calls on the same inputs:
+  every split partial and every weight gradient is summed in a fixed
+  order."""
+  rng = np.random.default_rng(15)
+  C = SEQ['C']
+  params, deter0, stoch0, acts, toks, keep, gum = seq_case(rng, card, **SEQ)
+  with torch.no_grad():
+    dseq, sseq, lseq = observe_seq.observe_seq(
+        deter0, stoch0, acts, toks, keep, gum, params, C)
+  ups = [torch.tensor(rng.standard_normal(x.shape), device=card).float()
+         for x in (dseq, sseq, lseq)]
+  args = (deter0, stoch0, dseq, sseq, acts, toks, keep, params, *ups, C)
+  first = observe_seq.observe_seq_bwd(*args)
+  second = observe_seq.observe_seq_bwd(*args)
+  flat = lambda out: [*out[:4], *out[4]]
+  for a, b in zip(flat(first), flat(second)):
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -106,7 +106,7 @@ def test_policy_matches_jax_teacher_forced(jax_f32, kernel):
     jm.policy(ctx, carry, obs)
   store, meta = jnn.init(init)(key, obs)
   agent = port_agent(kernel)
-  agent.load({'store': convert.from_jax(store)})
+  agent.load({'store': convert.from_jax(store)}, regex=POLICY_STORE)
   model = agent.model
   step = jax.jit(jnn.pure(jax_step(jm), meta))
 
@@ -156,7 +156,7 @@ def test_agent_policy_outputs(jax_f32):
   store, meta = jnn.init(run)(key, obs)
   _, (jcarry, jact, jout) = jnn.pure(run, meta)(store, key, obs)
   agent = port_agent()
-  agent.load({'store': convert.from_jax(store)})
+  agent.load({'store': convert.from_jax(store)}, regex=POLICY_STORE)
   carry, act, out = agent.policy(agent.init_policy(B), obs)
   assert sorted(out) == sorted(jout)
   assert set(act) == set(jact) and act['action'].dtype == np.int32
@@ -169,6 +169,42 @@ def test_agent_policy_outputs(jax_f32):
   assert out['dyn/stoch'].dtype == np.uint8
   assert out['dyn/stoch'].shape == jout['dyn/stoch'].shape
   close(carry[1]['deter'], jcarry[1]['deter'], 'deter')
+
+
+# The modules a JAX store made by policy calls holds: the acting path's.
+POLICY_STORE = r'^(enc|dyn|pol)/'
+
+
+@pytest.mark.parametrize('case', ['missing', 'regex', 'extra'])
+def test_load_requires_every_entry_unless_a_regex_selects(case, capsys):
+  """As the reference's Agent.load: a store that lacks an entry raises
+  unless a regex selects the entries to load; a regex load leaves the
+  entries it does not match as they were; an entry the model lacks is
+  reported and ignored."""
+  agent = port_agent()
+  data = agent.save()
+  other = port_agent()
+  for value in other.model.parameters():
+    torch.nn.init.zeros_(value.data)
+  before = other.save()['store']
+  store = dict(data['store'])
+  if case == 'missing':
+    dropped = sorted(store)[0]
+    del store[dropped]
+    with pytest.raises(KeyError, match=dropped):
+      other.load({'store': store})
+    return
+  if case == 'regex':
+    other.load({'store': store}, regex='^dyn/')
+    for path, value in other.save()['store'].items():
+      want = store[path] if path.startswith('dyn/') else before[path]
+      np.testing.assert_array_equal(value, want, err_msg=path)
+    return
+  store['extra/entry'] = np.zeros(3, np.float32)
+  other.load({'store': store})
+  assert 'Ignoring 1 unexpected checkpoint entries' in capsys.readouterr().out
+  for path, value in other.save()['store'].items():
+    np.testing.assert_array_equal(value, data['store'][path], err_msg=path)
 
 
 def test_save_load_roundtrip():
