@@ -24,7 +24,11 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            the default configuration's dims, the same way; the rows of
            the windows and the rollout add the streamed floor, the time
            to read their weights once per step, which at these dims
-           exceed the L2.
+           exceed the L2. The rollout runs twice on the same inputs and
+           must give the same bits. Last, `stage` rows: the 128-row
+           tensor-core stage alone on each shape class of the default
+           rollout's products, its TFLOP/s beside one torch.matmul or
+           torch.bmm on the same operands (`library_ms`).
   slice    the acting path of size12m on dummy_disc with 16 envs, through
            make_agent -> init_policy -> Driver(agent.policy), in train and
            eval mode. The launch counts show that it ran on the kernels;
@@ -254,6 +258,35 @@ def device_ms(torch, fn, iters=20, attempts=3):
                      'profiles')
 
 
+def graph_ms(torch, fn, calls=10, replays=10):
+  """Device time of one call of `fn`, a call of one short kernel: a CUDA
+  graph of `calls` calls, replayed and timed with CUDA events (median),
+  which leaves out the host's launch cost. Late in a long run of this
+  script on an H100 the profiler dropped events of such calls and read
+  them 1.0-3.4x too fast; a graph's replay loses none."""
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(calls):
+      fn()
+  graph.replay()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(replays):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end) / calls)
+  return statistics.median(times)
+
+
 def compare(torch, got, want):
   got, want = got.float(), want.float()
   if not torch.isfinite(got).all():
@@ -318,6 +351,7 @@ def phase_kernels(torch):
   for B in (IMAG_STARTS, 6):
     results.append(imag_step_kernel(torch, gen, core, B, flush))
   results += default_kernels(torch, gen, flush)
+  stage_rows(torch)
   emit(phase='kernels', ok=True)
   return results
 
@@ -576,6 +610,11 @@ def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
           noise.reshape(steps * B, adim), npol, disc, MINSTD, MAXSTD)
       act_share = float((hard.argmax(-1) == aseq.reshape(
           steps * B, adim).argmax(-1)).float().mean())
+    # A second call on the same inputs gives the same bits: every sum runs
+    # in a fixed order (split partials in split order, no atomics).
+    again = ops.imagine_seq(deter0, stoch0, gum, noise, params, *spec)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        (dseq, sseq, lseq, aseq), again))
   problems = []
   if not all(ok for _, ok in errs):
     problems.append(f'outputs off the replay: {errs}')
@@ -583,6 +622,8 @@ def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
     problems.append(f'samples agree for {share:.4f} of the groups')
   if act_share is not None and act_share < SAMPLE_AGREEMENT:
     problems.append(f'actions agree for {act_share:.4f} of the rows')
+  if not bit_equal:
+    problems.append('two calls on the same inputs differ')
   kernel = lambda: ops.imagine_seq(deter0, stoch0, gum, noise, params, *spec)
   plain = lambda: ops.reference_imagine_seq(
       deter0, stoch0, params, *spec, gumbel=gum, noise=noise)
@@ -593,6 +634,7 @@ def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
                'bounded_normal', max_abs_err=max(e for e, _ in errs),
                tol=TOL, sample_agreement=share, action_agreement=act_share,
                min_agreement=SAMPLE_AGREEMENT, logit_err_vs_f32=f32_replay,
+               bit_equal_calls=bit_equal,
                **timings(torch, kernel, plain, flush, *work,
                          streamed=steps * tensor_bytes(params)))
   return check_row('imagine_seq', row, problems)
@@ -634,6 +676,71 @@ def default_kernels(torch, gen, flush, D=DEFAULT['D'], H=DEFAULT['H'],
                              U=U, C=C, config='default'))
   rows.append(qobs_kernel(torch, gen, core + head, flush, D=D, H=H, S=S, K=K,
                           C=C))
+  return rows
+
+
+# The rollout's products at the default dims that the 128-row stage
+# carries, one per shape class (ops/imagine_seq.products), and the split
+# count the rollout gives each (0: the stage's own rule; the logits are
+# written whole).
+STAGE_CLASSES = dict(gates=0, hidden=0, policy0=0, in_proj_deter=0,
+                     prior_logits=1, policy1=0)
+
+
+def stage_rows(torch, B=IMAG_STARTS, D=DEFAULT['D'], H=DEFAULT['H'],
+               S=DEFAULT['S'], C=DEFAULT['C'], U=DEFAULT['U'], g=8):
+  """The 128-row tensor-core stage alone (ops/blockgru.stage_product128)
+  on each shape class of the default rollout's products, from its own
+  seed: device ms (graph_ms) and TFLOP/s, held against one PyTorch call
+  on the same operands as its yardstick (`library_ms`: torch.matmul for a
+  dense product, torch.bmm for a block-diagonal one, with the hidden
+  layer's two segments concatenated per group), which the port never
+  calls."""
+  from embodied_tpu_torch.ops import blockgru, imagine_seq
+  gen = torch.Generator(DEV).manual_seed(SEED + 3)
+  products = imagine_seq.products(B, D, H, S * C, H, U, 5, 3, g, True)
+  # Rows of unit scale, weights of std 1 / sqrt(depth), in bf16.
+  bf = lambda *shape, fan=1: (torch.randn(
+      shape, generator=gen, device=DEV) / fan ** 0.5).to(torch.bfloat16)
+  rows = []
+  for name, splits in STAGE_CLASSES.items():
+    rows_, K, N, groups = products[name]
+    gN = N // groups
+    # The hidden layer: the deter's block (D / g deep) and x (the rest).
+    K1 = D // g if name == 'hidden' else K
+    K2 = K - K1
+    x, w = bf(B, groups * K1), bf(groups, K1, gN, fan=K)
+    x2, w2 = (bf(B, K2), bf(K2, N, fan=K)) if K2 else (None, None)
+    stage = lambda: blockgru.stage_product128(x, w, x2, w2, splits=splits)
+    if groups == 1:
+      xl = x if x2 is None else torch.cat([x, x2], 1)
+      wl = w[0] if w2 is None else torch.cat([w[0], w2])
+      library = lambda: torch.matmul(xl, wl)
+    else:
+      xl = x.reshape(B, groups, K1).transpose(0, 1)
+      wl = w
+      if K2:
+        xl = torch.cat([xl, x2.expand(groups, B, K2)], 2)
+        wl = torch.cat([w, w2.reshape(K2, groups, gN).transpose(0, 1)], 1)
+      xl, wl = xl.contiguous(), wl.contiguous()
+      library = lambda: torch.bmm(xl, wl).transpose(0, 1).reshape(B, N)
+    got = stage()
+    want = library()
+    torch.cuda.synchronize()
+    err, ok = compare(torch, got.sum(0), want)
+    flops = 2 * rows_ * K * N
+    ms = graph_ms(torch, stage)
+    library_ms = graph_ms(torch, lambda: torch.bmm(xl, wl) if groups > 1
+                          else library())
+    row = dict(phase='stage', name=name, rows=rows_, K=K, N=N, groups=groups,
+               splits=got.shape[0], max_abs_err=err, tol=TOL, ms=ms,
+               tflops=flops / ms / 1e9, library_ms=library_ms,
+               library_tflops=flops / library_ms / 1e9, ok=ok)
+    emit(**row)
+    rows.append(row)
+    if not ok:
+      fail('kernels', f'the 128-row stage on {name} disagrees with '
+                      f'torch.matmul: max abs err {err}')
   return rows
 
 

@@ -131,6 +131,50 @@ extern "C" int blockgru_stage_product(const void* x, const void* w,
   return code ? -code : ns;
 }
 
+namespace {
+
+template <class Bias, class Out>
+void product128(blockgru::Opnd a, blockgru::Opnd b, int gN,
+                const void* bias, void* out, int B, int N, int ns,
+                cudaStream_t st) {
+  blockgru::tc128(a, b, gN, (const Bias*)bias, (Out*)out, N, B, N, ns, st);
+}
+
+}  // namespace
+
+// The 128-row tensor-core product on its own, for the card tests and the
+// smoke run's stage rows (ops/blockgru.py stage_product128): x (B, g K)
+// block-diagonal against w (g, K, N / g), plus, where K2 > 0, x2 (B, K2)
+// dense against w2 (K2, N) (as the hidden layer's x against win), plus
+// bias (N) (bf16, or f32 with bias_f32; none where null). Writes the ns
+// split partials (ns, B, N) f32, or with out_bf16 the finished product
+// (B, N) bf16 (ns 1). ns <= 0 takes tc128_splits. Returns ns, or minus
+// the CUDA error.
+extern "C" int blockgru_stage_product128(const void* x, const void* w,
+                                         const void* x2, const void* w2,
+                                         const void* bias, void* out,
+                                         int bias_f32, int out_bf16, int B,
+                                         int N, int K, int K2, int g, int ns,
+                                         int sms, void* stream) {
+  using namespace blockgru;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int gN = N / g;
+  if (ns <= 0) ns = tc128_splits(N, gN, B, K + K2, sms);
+  const Opnd a{x, g * K, K, (const bf16*)w, gN, (size_t)K * gN, K};
+  const Opnd b = K2 ? Opnd{x2, K2, 0, (const bf16*)w2, N, (size_t)gN, K2}
+                    : no_opnd();
+  if (out_bf16 && bias_f32)
+    product128<float, bf16>(a, b, gN, bias, out, B, N, ns, st);
+  else if (out_bf16)
+    product128<bf16, bf16>(a, b, gN, bias, out, B, N, ns, st);
+  else if (bias_f32)
+    product128<float, float>(a, b, gN, bias, out, B, N, ns, st);
+  else
+    product128<bf16, float>(a, b, gN, bias, out, B, N, ns, st);
+  const int code = (int)cudaGetLastError();
+  return code ? -code : ns;
+}
+
 // out[q] = x[:, q]^T @ bf16(y[:, q]) over R rows: x (R, g M) bf16, y
 // (R, g N) f32, out (g, M, N) bf16.
 extern "C" int blockgru_stage_wgrad(const void* x, const void* y, void* out,

@@ -39,10 +39,14 @@
 // count follows the batch and the SM count (`tc_splits`).
 //
 // From MMA_ROWS (128) rows on, operations bind (B = 1024: about 9 GFLOP per
-// core step against 18 MB), and a stage whose widths allow it runs on the
-// tensor cores in 32 x 64 tiles (mma_kernel: mma.sync, no split); narrower
-// ones on the FMA stages (tile_mm: one output per thread, 16 x 16 tiles).
-// TMA, wgmma and one persistent launch are later work.
+// size12m core step against 18 MB; the default rollout step 191 GFLOP
+// against 190 MB). Every bf16 product there runs on the 128-row stage
+// (tc128_kernel): Hopper's wgmma, two warpgroups per 128 x 256 output
+// tile, both operands fed by TMA into a ring of swizzled shared-memory
+// stages, split-K only where the tiles are fewer than the SMs. Its notes
+// below give the design and what is left for later. The action head's 16
+// or 32 columns stay on the FMA stages (tile_mm: one output per thread,
+// 16 x 16 tiles).
 //
 // The FMA stages take their weight matrices in bf16 or in int8 (the
 // template parameter W): int8 weights (qcore.cu) carry per-output-column
@@ -53,6 +57,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,12 +146,34 @@ inline int tc_splits(int N, int gN, int B, int K, int sms) {
   return clamp_splits((2 * sms + tiles - 1) / tiles, K, TC_BK);
 }
 
-// The most parts either rule gives a dense product: what a buffer of
-// split partials is sized for (a grouped product has at least as many
-// tiles, so no more parts).
+// The 128-row tensor-core stage (tc128_kernel below): a block of
+// T128_BM / 64 warpgroups owns a T128_BM x T128_BN output tile.
+constexpr int T128_BM = 128, T128_BN = 256, T128_BK = 64, T128_STAGES = 4;
+constexpr int T128_THREADS = T128_BM / 64 * 128;  // a warpgroup per 64 rows
+constexpr int T128_XBYTES = T128_BM * T128_BK * 2;  // 16 KB of X a chunk
+constexpr int T128_WBYTES = T128_BK * T128_BN * 2;  // 32 KB of W a chunk
+constexpr int T128_STAGE = T128_XBYTES + T128_WBYTES;
+// The ring, its barriers and the slack to align it to 1 KB.
+constexpr int T128_SMEM = T128_STAGES * (T128_STAGE + 8) + 1024;
+
+// With fewer tiles than SMs, as many parts as fill the SMs once, each at
+// least four 64-deep chunks deep; 1 from one tile per SM on. The count
+// never grows with the tiles, so a grouped product (at least as many tiles
+// as the dense one of its width) takes no more parts than most_splits
+// gives.
+inline int tc128_splits(int N, int gN, int B, int K, int sms) {
+  const int tiles = (N / gN) * ((gN + T128_BN - 1) / T128_BN) *
+                    ((B + T128_BM - 1) / T128_BM);
+  return clamp_splits(sms / tiles, K, 4 * 64);
+}
+
+// The most parts any rule gives a dense product: what a buffer of split
+// partials is sized for (a grouped product has at least as many tiles, so
+// no more parts).
 inline int most_splits(int N, int B, int K, int sms) {
   const int a = fma_splits(N, B, K, sms), b = tc_splits(N, N, B, K, sms);
-  return a > b ? a : b;
+  const int c = tc128_splits(N, N, B, K, sms);
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
 inline dim3 grid_for(int cols, int B, int ns = 1) {
@@ -237,39 +264,11 @@ __device__ void segment_mm(float (&acc)[1], const Loader& load, int seg,
   if (a < b) tile_mm<1>(acc, load, a, b, w, 0, ldw, row0, B, xs, ws);
 }
 
-// --- Tensor-core products (from MMA_ROWS rows on) ---------------------------
-//
-// Each block computes a 32 x 64 output tile with four warps of 16 x 32,
-// staging 64-deep chunks of X and of W (transposed, so that a fragment's
-// two k values are adjacent) in shared memory; bf16 operands, f32 sums.
-// Each output is written once, with the bias, so there is no split and no
-// partial sum.
+// --- Tensor-core helpers ----------------------------------------------------
 
+// From MMA_ROWS rows on, the forward products take the 128-row tensor-core
+// stage (tc128_kernel); below, the 16-row stage (tc16_kernel).
 constexpr int MMA_ROWS = 128;
-constexpr int MM_BM = 32, MM_BN = 64, MM_BK = 64, MM_THREADS = 128;
-
-// One operand pair of a tensor-core product. Output column n lies in
-// group q = n / gN at offset j = n - q gN; the segment adds
-//   sum over k < len of x[row * ldx + q * xgs + k] * w[q * wgs + k * ldw + j].
-// A dense product has gN = N and xgs = wgs = 0; a block-diagonal one steps
-// both per block. len is a multiple of 8, ldx and ldw too, and gN of MM_BN.
-struct MSeg {
-  const bf16* x;
-  int ldx;
-  int xgs;
-  const bf16* w;
-  int ldw;
-  size_t wgs;
-  int gN;
-  int len;
-};
-
-// Whether products of B rows into N columns in groups of gN, over segments
-// of la and lb, take the tensor cores.
-inline bool use_mma(int B, int N, int gN, int la, int lb) {
-  return B >= MMA_ROWS && N % MM_BN == 0 && gN % MM_BN == 0 && la % 8 == 0 &&
-         lb % 8 == 0;
-}
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
@@ -279,10 +278,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
@@ -341,105 +336,6 @@ __device__ __forceinline__ void store8_bf16(bf16* dst, const float* p,
                          __floats2bfloat162_rn(b.z, b.w)};
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
 }
-
-typedef bf16 MTile[MM_BK + 8];  // a staged row, padded (see mma_kernel)
-
-// acc += the products of one segment for the warp's 16 x 32 sub-tile
-// (rows wr.., columns wc.. of the block's tile at (row0, col0)).
-__device__ __forceinline__ void mma_segment(float (&acc)[4][4],
-                                            const MSeg& seg, int row0,
-                                            int col0, int B, MTile* xs,
-                                            MTile* wt) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = (warp % 2) * 16, wc = (warp / 2) * 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int q = col0 / seg.gN;
-  const bf16* X = seg.x + (size_t)q * seg.xgs;
-  const bf16* W = seg.w + (size_t)q * seg.wgs + (col0 - q * seg.gN);
-  for (int k0 = 0; k0 < seg.len; k0 += MM_BK) {
-    for (int i = threadIdx.x; i < MM_BM * MM_BK / 8; i += MM_THREADS) {
-      const int r = i / (MM_BK / 8), c = (i % (MM_BK / 8)) * 8;
-      const int row = row0 + r, k = k0 + c;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row < B && k < seg.len)
-        v = *reinterpret_cast<const uint4*>(X + (size_t)row * seg.ldx + k);
-      *reinterpret_cast<uint4*>(&xs[r][c]) = v;
-    }
-    for (int i = threadIdx.x; i < MM_BK * MM_BN / 8; i += MM_THREADS) {
-      const int kk = i / (MM_BN / 8), n = (i % (MM_BN / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k0 + kk < seg.len)
-        v = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + kk) * seg.ldw +
-                                            n);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) wt[n + j][kk] = e[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MM_BK; kk += 16) {
-      const int k = kk + tq * 2;
-      const uint32_t a0 = ld32(&xs[wr + g][k]);
-      const uint32_t a1 = ld32(&xs[wr + g + 8][k]);
-      const uint32_t a2 = ld32(&xs[wr + g][k + 8]);
-      const uint32_t a3 = ld32(&xs[wr + g + 8][k + 8]);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wc + nt * 8 + g;
-        mma_bf16(acc[nt], a0, a1, a2, a3, ld32(&wt[n][k]),
-                 ld32(&wt[n][k + 8]));
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// out[row, n] (row stride ldo) = the products of segments a and b (b.len
-// may be 0), plus bias[n] (bf16 or f32, optional). Grid (N / MM_BN,
-// ceil(B / MM_BM)). Fragment layouts: PTX's mma.m16n8k16 (A row-major,
-// B column-major, C row-major).
-template <class Bias, class Out>
-__global__ void __launch_bounds__(MM_THREADS)
-mma_kernel(MSeg a, MSeg b, const Bias* bias, Out* out, int ldo, int B) {
-  // Rows padded by 8 bf16: 144-byte rows keep 16-byte stores aligned and
-  // put a fragment's eight rows on distinct banks.
-  __shared__ __align__(16) MTile xs[MM_BM];
-  __shared__ __align__(16) MTile wt[MM_BN];
-  const int col0 = blockIdx.x * MM_BN, row0 = blockIdx.y * MM_BM;
-  float acc[4][4] = {};
-  mma_segment(acc, a, row0, col0, B, xs, wt);
-  if (b.len) mma_segment(acc, b, row0, col0, B, xs, wt);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = (warp % 2) * 16, wc = (warp / 2) * 32;
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wr + g + h * 8;
-      if (row >= B) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = col0 + wc + nt * 8 + tq * 2 + e;
-        store(out + (size_t)row * ldo + col,
-              acc[nt][h * 2 + e] + (bias ? to_f(bias[col]) : 0.f));
-      }
-    }
-  }
-}
-
-template <class Bias, class Out>
-inline void tc_mm(MSeg a, MSeg b, const Bias* bias, Out* out, int ldo, int B,
-                  int N, cudaStream_t st) {
-  mma_kernel<Bias, Out><<<dim3(N / MM_BN, (B + MM_BM - 1) / MM_BM),
-                          MM_THREADS, 0, st>>>(a, b, bias, out, ldo, B);
-}
-
-inline MSeg dense(const bf16* x, int ldx, const bf16* w, int N, int len) {
-  return MSeg{x, ldx, 0, w, N, 0, N, len};
-}
-
-inline MSeg no_mseg() { return MSeg{nullptr, 0, 0, nullptr, 0, 0, MM_BN, 0}; }
 
 // --- Tensor-core products at 16 rows (below MMA_ROWS) -----------------------
 //
@@ -618,6 +514,303 @@ tc16_kernel(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
   }
 }
 
+
+// --- Tensor-core products from MMA_ROWS rows on (wgmma) ---------------------
+//
+// Replaces, with the stages around it, the products of the Pallas TPU
+// kernel embodied_tpu/ops/imagine_seq.py:fused_imagine_seq (and of
+// fused_core_step and fused_imag_step at 1,024 rows). At 128 rows and more
+// the products are bound by operations: a rollout step at the default dims
+// does 191 GFLOP against some 190 MB of weights, a thousand flops per
+// byte, above the ~295 per byte where the H100 stops being bound by
+// memory. So the stage is built for the tensor cores' rate: Hopper's
+// warpgroup products (wgmma.mma_async m64n256k16, bf16 operands, f32 sums
+// in registers), which read both operands from shared memory.
+//
+// A block of two warpgroups owns one 128 x 256 output tile (64 rows each)
+// over its split's part of the contraction, cut into 64-deep chunks. Each
+// chunk stages the X tile (128 rows x 64 k, K contiguous) and the W tile
+// (64 k x 256 columns, as W lies: N contiguous, four 64-column atoms) in
+// the 128-byte swizzled layout that wgmma reads through its descriptors:
+// rows of 128 bytes, the 16-byte piece c of row r stored at c ^ (r % 8),
+// atoms of 8 rows aligned to 1,024 bytes. X is K-major; W is read through
+// wgmma's transpose bit (MN-major), so it needs no copy. One thread fills a
+// ring of T128_STAGES chunks (48 KB each) by TMA, whose tensor maps zero
+// what lies outside the operands (ragged rows, columns and depths) and
+// complete on one mbarrier per slot; T128_STAGES - 2 chunks are in flight
+// while one is multiplied and the one before it drains, and a block
+// barrier per chunk frees the slot the next load refills.
+//
+// Tiles run row tile fastest, so the blocks that share a W tile run
+// together and read it from device memory about once. A product with fewer
+// tiles than SMs (1,024 columns at 1,024 rows make 32) splits its
+// contraction (tc128_splits) into parts that each write f32 partial sums,
+// which the consumer (finish, gru_update) adds in split order; no atomics,
+// so two calls give the same bits.
+//
+// Later work: one persistent launch per product whose blocks walk the
+// tiles (the next tile's loads under this one's epilogue), a producer warp
+// instead of the block barrier, and the GRU update fused into the gates'
+// epilogue (their f32 pre-activations, 100 MB per default step, now go
+// through device memory).
+
+// A wgmma shared-memory descriptor of the 128-byte swizzle: the start
+// address, the leading and stride byte offsets (16-byte units) and the
+// layout (1 = 128-byte swizzle, bits 62-63).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d += A (64 x 16, K-major) B (16 x N, MN-major) for the warpgroup:
+// wgmma.mma_async m64nNk16, N / 2 f32 sums per thread (N = T128_BN).
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
+                                      uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "},"
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Keeps the compiler from moving accumulator accesses across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One operand pair of the 128-row stage, as TMA sees it: `x` and `w` are
+// 3-D tensor maps (built by t128_seg on the host) whose boxes are one
+// chunk of the X tile (64 k x 1 x T128_BM rows) and one 64-column atom of
+// the W tile (64 columns x 64 k, or 64 x 1 x 64 for a w with its groups
+// side by side in the rows). The coordinates of chunk k0 of group q at
+// column j and rows row0..:
+//   X (k0, xq ? q : 0, row0)
+//   W (j, k0, q), or with wcol (j, q, k0).
+struct T128Seg {
+  CUtensorMap x, w;
+  int len, xq, wcol;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem(bar)));
+}
+
+// Waits until the barrier has completed the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A TMA load of one box of `map` at (c0, c1, c2) into shared memory at
+// dst, completing `bytes` on the barrier.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem(dst)),
+      "l"((uint64_t)map), "r"(smem(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One thread: stage chunk [k0, k0 + T128_BK) of segment o for the tile at
+// column j0 of group q, rows row0.., into the ring slot s (X at s, W's
+// 64-column atoms from s + T128_XBYTES, 8 KB apart), and arm the slot's
+// barrier for its bytes. TMA writes the 128-byte swizzle and zeros outside
+// the operands (ragged rows, columns and depths).
+__device__ __forceinline__ void t128_stage(unsigned char* s, uint64_t* bar,
+                                           const T128Seg& o, int k0, int q,
+                                           int j0, int row0) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem(bar)),
+      "r"(T128_STAGE)
+      : "memory");
+  tma_load(s, &o.x, bar, k0, o.xq ? q : 0, row0);
+#pragma unroll
+  for (int h = 0; h < T128_BN / 64; ++h) {
+    unsigned char* d = s + T128_XBYTES + h * (T128_BK * 128);
+    if (o.wcol)
+      tma_load(d, &o.w, bar, j0 + h * 64, q, k0);
+    else
+      tma_load(d, &o.w, bar, j0 + h * 64, k0, q);
+  }
+}
+
+// out[z][row, n] (row stride ldo, split stride B ldo): split z of the
+// products of segments a and b (b.len may be 0) for n < N, plus bias[n]
+// (bf16 or f32, optional) in split 0. Every split writes, an empty one
+// zeros. Grid (ceil(B / T128_BM), (N / gN) ceil(gN / T128_BN), ns); the
+// contraction is cut into T128_BK chunks, a's then b's, and split z takes
+// its share of them in order. Accumulator layout: PTX's wgmma m64nNk16 D
+// fragments (warp w of the warpgroup holds its rows 16 w .. 16 w + 15).
+template <class Bias, class Out>
+__global__ void __launch_bounds__(T128_THREADS)
+tc128_kernel(const __grid_constant__ T128Seg a,
+             const __grid_constant__ T128Seg b, int gN, const Bias* bias,
+             Out* out, int ldo, int B, int ns) {
+  extern __shared__ __align__(128) unsigned char t128_smem[];
+  unsigned char* ring = t128_smem + ((1024 - (smem(t128_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T128_STAGES * T128_STAGE);
+  const int tpg = (gN + T128_BN - 1) / T128_BN;
+  const int q = blockIdx.y / tpg, j0 = (blockIdx.y % tpg) * T128_BN;
+  const int valid = min(T128_BN, gN - j0);
+  const int row0 = blockIdx.x * T128_BM, z = blockIdx.z;
+  const int ca = (a.len + T128_BK - 1) / T128_BK;
+  const int cb = (b.len + T128_BK - 1) / T128_BK;
+  int lo, hi;
+  split_range(ca + cb, ns, z, &lo, &hi);
+  const int n = hi - lo;
+  const bool producer = threadIdx.x == 0;
+  // Chunk i of the split into its slot, by the producer thread.
+  auto stage = [&](int i) {
+    const int c = lo + i, slot = i % T128_STAGES;
+    unsigned char* s = ring + slot * T128_STAGE;
+    if (c < ca)
+      t128_stage(s, full + slot, a, c * T128_BK, q, j0, row0);
+    else
+      t128_stage(s, full + slot, b, (c - ca) * T128_BK, q, j0, row0);
+  };
+  if (producer) {
+#pragma unroll
+    for (int i = 0; i < T128_STAGES; ++i) mbar_init(full + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (producer) {
+#pragma unroll
+    for (int i = 0; i < T128_STAGES - 2; ++i)
+      if (i < n) stage(i);
+  }
+  const int wg = threadIdx.x / 128;
+  float acc[T128_BN / 2];
+#pragma unroll
+  for (int i = 0; i < T128_BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    // Both warpgroups are done with chunk i - 2, whose slot the producer
+    // refills.
+    __syncthreads();
+    if (producer && i + T128_STAGES - 2 < n) stage(i + T128_STAGES - 2);
+    mbar_wait(full + i % T128_STAGES, (i / T128_STAGES) & 1);  // chunk i in
+    const uint32_t sx = smem(ring + (i % T128_STAGES) * T128_STAGE);
+    const uint32_t sa = sx + wg * (64 * 128), sb = sx + T128_XBYTES;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < T128_BK / 16; ++kk) {
+      // A: 16 k = 32 bytes along its swizzled rows, atoms of 8 rows 1 KB
+      // apart. B: 16 k rows = 2 KB down, 8-row atoms 1 KB apart, the
+      // 64-column atoms 8 KB apart.
+      wgmma<T128_BN>(acc, gmma_desc(sa + kk * 32, 16, 1024),
+                     gmma_desc(sb + kk * 2048, T128_BK * 128, 1024));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_acc(acc);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r0 = row0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < T128_BN / 8; ++j) {
+    const int cl = j * 8 + (lane % 4) * 2;
+    if (cl >= valid) continue;  // valid is a multiple of 8
+    const int col = q * gN + j0 + cl;
+    float b0 = 0.f, b1 = 0.f;
+    if (z == 0 && bias) {
+      b0 = to_f(bias[col]);
+      b1 = to_f(bias[col + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + h * 8;
+      if (row < B)
+        store2(out + ((size_t)z * B + row) * ldo + col,
+               acc[j * 4 + h * 2] + b0, acc[j * 4 + h * 2 + 1] + b1);
+    }
+  }
+}
+
 }  // namespace blockgru
 
 namespace {
@@ -629,6 +822,19 @@ namespace {
 // kernel would launch without the attribute.
 template <bool trans, class Bias, class Out>
 bool tc16_allowed = false;
+// The same for tc128_kernel.
+template <class Bias, class Out>
+bool tc128_allowed = false;
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// libraries do not link the driver library), once per library.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled = nullptr;
 }  // namespace
 
 namespace blockgru {
@@ -648,6 +854,90 @@ inline void tc16(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
   const dim3 grid((N / gN) * ((gN + TC_BN - 1) / TC_BN), (B + 15) / 16, ns);
   tc16_kernel<trans, Bias, Out><<<grid, TC_THREADS, bytes, st>>>(
       a, b, gN, bias, out, ldo, B, ns);
+}
+
+// A 3-D bf16 tensor map of dims d0, d1, d2 (innermost first, d0
+// contiguous) with byte strides s1, s2 and boxes b0 x b1 x b2, in the
+// 128-byte swizzle, zeros out of bounds. False where the driver refuses.
+inline bool tmap3(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1,
+                  uint64_t d2, uint64_t s1, uint64_t s2, uint32_t b0,
+                  uint32_t b1, uint32_t b2) {
+  if (!encode_tiled) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                            &found);
+#endif
+    if (!fn || found != cudaDriverEntryPointSuccess) return false;
+    encode_tiled = (EncodeTiled)fn;
+  }
+  const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, b2}, unit[3] = {1, 1, 1};
+  return encode_tiled(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<void*>(base), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor maps of segment o of a product of B rows in G groups of gN
+// columns. X: (k < len, group, row < B), the group dim 1 deep where the
+// groups share X (xgs = 0). W: groups stacked one after another (wgs at
+// least a whole group, or one group) as (column < gN, k < len, group), or
+// side by side in W's rows (wgs < ldw: win's blocks of columns) as
+// (column < gN, group, k < len). Out-of-bounds boxes read zeros, so a
+// group's ragged tile and depth read no other group's values.
+inline bool t128_seg(T128Seg* s, const Opnd& o, int B, int G, int gN) {
+  s->len = o.len;
+  s->xq = o.xgs != 0;
+  s->wcol = G > 1 && o.wgs < (size_t)o.ldw;
+  const uint64_t ldx = 2ull * o.ldx, ldw = 2ull * o.ldw, wgs = 2ull * o.wgs;
+  const bool x = tmap3(&s->x, o.x, o.len, s->xq ? G : 1, B,
+                       s->xq ? 2ull * o.xgs : ldx, ldx, 64, 1, T128_BM);
+  const bool w =
+      s->wcol ? tmap3(&s->w, o.w, gN, G, o.len, wgs, ldw, 64, 1, T128_BK)
+              : tmap3(&s->w, o.w, gN, o.len, G, ldw,
+                      G > 1 ? wgs : ldw * o.len, 64, T128_BK, 1);
+  return x && w;
+}
+
+template <class Bias, class Out>
+inline void tc128(Opnd a, Opnd b, int gN, const Bias* bias, Out* out,
+                  int ldo, int B, int N, int ns, cudaStream_t st) {
+  if (!tc128_allowed<Bias, Out>) {
+    cudaFuncSetAttribute(tc128_kernel<Bias, Out>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         T128_SMEM);
+    tc128_allowed<Bias, Out> = true;
+  }
+  T128Seg sa{}, sb{};
+  const int G = N / gN;
+  const bool ok = t128_seg(&sa, a, B, G, gN) &&
+                  (b.len == 0 || t128_seg(&sb, b, B, G, gN));
+  // A map the driver refuses leaves the grid empty: the launch is refused
+  // (invalid configuration) and the entry point's cudaGetLastError
+  // reports it.
+  const dim3 grid(ok ? (B + T128_BM - 1) / T128_BM : 0,
+                  G * ((gN + T128_BN - 1) / T128_BN), ns);
+  tc128_kernel<Bias, Out><<<grid, T128_THREADS, T128_SMEM, st>>>(
+      sa, sb, gN, bias, out, ldo, B, ns);
+}
+
+// A forward product on the tensor cores: the 16-row stage below MMA_ROWS
+// rows, the 128-row stage from there on. Its split count comes from
+// tc_fwd_splits.
+template <class Bias, class Out>
+inline void tc_fwd(Opnd a, Opnd b, int gN, const Bias* bias, Out* out,
+                   int ldo, int B, int N, int ns, cudaStream_t st) {
+  if (B < MMA_ROWS)
+    tc16<false>(a, b, gN, bias, out, ldo, B, N, ns, st);
+  else
+    tc128(a, b, gN, bias, out, ldo, B, N, ns, st);
 }
 
 // --- Stages -----------------------------------------------------------------
@@ -686,19 +976,27 @@ mm_kernel(XSeg a, XSeg b, const W* w, const Bias* bias, const float* scale,
   }
 }
 
-// Whether a stage of B rows on weights W takes the 16-row tensor-core
-// product: bf16 weights below MMA_ROWS rows.
+// Whether mm of B rows into N columns on weights W takes the tensor cores:
+// bf16 weights, and from MMA_ROWS rows on at least 64 columns (the action
+// head's 16 or 32 stay on the FMA stage: a 128-column tile would be mostly
+// empty).
 template <class W>
-constexpr bool use_tc16(int B) {
-  return std::is_same<W, bf16>::value && B < MMA_ROWS;
+constexpr bool use_tc(int B, int N) {
+  return std::is_same<W, bf16>::value && (B < MMA_ROWS || N >= 64);
+}
+
+// The split count of a forward product on the tensor cores.
+inline int tc_fwd_splits(int N, int gN, int B, int K, int sms) {
+  return B < MMA_ROWS ? tc_splits(N, gN, B, K, sms)
+                      : tc128_splits(N, gN, B, K, sms);
 }
 
 // The split count of mm for B rows into N columns over a K-deep
 // contraction on weights W.
 template <class W>
 inline int mm_splits(int B, int N, int K, int sms) {
-  return use_tc16<W>(B) ? tc_splits(N, N, B, K, sms)
-                        : fma_splits(N, B, K, sms);
+  return use_tc<W>(B, N) ? tc_fwd_splits(N, N, B, K, sms)
+                         : fma_splits(N, B, K, sms);
 }
 
 // [a | b] @ w (times the column scales of an int8 w) + bias into `out`:
@@ -709,19 +1007,11 @@ inline void mm(XSeg a, XSeg b, const W* w, const Bias* bias, Out* out,
                int B, int N, int ns, cudaStream_t st,
                const float* scale = nullptr) {
   if constexpr (std::is_same<W, bf16>::value) {
-    if (use_tc16<W>(B)) {
-      tc16<false>(Opnd{a.x, a.ld, 0, w, N, 0, a.len},
-                  b.len ? Opnd{b.x, b.ld, 0, w + (size_t)a.len * N, N, 0,
-                               b.len}
-                        : no_opnd(),
-                  N, bias, out, N, B, N, ns, st);
-      return;
-    }
-    if (ns == 1 && use_mma(B, N, N, a.len, b.len)) {
-      tc_mm(dense(a.x, a.ld, w, N, a.len),
-            b.len ? dense(b.x, b.ld, w + (size_t)a.len * N, N, b.len)
-                  : no_mseg(),
-            bias, out, N, B, N, st);
+    if (use_tc<W>(B, N)) {
+      tc_fwd(Opnd{a.x, a.ld, 0, w, N, 0, a.len},
+             b.len ? Opnd{b.x, b.ld, 0, w + (size_t)a.len * N, N, 0, b.len}
+                   : no_opnd(),
+             N, bias, out, N, B, N, ns, st);
       return;
     }
   }
@@ -964,40 +1254,42 @@ struct CoreSave {
 // The core stages of one step. x (B, 2H + A) holds the action embedding in
 // its last A columns; the stages write [xd, x0] into its first 2H, the
 // hidden activation into h (B, D) and the new deter into out (B, D).
-// `parts` holds core_parts floats. With bf16 weights (`tc`), every stage
-// takes the 16-row tensor-core product below MMA_ROWS rows (core_tc16),
-// and from MMA_ROWS on the tensor cores where its widths allow; int8
-// weights take the FMA stages.
+// `parts` holds core_parts floats. With bf16 weights every product runs on
+// the tensor cores (core_tc), at any batch; int8 weights take the FMA
+// stages.
 //
-// core_tc16 is the first case: each product on the 16-row tensor-core
-// stage, into split partials, the gates too (then the update adds their
-// splits).
-inline void core_tc16(const CoreT<bf16>& w, const bf16* deter,
-                      const bf16* stoch, bf16* x, bf16* h, bf16* out,
-                      float* parts, const CoreSave& save, int B, int D,
-                      int H, int S, int A, int g, int sms, float eps,
-                      cudaStream_t st) {
+// core_tc is the first case: each product on the tensor-core stage of its
+// batch (tc_fwd), into split partials, the gates too (then the update adds
+// their splits).
+inline void core_tc(const CoreT<bf16>& w, const bf16* deter,
+                    const bf16* stoch, bf16* x, bf16* h, bf16* out,
+                    float* parts, const CoreSave& save, int B, int D, int H,
+                    int S, int A, int g, int sms, float eps,
+                    cudaStream_t st) {
   const int dg = D / g, lx = 2 * H + A;
   const Opnd none = no_opnd();
-  // Both input projections take one split count, as finish adds them.
-  const int ns1 = tc_splits(2 * H, 2 * H, B, D > S ? D : S, sms);
-  tc16<false>(Opnd{deter, D, 0, w.w0, H, 0, D}, none, H, w.b0, parts, 2 * H,
-              B, H, ns1, st);
-  tc16<false>(Opnd{stoch, S, 0, w.w1, H, 0, S}, none, H, w.b1, parts + H,
-              2 * H, B, H, ns1, st);
+  // Both input projections take one split count, as finish adds them. The
+  // 16-row stage counts the tiles of both; the 128-row stage's parts fill
+  // the card in each launch.
+  const int n1 = B < MMA_ROWS ? 2 * H : H;
+  const int ns1 = tc_fwd_splits(n1, n1, B, D > S ? D : S, sms);
+  tc_fwd(Opnd{deter, D, 0, w.w0, H, 0, D}, none, H, w.b0, parts, 2 * H, B, H,
+         ns1, st);
+  tc_fwd(Opnd{stoch, S, 0, w.w1, H, 0, S}, none, H, w.b1, parts + H, 2 * H, B,
+         H, ns1, st);
   finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
          save.rstd01, st);
   // The hidden layer: GRU block q of the deter against wblk[q], then x
   // against win's columns of block q.
-  const int ns2 = tc_splits(D, dg, B, dg + lx, sms);
-  tc16<false>(Opnd{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg},
-              Opnd{x, lx, 0, w.win, D, (size_t)dg, lx}, dg, w.bblk, parts,
-              D, B, D, ns2, st);
+  const int ns2 = tc_fwd_splits(D, dg, B, dg + lx, sms);
+  tc_fwd(Opnd{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg},
+         Opnd{x, lx, 0, w.win, D, (size_t)dg, lx}, dg, w.bblk, parts, D, B, D,
+         ns2, st);
   finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
          save.rstdh, st);
-  const int ns3 = tc_splits(3 * D, 3 * dg, B, dg, sms);
-  tc16<false>(Opnd{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, dg}, none,
-              3 * dg, w.bg, parts, 3 * D, B, 3 * D, ns3, st);
+  const int ns3 = tc_fwd_splits(3 * D, 3 * dg, B, dg, sms);
+  tc_fwd(Opnd{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, dg}, none, 3 * dg,
+         w.bg, parts, 3 * D, B, 3 * D, ns3, st);
   gru_update(parts, ns3, save.gates, deter, out, B, D, g, st);
 }
 
@@ -1007,66 +1299,34 @@ inline void core_stages(const CoreT<W>& w, const bf16* deter,
                         float* parts, const CoreSave& save, int B, int D,
                         int H, int S, int A, int g, int sms, float eps,
                         cudaStream_t st) {
-  constexpr bool tc = std::is_same<W, bf16>::value;
-  if constexpr (tc) {
-    if (use_tc16<W>(B)) {
-      core_tc16(w, deter, stoch, x, h, out, parts, save, B, D, H, S, A, g,
-                sms, eps, st);
-      return;
-    }
-  }
-  const int dg = D / g, lx = 2 * H + A;
-  int ns1 = 1;
-  if (tc && use_mma(B, H, H, D, S)) {
-    if constexpr (tc) {
-      tc_mm(dense(deter, D, w.w0, H, D), no_mseg(), w.b0, parts, 2 * H, B,
-            H, st);
-      tc_mm(dense(stoch, S, w.w1, H, S), no_mseg(), w.b1, parts + H, 2 * H,
-            B, H, st);
-    }
+  if constexpr (std::is_same<W, bf16>::value) {
+    core_tc(w, deter, stoch, x, h, out, parts, save, B, D, H, S, A, g, sms,
+            eps, st);
   } else {
-    ns1 = fma_splits(2 * H, B, D > S ? D : S, sms);
+    const int dg = D / g, lx = 2 * H + A;
+    const int ns1 = fma_splits(2 * H, B, D > S ? D : S, sms);
     in_proj_kernel<W><<<grid_for(2 * H, B, ns1), THREADS, 0, st>>>(
         deter, stoch, w.w0, w.b0, w.w1, w.b1, w.q0, w.q1, parts, B, D, S, H,
         ns1);
-  }
-  finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
-         save.rstd01, st);
-  int ns2 = 1;
-  if (tc && use_mma(B, D, dg, dg, lx)) {
-    if constexpr (tc) {
-      tc_mm(MSeg{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg, dg},
-            dense(x, lx, w.win, D, lx), w.bblk, parts, D, B, D, st);
-    }
-  } else {
-    ns2 = fma_splits(D, B, dg + lx, sms);
+    finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
+           save.rstd01, st);
+    const int ns2 = fma_splits(D, B, dg + lx, sms);
     hidden_kernel<W><<<grid_for(D, B, ns2), THREADS, 0, st>>>(
         x, lx, lx, deter, w.wblk, w.bblk, w.win, w.qblk, w.qin, parts, B, D,
         g, ns2);
-  }
-  finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
-         save.rstdh, st);
-  if (tc && use_mma(B, 3 * D, 3 * dg, dg, 0)) {
-    if constexpr (tc) {
-      // The gate pre-activations into `parts` (or the backward's save),
-      // then the update.
-      float* gates = save.gates ? save.gates : parts;
-      tc_mm(MSeg{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, 3 * dg, dg},
-            no_mseg(), w.bg, gates, 3 * D, B, 3 * D, st);
-      gru_update(gates, 1, nullptr, deter, out, B, D, g, st);
-    }
-  } else {
+    finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
+           save.rstdh, st);
     gru_kernel<W><<<grid_for(D, B), THREADS, 0, st>>>(
         h, w.wg, w.bg, w.qg, deter, out, save.gates, B, D, g);
   }
 }
 
-// Floats of split partials the core stages need at most (the gates' too:
-// split at 16 rows, whole from MMA_ROWS on).
+// Floats of split partials the core stages need at most (the gates' too).
+// The input projections' count is sized for one projection's tiles, the
+// most either stage's rule gives the pair.
 inline size_t core_parts(int B, int D, int H, int S, int A, int g, int sms) {
   const int dg = D / g;
-  const size_t a =
-      (size_t)most_splits(2 * H, B, D > S ? D : S, sms) * B * 2 * H;
+  const size_t a = (size_t)most_splits(H, B, D > S ? D : S, sms) * B * 2 * H;
   const size_t b = (size_t)most_splits(D, B, dg + 2 * H + A, sms) * B * D;
   const size_t c = (size_t)most_splits(3 * D, B, dg, sms) * B * 3 * D;
   return a > b ? (a > c ? a : c) : (b > c ? b : c);

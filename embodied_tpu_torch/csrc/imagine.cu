@@ -11,10 +11,10 @@
 //
 // Bound on an H100 at B = 1024 rows (the train step's rollout at size12m):
 // operations, about 10 GFLOP against 18 MB of weights and rows. From 128
-// rows on, the products whose widths are multiples of 64 run on the tensor
-// cores (mma.sync tiles, no split-K); at the report's B = 6 the stages are
-// bound by the weight bytes and take the split-K 16-row tensor-core
-// products (blockgru_common.cuh, tc16_kernel).
+// rows on, the products run on the 128-row tensor-core stage (wgmma fed by
+// TMA, split-K where the tiles are fewer than the SMs); at the report's
+// B = 6 the stages are bound by the weight bytes and take the split-K
+// 16-row tensor-core products (blockgru_common.cuh, tc16_kernel).
 
 #include "seq_common.cuh"
 

@@ -22,14 +22,20 @@
 // the kernel's 16-column tile: zero weight columns and rows, and a -1e9
 // bias on padded classes; only the first A lanes are sampled.
 //
-// Bound on an H100 at H = 15, B = 1024 (size12m): about 12 GFLOP per step
-// against a few MB of weights, so operations bind it
-// (ops/imagine_seq.work). At 1,024 rows the stage products whose widths
-// are multiples of 64 run on the tensor cores (blockgru_common.cuh's
-// mma_kernel: mma.sync tiles, no split-K); the action head's narrow
-// product stays on the FMA stages. The tiles stage through shared memory
-// without TMA, double buffering or wgmma, so the kernel is still far from
-// its bound; those are later work.
+// Bound on an H100: operations. At B = 1024 rows a step does 12 GFLOP
+// against 12 MB of weights at size12m and 191 GFLOP against 190 MB at the
+// default dims (ops/imagine_seq.products lists the products; work() gives
+// the bound), a thousand flops per weight byte, far above the ~295 per
+// byte where the card stops being bound by memory. What the design does
+// about it: every product of 64 columns or more runs on the 128-row
+// tensor-core stage of blockgru_common.cuh (tc128_kernel: wgmma m64n256k16
+// on 128 x 256 tiles, both operands fed by TMA into a 4-deep ring of
+// swizzled shared memory), and the products of 1,024 columns, 32 tiles at
+// 1,024 rows, split their contraction to fill the SMs (tc128_splits, f32
+// partials added in split order by finish). The action head's 16 or 32
+// columns stay on the FMA stage. Left for later: one persistent launch per
+// step or horizon (the row stages and some 20 launches a step), and the
+// GRU update fused into the gates' epilogue.
 
 #include "seq_common.cuh"
 

@@ -152,6 +152,7 @@ def _lib():
              [ctypes.c_int] * 7 + [ctypes.c_float])
   build.bind(lib, 'blockgru_stage_product', 3, [ctypes.c_int] * 7)
   build.bind(lib, 'blockgru_stage_wgrad', 3, [ctypes.c_int] * 4)
+  build.bind(lib, 'blockgru_stage_product128', 6, [ctypes.c_int] * 9)
   return lib
 
 
@@ -348,6 +349,74 @@ def stage_product(x, w, trans=False, splits=0):
         *_ptrs([x, w, out]), int(trans), B, N, K, g, splits, sms,
         _stream(device))
   build.check(max(-ns, 0), 'blockgru_stage_product')
+  return out[:ns]
+
+
+def reference_stage_product128(x, w, x2=None, w2=None, bias=None,
+                               out_dtype=torch.float32):
+  """Plain version of `stage_product128`: float32 sums of the bf16
+  operands' products, plus the bias, in `out_dtype`: (B, N)."""
+  g = w.shape[0]
+  B = x.shape[0]
+  out = torch.einsum('bgk,gkn->bgn', x.float().reshape(B, g, -1),
+                     w.float()).reshape(B, -1)
+  if x2 is not None:
+    out = out + x2.float() @ w2.float()
+  if bias is not None:
+    out = out + bias.float()
+  return out.to(out_dtype)
+
+
+def stage_product128(x, w, x2=None, w2=None, bias=None,
+                     out_dtype=torch.float32, splits=0):
+  """The 128-row tensor-core product of csrc/blockgru_common.cuh
+  (tc128_kernel) on its own, for the card tests and the smoke run: x
+  (B, g K) block-diagonal against w (g, K, N / g), plus x2 (B, K2) dense
+  against w2 (K2, N) where given, plus bias (N) (bf16 or float32) where
+  given; all bf16 but the bias, on one CUDA device. Returns the split
+  partials (ns, B, N) in float32 (`splits` <= 0 takes the stage's own
+  count), or with `out_dtype` bf16 the finished product (1, B, N). Raises
+  on what the stage does not take: fewer than 128 rows, widths and depths
+  not multiples of 8."""
+  g, K, gN = w.shape
+  B = x.shape[0]
+  N = g * gN
+  K2 = 0 if x2 is None else x2.shape[1]
+  named = dict(x=x, w=w) if x2 is None else dict(x=x, w=w, x2=x2, w2=w2)
+  for name, t in dict(named, bias=bias).items():
+    if t is not None and (t.device != x.device or x.device.type != 'cuda'):
+      raise ValueError(f'{name} on {t.device}, expected one CUDA device')
+  for name, t in named.items():
+    if t.dtype != torch.bfloat16:
+      raise TypeError(f'{name} has dtype {t.dtype}, the stage takes bf16')
+  if x.shape != (B, g * K) or (x2 is not None and (
+      x2.shape[0] != B or w2.shape != (K2, N))):
+    raise ValueError(f'x {tuple(x.shape)} does not fit w {tuple(w.shape)}')
+  if B < 128:
+    raise ValueError(f'{B} rows: the 128-row stage takes 128 or more')
+  for name, width in dict(depth=K, depth2=K2, columns=gN).items():
+    if width % 8:
+      raise ValueError(f'{name} {width} is not a multiple of 8')
+  if bias is not None and (bias.shape != (N,) or bias.dtype not in (
+      torch.bfloat16, torch.float32)):
+    raise ValueError(f'bias {tuple(bias.shape)} {bias.dtype} does not fit')
+  if out_dtype == torch.bfloat16 and splits > 1:
+    raise ValueError('a bf16 output is the finished product: one split')
+  bf16_out = out_dtype == torch.bfloat16
+  device = x.device
+  sms = _sms(device)
+  most = 1 if bf16_out else max(splits, -(-(K + K2) // 256), 1)
+  out = torch.empty((most, B, N), dtype=out_dtype, device=device)
+  tensors = [t.contiguous() if t is not None else None
+             for t in (x, w, x2, w2, bias)]
+  ptrs = [ctypes.c_void_p(t.data_ptr() if t is not None else None)
+          for t in tensors]
+  with torch.cuda.device(device):
+    ns = _lib().blockgru_stage_product128(
+        *ptrs, ctypes.c_void_p(out.data_ptr()),
+        int(bias is not None and bias.dtype == torch.float32), int(bf16_out),
+        B, N, K, K2, g, 1 if bf16_out else splits, sms, _stream(device))
+  build.check(max(-ns, 0), 'blockgru_stage_product128')
   return out[:ns]
 
 

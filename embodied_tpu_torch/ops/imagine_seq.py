@@ -4,9 +4,14 @@ its plain version.
 Replaces the Pallas TPU kernel embodied_tpu/ops/imagine_seq.py:
 fused_imagine_seq (forward). The kernel lives in csrc/imagine_seq.cu (its
 stages in csrc/blockgru_common.cuh and csrc/seq_common.cuh; the core, the
-prior and the sample are the per-step kernel's, ops/imagine.py), whose notes
-give the stages, what bounds it on an H100 (operations, at B = 1024 rows
-per step) and what the design does about it.
+prior and the sample are the per-step kernel's, ops/imagine.py). On an
+H100 it is bound by operations: at B = 1024 rows a step does some 1,000
+flops per weight byte (`products` lists them, `work` gives the bound). So
+every product of 64 columns or more runs on the 128-row tensor-core stage
+(wgmma on 128 x 256 tiles fed by TMA through a ring of shared memory), and
+the narrow products (1,024 columns) split their contraction to fill the
+card. Left for later: one persistent launch for the step's row stages and
+launches, and the GRU update fused into the gates' epilogue.
 
 Per step t: the policy MLP on the carried (deter, stoch), the action
 sample (a categorical head's Gumbel-max one-hot, or a bounded normal's
@@ -239,6 +244,29 @@ def imagine_seq(deter0, stoch0, gumbel, noise, params, npol, disc, C,
 
 
 imagine_seq.launches = 0
+
+
+def products(B, D, H, L, A, U, adim, npol, g, disc):
+  """Each matrix product of one rollout step as name: (rows, K, N,
+  groups): B rows against a K-deep contraction into N columns, in `groups`
+  block-diagonal groups of N / groups columns (K is then the depth of one
+  group's block); 2 rows K N flops each. The hidden layer adds x (2H + A
+  wide) against win to the block-diagonal deter product, so its K is the
+  two depths together."""
+  dg = D // g
+  out = dict(
+      policy0=(B, D + L, U, 1),
+      **{f'policy{i}': (B, U, U, 1) for i in range(1, npol)},
+      head=(B, U, adim * (1 if disc else 2), 1),
+      embed=(B, adim, A, 1),
+      in_proj_deter=(B, D, H, 1),
+      in_proj_stoch=(B, L, H, 1),
+      hidden=(B, dg + 2 * H + A, D, g),
+      gates=(B, dg, 3 * D, g),
+      prior0=(B, D, H, 1),
+      prior1=(B, H, H, 1),
+      prior_logits=(B, H, L, 1))
+  return out
 
 
 def work(steps, B, D, H, L, A, U, adim, npol, g, disc):

@@ -11,10 +11,11 @@ int8 weights, and the `debug` and `size1m` presets act and train under
 `kernel: auto`: the first off the kernels (its widths are not multiples
 of 16), the second on them.
 
-The 16-row tensor-core product and the tensor-core weight gradient that
-every kernel's stages share are also held on their own against float32
-matmul of the same bf16-rounded operands, and the window's backward is
-run twice for bit-equal gradients.
+The 16-row and the 128-row tensor-core products and the tensor-core
+weight gradient that every kernel's stages share are also held on their
+own against float32 matmul of the same bf16-rounded operands, and the
+window's backward and the 128-row stage are run twice for bit-equal
+results.
 
 Widths are multiples of 16, as the kernels take them, and deep enough
 that every matmul stage splits its contraction (2, 2 and 5 parts on a
@@ -75,7 +76,7 @@ def close(got, want, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B', [16, 40])
+@pytest.mark.parametrize('B', [16, 40, 1024])
 def test_kernels_match_plain(card, B):
   params, ins = make(np.random.default_rng(4), card, B, **DIMS)
   core = params[:len(blockgru.FIELDS)]
@@ -115,6 +116,65 @@ def test_tensor_core_stage(card, B, trans, g, splits):
     assert parts.shape[0] > 1
   close(parts.sum(0), blockgru.reference_stage_product(x, w, trans),
         'product')
+
+
+# The 128-row stage's cases: (groups, depth K, columns per group, the
+# dense second segment's depth K2, bias dtype). 320 and 80 columns leave
+# ragged 256-column tiles, depths 200 and 136 ragged 64-deep chunks.
+STAGE128 = dict(
+    dense=(1, 200, 320, 0, torch.float32),
+    grouped=(4, 136, 80, 0, torch.bfloat16),
+    two_segments=(4, 64, 192, 136, torch.bfloat16))
+
+
+def stage128_case(rng, card, B, g, K, gN, K2, bias_dtype):
+  bf = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+                               device=card)
+  x, w = bf(B, g * K), bf(g, K, gN)
+  x2, w2 = (bf(B, K2), bf(K2, g * gN)) if K2 else (None, None)
+  bias = torch.tensor(rng.standard_normal(g * gN), dtype=bias_dtype,
+                      device=card)
+  return x, w, x2, w2, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', sorted(STAGE128))
+@pytest.mark.parametrize('B', [128, 200, 1024])
+def test_tensor_core_stage_128(card, B, case, out):
+  """The 128-row tensor-core stage (wgmma from a TMA ring) against float32
+  matmul of the same bf16 operands: dense, block-diagonal, and
+  block-diagonal with a dense second segment (as the hidden layer); f32
+  split partials (the stage's own count, and three uneven parts) or the
+  finished bf16 product; 200 rows leave a partial row tile."""
+  rng = np.random.default_rng(16)
+  x, w, x2, w2, bias = stage128_case(rng, card, B, *STAGE128[case])
+  want = blockgru.reference_stage_product128(x, w, x2, w2, bias, out)
+  for splits in ((0, 3) if out == torch.float32 else (0,)):
+    got = blockgru.stage_product128(x, w, x2, w2, bias, out, splits)
+    assert got.dtype == out and got.shape[1:] == want.shape
+    if splits:
+      assert got.shape[0] == splits
+    close(got.float().sum(0), want, f'{case}, {splits} splits')
+
+
+@pytest.mark.cuda
+def test_tensor_core_stage_128_is_deterministic_and_checks_widths(card):
+  """Two calls give the same bits (split partials, no atomics); widths
+  and depths that are not multiples of 8, and fewer than 128 rows, raise
+  before any launch."""
+  rng = np.random.default_rng(17)
+  x, w, x2, w2, bias = stage128_case(rng, card, 1024,
+                                     *STAGE128['two_segments'])
+  first = blockgru.stage_product128(x, w, x2, w2, bias, splits=3)
+  assert torch.equal(first, blockgru.stage_product128(x, w, x2, w2, bias,
+                                                      splits=3))
+  with pytest.raises(ValueError, match='columns 20 is not a multiple of 8'):
+    blockgru.stage_product128(x, w[:, :, :20].contiguous())
+  with pytest.raises(ValueError, match='depth 60 is not a multiple of 8'):
+    blockgru.stage_product128(x[:, :4 * 60], w[:, :60].contiguous())
+  with pytest.raises(ValueError, match='128 or more'):
+    blockgru.stage_product128(x[:64], w)
 
 
 @pytest.mark.cuda
@@ -243,11 +303,11 @@ def test_core_and_obs_step_carry_gradients(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,H', [(6, 32), (200, 64)])
+@pytest.mark.parametrize('B,H', [(6, 32), (200, 64), (1024, 64)])
 def test_imagination_step(card, B, H):
   """Kernel 7 against the plain version replaying its sample, the sample
-  against the plain draw from the same noise; 200 rows take the tensor
-  cores."""
+  against the plain draw from the same noise; 200 and 1,024 rows take the
+  128-row stage, 200 with a partial row tile."""
   rng = np.random.default_rng(10)
   D, S, C, G = 256, 4, 16, 4
   L = S * C

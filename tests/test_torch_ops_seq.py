@@ -345,3 +345,19 @@ def test_rollout_work_counts_each_head_matrix_once(disc):
                               not disc)
   # The second head adds its bf16 matrix and its f32 bias, nothing else.
   assert abs(nbytes - other) == 2 * U * adim + 4 * adim
+
+
+@pytest.mark.parametrize('disc', [True, False])
+@pytest.mark.parametrize('dims', [
+    # size12m and the default configuration: (D, H, L, A, U, adim, g)
+    (2048, 256, 512, 256, 256, 5, 8),
+    (8192, 1024, 2048, 1024, 1024, 5, 8)], ids=['size12m', 'default'])
+def test_rollout_products_sum_to_its_work(dims, disc):
+  # The products of one step, times the horizon, are the rollout's flops:
+  # the stage rows of the smoke run and kernel 8's bound count one work.
+  D, H, L, A, U, adim, g = dims
+  steps, B, npol = 15, 1024, 3
+  _, flops = imagine_seq.work(steps, B, D, H, L, A, U, adim, npol, g, disc)
+  listed = imagine_seq.products(B, D, H, L, A, U, adim, npol, g, disc)
+  assert sum(2 * r * k * n for r, k, n, _ in listed.values()) * steps == flops
+  assert listed['gates'] == (B, D // g, 3 * D, g)
