@@ -25,10 +25,14 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            the windows and the rollout add the streamed floor, the time
            to read their weights once per step, which at these dims
            exceed the L2. The rollout runs twice on the same inputs and
-           must give the same bits. Last, `stage` rows: the 128-row
-           tensor-core stage alone on each shape class of the default
-           rollout's products, its TFLOP/s beside one torch.matmul or
-           torch.bmm on the same operands (`library_ms`).
+           must give the same bits, and so must the int8 window. Last,
+           `stage` rows: the 128-row tensor-core stage alone on each shape
+           class of the default rollout's products, its TFLOP/s beside
+           one torch.matmul or torch.bmm on the same operands
+           (`library_ms`); and `stage16` rows: the 16-row stage alone on
+           each shape class of the default window's products, in int8
+           with column scales and in bf16 on the same values, its weight
+           bytes' rate as a share of the memory rate.
   slice    the acting path of size12m on dummy_disc with 16 envs, through
            make_agent -> init_policy -> Driver(agent.policy), in train and
            eval mode. The launch counts show that it ran on the kernels;
@@ -50,7 +54,8 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            runs/validate_qcore_tpu.py): weight MB in int8 and bf16, the
            int8 window against the window on the dequantized weights, its
            deter against the bf16 window's (the quantization error), and
-           the int8 and bf16 window kernels timed in turns (CUDA events).
+           the int8 and bf16 window kernels timed in turns (CUDA events),
+           and the device kernels of one int8 window by name (profiler).
   default  the default configuration (no preset, 202,982,304 parameters):
            policy calls, Agent.train steps with the losses against
            kernel: off and a profile, and main.main with the process
@@ -352,6 +357,7 @@ def phase_kernels(torch):
     results.append(imag_step_kernel(torch, gen, core, B, flush))
   results += default_kernels(torch, gen, flush)
   stage_rows(torch)
+  stage16_rows(torch)
   emit(phase='kernels', ok=True)
   return results
 
@@ -744,6 +750,79 @@ def stage_rows(torch, B=IMAG_STARTS, D=DEFAULT['D'], H=DEFAULT['H'],
   return rows
 
 
+# The default window's products that the 16-row stage carries, one per
+# shape class: (groups, depth, columns per group, the depth of a dense
+# second segment). The hidden layer's x is [xd, x0, act], 2 H + A deep,
+# with the action width A = H that the qcore phase feeds it; wo's two
+# parts (new, tokens) share one scale and run as one segment here.
+STAGE16_CLASSES = dict(w0=(1, 8192, 1024, 0), hidden=(8, 1024, 1024, 3072),
+                       wg=(8, 1024, 3072, 0), wo=(1, 17408, 1024, 0),
+                       wl=(1, 1024, 2048, 0))
+# Bytes of weight copies one timed pass walks through: more than twice the
+# 50 MB L2, so each product reads its weights from device memory, as in
+# the window, whose seven matrices (89 MB in int8) stream at every step.
+STREAM_BYTES = 200e6
+
+
+def stage16_rows(torch, B=ENVS):
+  """The 16-row tensor-core stage alone (ops/blockgru.stage_product) on
+  each shape class of the default window's products, from its own seed:
+  int8 weights with column scales, and the same values in bf16, each held
+  against its plain version. `ms` is device time per product (graph_ms
+  over copies of the weights that exceed the L2), `weight_share` the
+  weight bytes over that time as a share of the 3.35 TB/s memory rate.
+  Dense bf16 classes add one torch.matmul on the same operands
+  (`library_ms`), which the port never calls."""
+  from embodied_tpu_torch.ops import blockgru
+  gen = torch.Generator(DEV).manual_seed(SEED + 4)
+  rows = []
+  for name, (g, K, gN, K2) in STAGE16_CLASSES.items():
+    N = g * gN
+    rows_ = lambda k: torch.randn((B, k), generator=gen,
+                                  device=DEV).to(torch.bfloat16)
+    ints = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                        device=DEV, dtype=torch.int8)
+    scales = lambda: (0.5 + torch.rand((N,), generator=gen, device=DEV)) / (
+        127 * (K + K2) ** 0.5)
+    x, q, scale = rows_(g * K), ints(g, K, gN), scales()
+    x2, q2, scale2 = (rows_(K2), ints(K2, N), scales()) if K2 else (
+        None, None, None)
+    ms = {}
+    for kind in ('int8', 'bf16'):
+      int8 = kind == 'int8'
+      w, w2 = (q, q2) if int8 else (q.to(torch.bfloat16), None if q2 is None
+                                    else q2.to(torch.bfloat16))
+      sc, sc2 = (scale, scale2) if int8 else (None, None)
+      got = blockgru.stage_product(x, w, False, 0, sc, x2, w2, sc2)
+      want = blockgru.reference_stage_product(x, w, False, sc, x2, w2, sc2)
+      torch.cuda.synchronize()
+      err, ok = compare(torch, got.sum(0), want)
+      nbytes = tensor_bytes([t for t in (w, w2) if t is not None])
+      copies = [(w.clone(), None if w2 is None else w2.clone())
+                for _ in range(math.ceil(STREAM_BYTES / nbytes))]
+      walk = lambda: [blockgru.stage_product(x, a, False, 0, sc, x2, b, sc2)
+                      for a, b in copies]
+      ms[kind] = graph_ms(torch, walk, calls=1) / len(copies)
+      library_ms = None
+      if not int8 and g == 1 and not K2:
+        walk = lambda: [torch.matmul(x, a[0]) for a, _ in copies]
+        library_ms = graph_ms(torch, walk, calls=1) / len(copies)
+      row = dict(phase='stage16', name=name, weights=kind, rows=B, K=K + K2,
+                 N=N, groups=g, splits=got.shape[0], copies=len(copies),
+                 max_abs_err=err, tol=TOL, ms=ms[kind], weight_bytes=nbytes,
+                 weight_gb_per_s=nbytes / ms[kind] / 1e6,
+                 weight_share=nbytes / ms[kind] * 1e3 / PEAK_BYTES,
+                 library_ms=library_ms, ok=ok)
+      if not int8:
+        row['int8_speedup'] = ms['bf16'] / ms['int8']
+      emit(**row)
+      rows.append(row)
+      if not ok:
+        fail('kernels', f'the 16-row stage on {name} ({kind}) disagrees '
+                        f'with its plain version: max abs err {err}')
+  return rows
+
+
 def qobs_kernel(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048, H=256,
                 S=32, K=2304, C=CLASSES):
   """Kernel 9, the int8 window, on the quantized `params`: against its
@@ -776,6 +855,13 @@ def qobs_kernel(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048, H=256,
   if share < SAMPLE_AGREEMENT:
     problems.append(f'samples agree for {share:.4f} of the groups')
   kernel = lambda: qcore.qobs_window(*ins, gum, qparams, scales, C, UNIMIX)
+  # A second call on the same inputs gives the same bits (split partials
+  # in split order, no atomics).
+  with torch.no_grad():
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        (dseq, sseq, lseq), kernel()))
+  if not bit_equal:
+    problems.append('two calls on the same inputs differ')
   plain = lambda: qcore.reference_qobs_window(*ins, qparams, scales, C,
                                               UNIMIX, gumbel=gum)
   streamed = T * qcore.weight_bytes(D, H, L, H, K, 8)
@@ -783,6 +869,7 @@ def qobs_kernel(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048, H=256,
     row = dict(config='default', batch=B, steps=T,
                max_abs_err=max(e for e, _ in errs), tol=TOL,
                sample_agreement=share, min_agreement=SAMPLE_AGREEMENT,
+               bit_equal_calls=bit_equal,
                **timings(torch, kernel, plain, flush,
                          *qcore.work(T, B, D, H, L, H, K, 8),
                          streamed=streamed))
@@ -840,6 +927,7 @@ def phase_qcore(torch, T=WINDOW, B=ENVS, D=DEFAULT['D'], H=DEFAULT['H'],
     turns = [(name, cuda_ms(torch, fn, warmup=2, iters=10))
              for name, fn in (('int8', qfn), ('bf16', bfn), ('bf16', bfn),
                               ('int8', qfn))]
+    kernels = kernels_by_name(torch, qfn)
   q_ms = statistics.mean(t for n, t in turns if n == 'int8')
   b_ms = statistics.mean(t for n, t in turns if n == 'bf16')
   w = observe_seq.weights(D, H, L, H, K, g)
@@ -857,12 +945,18 @@ def phase_qcore(torch, T=WINDOW, B=ENVS, D=DEFAULT['D'], H=DEFAULT['H'],
       streamed_floor_ms=dict(
           bf16=T * 2 * w / PEAK_BYTES * 1e3,
           int8=T * qcore.weight_bytes(D, H, L, H, K, g) / PEAK_BYTES * 1e3),
-      launches={fn.__name__: fn.launches for fn in wrappers})
+      launches={fn.__name__: fn.launches for fn in wrappers},
+      kernels_ms=kernels)
   # As the TPU script: the int8 window sits near the window on the
   # dequantized weights (bf16 rounds elsewhere).
   problems = []
   if not row['deter_maxdiff_vs_dequantized'] < 0.15:
     problems.append('the int8 window is off the dequantized reference')
+  # Every product of the int8 window runs on the 16-row tensor-core stage:
+  # no FMA stage (mm_kernel) runs in it.
+  if any('mm_kernel' in k for k in kernels) or not any(
+      'tc16_kernel' in k for k in kernels):
+    problems.append(f'the int8 window ran {sorted(kernels)}')
   if not all(math.isfinite(v) for v in (q_ms, b_ms)):
     problems.append('no timing')
   row['ok'] = not problems
@@ -870,6 +964,27 @@ def phase_qcore(torch, T=WINDOW, B=ENVS, D=DEFAULT['D'], H=DEFAULT['H'],
   if problems:
     fail('qcore', '; '.join(problems))
   return row['launches']['qobs_window']
+
+
+def kernels_by_name(torch, fn, attempts=3):
+  """Device ms of one call of `fn` per kernel name (template arguments
+  kept, parameter lists dropped), from torch.profiler; taken again where
+  a profile returns no device events, as device_ms does."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  by_name = {}
+  for _ in range(attempts):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    for e in prof.events():
+      if e.device_type == torch.autograd.DeviceType.CUDA:
+        name = e.name.split('(')[0].removeprefix('void ')
+        by_name[name] = by_name.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    if by_name:
+      break
+  return by_name
 
 
 def drive(argv, calls, modes):

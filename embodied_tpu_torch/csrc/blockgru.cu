@@ -106,27 +106,60 @@ extern "C" int blockgru_core_bwd(const void* deter, const void* stoch,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// The forward product of blockgru_stage_product on weights W.
+template <class W>
+int product16(const void* x, const void* w, const float* scale,
+              const void* x2, const void* w2, const float* scale2, void* out,
+              int B, int N, int K, int K2, int g, int ns, int sms,
+              cudaStream_t st) {
+  using namespace blockgru;
+  const int gN = N / g;
+  if (ns <= 0) ns = tc_splits<W>(N, gN, B, K + K2, sms);
+  const OpndT<W> a{x, g * K, K, (const W*)w, gN, (size_t)K * gN, K, scale};
+  const OpndT<W> b =
+      K2 ? OpndT<W>{x2, K2, 0, (const W*)w2, N, (size_t)gN, K2, scale2}
+         : no_opnd<W>();
+  tc16<false>(a, b, gN, (const bf16*)nullptr, (float*)out, N, B, N, ns, st);
+  return ns;
+}
+
+}  // namespace
+
 // The 16-row tensor-core product and the weight gradient of the stages on
-// their own, for the card tests (ops/blockgru.py stage_product,
-// stage_wgrad). Block-diagonal in g groups of K rows: x (B, g K), w
-// (g, K, N / g) and out[q] = x[:, q] @ w[q] forward; with `trans`, x f32
-// (rounded to bf16), w (g, N / g, K) and out[q] = x[:, q] @ w[q]^T. Writes
-// the ns split partials (ns, B, N) f32; ns <= 0 takes tc_splits.
+// their own, for the card tests and the smoke run's stage rows
+// (ops/blockgru.py stage_product, stage_wgrad). Block-diagonal in g groups
+// of K rows: x (B, g K), w (g, K, N / g) and out[q] = x[:, q] @ w[q]
+// forward, plus, where K2 > 0, x2 (B, K2) dense against w2 (K2, N) (as the
+// hidden layer's x against win); with is_int8, w and w2 are int8 and each
+// segment's sums are times its column scales (scale, scale2: N f32, by
+// flat column). With `trans` (bf16, K2 = 0), x f32 (rounded to bf16), w
+// (g, N / g, K) and out[q] = x[:, q] @ w[q]^T. Writes the ns split
+// partials (ns, B, N) f32; ns <= 0 takes tc_splits. Returns ns, or minus
+// the CUDA error.
 extern "C" int blockgru_stage_product(const void* x, const void* w,
-                                      void* out, int trans, int B, int N,
-                                      int K, int g, int ns, int sms,
-                                      void* stream) {
+                                      const void* scale, const void* x2,
+                                      const void* w2, const void* scale2,
+                                      void* out, int trans, int is_int8,
+                                      int B, int N, int K, int K2, int g,
+                                      int ns, int sms, void* stream) {
   using namespace blockgru;
   cudaStream_t st = (cudaStream_t)stream;
   const int gN = N / g;
-  if (ns <= 0) ns = tc_splits(N, gN, B, K, sms);
-  const size_t wgs = (size_t)K * gN;
-  if (trans)
-    tc16<true>(Opnd{x, g * K, K, (const bf16*)w, K, wgs, K}, no_opnd(), gN,
-               (const bf16*)nullptr, (float*)out, N, B, N, ns, st);
-  else
-    tc16<false>(Opnd{x, g * K, K, (const bf16*)w, gN, wgs, K}, no_opnd(),
-                gN, (const bf16*)nullptr, (float*)out, N, B, N, ns, st);
+  if (trans) {
+    if (ns <= 0) ns = tc_splits(N, gN, B, K, sms);
+    tc16<true>(Opnd{x, g * K, K, (const bf16*)w, K, (size_t)K * gN, K},
+               no_opnd(), gN, (const bf16*)nullptr, (float*)out, N, B, N, ns,
+               st);
+  } else if (is_int8) {
+    ns = product16<int8_t>(x, w, (const float*)scale, x2, w2,
+                           (const float*)scale2, out, B, N, K, K2, g, ns,
+                           sms, st);
+  } else {
+    ns = product16<bf16>(x, w, nullptr, x2, w2, nullptr, out, B, N, K, K2, g,
+                         ns, sms, st);
+  }
   const int code = (int)cudaGetLastError();
   return code ? -code : ns;
 }

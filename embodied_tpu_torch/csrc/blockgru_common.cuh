@@ -45,15 +45,19 @@
 // tile, both operands fed by TMA into a ring of swizzled shared-memory
 // stages, split-K only where the tiles are fewer than the SMs. Its notes
 // below give the design and what is left for later. The action head's 16
-// or 32 columns stay on the FMA stages (tile_mm: one output per thread,
+// or 32 columns stay on the FMA stage (tile_mm: one output per thread,
 // 16 x 16 tiles).
 //
-// The FMA stages take their weight matrices in bf16 or in int8 (the
-// template parameter W): int8 weights (qcore.cu) carry per-output-column
-// f32 scales, which each stage applies to its (B, cols) sums, split by
-// split, before split 0 adds the bias. The scale is linear, so the splits'
-// sum is the scaled product, up to f32 rounding. The tensor cores take
-// bf16 weights only; int8 weights run the FMA stages at every batch.
+// The weight matrices come in bf16 or in int8 (the template parameter W):
+// int8 weights (qcore.cu) halve the bytes a step streams, and carry
+// per-output-column f32 scales. They take the 16-row stage at every
+// batch: its ring streams the int8 tiles as they lie, the fragments are
+// formed from them in registers, exact in bf16 (|q| <= 127), and each
+// segment's scales multiply its f32 sums in the epilogue, split by split,
+// before split 0 adds the bias. The scale is linear, so the splits' sum
+// is the scaled product, up to f32 rounding. The window runs int8 at 16
+// rows; at 128 rows or more int8 is correct but not tuned (16-row tiles,
+// never the 128-row stage, which takes bf16 only).
 
 #pragma once
 
@@ -76,14 +80,6 @@ constexpr int FIN_THREADS = 256;  // threads of a finish block (one row)
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-
-// v times the column scale scale[col], or v where there is no scale (bf16
-// weights).
-__device__ __forceinline__ float scaled(float v, const float* scale,
-                                        size_t col) {
-  return scale ? v * scale[col] : v;
-}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
@@ -136,14 +132,19 @@ inline int fma_splits(int cols, int B, int K, int sms) {
   return clamp_splits((2 * sms + tiles - 1) / tiles, K, KC);
 }
 
-// The 16-row tensor-core stage (tc16_kernel below): enough 16 x TC_BN
-// tiles times parts for two blocks per SM, and at least one TC_BK-deep
-// chunk per part. N columns in groups of gN; a tile never straddles a
-// group.
-constexpr int TC_BN = 64, TC_BK = 64;
+// The 16-row tensor-core stage (tc16_kernel below) takes its weights in
+// chunks of 8 KB: TC_BN columns, tc_bk<W> deep (64 in bf16, 128 in int8).
+// tc_splits: enough 16 x TC_BN tiles times parts for two blocks per SM,
+// and at least one chunk per part. N columns in groups of gN; a tile never
+// straddles a group.
+constexpr int TC_BN = 64;
+template <class W>
+constexpr int tc_bk = 8192 / (TC_BN * (int)sizeof(W));
+
+template <class W = bf16>
 inline int tc_splits(int N, int gN, int B, int K, int sms) {
   const int tiles = (N / gN) * ((gN + TC_BN - 1) / TC_BN) * ((B + 15) / 16);
-  return clamp_splits((2 * sms + tiles - 1) / tiles, K, TC_BK);
+  return clamp_splits((2 * sms + tiles - 1) / tiles, K, tc_bk<W>);
 }
 
 // The 128-row tensor-core stage (tc128_kernel below): a block of
@@ -168,8 +169,8 @@ inline int tc128_splits(int N, int gN, int B, int K, int sms) {
 }
 
 // The most parts any rule gives a dense product: what a buffer of split
-// partials is sized for (a grouped product has at least as many tiles, so
-// no more parts).
+// partials is sized for (a grouped product has at least as many tiles, and
+// an int8 one deeper chunks, so no more parts).
 inline int most_splits(int N, int B, int K, int sms) {
   const int a = fma_splits(N, B, K, sms), b = tc_splits(N, N, B, K, sms);
   const int c = tc128_splits(N, N, B, K, sms);
@@ -180,25 +181,13 @@ inline dim3 grid_for(int cols, int B, int ns = 1) {
   return dim3(cols / TN, (B + TM - 1) / TM, ns);
 }
 
-// X(row, k) = x[row * ld + k] for a bf16 matrix.
-struct LoadBf16 {
-  const bf16* x;
-  int ld;
-  __device__ float operator()(int row, int k) const {
-    return to_f(x[(size_t)row * ld + k]);
-  }
-};
-
-// The 16 / sizeof(W) weights at p (16-byte aligned) as floats, from one
-// 16-byte load: 8 bf16 or 16 int8 values. An int8 value is exact in float
-// (|q| <= 127), so the product's sum sees the stored integers.
-template <class W>
-__device__ __forceinline__ void load16(const W* p, float* dst) {
-  constexpr int V = 16 / sizeof(W);
+// The 8 bf16 weights at p (16-byte aligned) as floats, from one 16-byte
+// load.
+__device__ __forceinline__ void load16(const bf16* p, float* dst) {
   const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const W* e = reinterpret_cast<const W*>(&v);
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-  for (int q = 0; q < V; ++q) dst[q] = to_f(e[q]);
+  for (int q = 0; q < 8; ++q) dst[q] = to_f(e[q]);
 }
 
 // Split z of a contraction of depth K cut into ns nearly equal parts.
@@ -208,60 +197,52 @@ __device__ __forceinline__ void split_range(int K, int ns, int z, int* lo,
   *hi = (int)((long long)K * (z + 1) / ns);
 }
 
-// --- FMA products (int8 weights; narrow stages from MMA_ROWS rows on) -------
+// --- FMA products (the action head's narrow stages from MMA_ROWS rows on) ---
 
-// acc[j] += sum_k X(row, k) * W_j[k, c] over k in [lo, hi), for the
-// thread's (row, c) of the tile. W_j = w + j * wstep points at column 0 of
-// the tile in a row-major bf16 or int8 matrix with row stride ldw. The NW
-// weight tiles share the staged input chunk. Requires ldw and the tile's
-// column offset to be multiples of 16 / sizeof(W) and w 16-byte aligned
-// (16-byte loads); the wrapper checks the shapes. All threads of the
-// block must call it alike.
-template <int NW, class Loader, class W>
-__device__ void tile_mm(float (&acc)[NW], const Loader& load, int lo, int hi,
-                        const W* w, int wstep, int ldw, int row0, int B,
-                        float* xs, float* ws) {
-  // V weights per 16-byte load, P loads per staged row of the tile.
-  constexpr int V = 16 / sizeof(W), P = TN / V;
+// acc += sum_k x[row * ldx + k] * w[k * ldw + c] over k in [lo, hi), for
+// the thread's (row, c) of the tile; w points at column 0 of the tile in a
+// row-major bf16 matrix with row stride ldw. Requires ldw and the tile's
+// column offset to be multiples of 8 and w 16-byte aligned (16-byte
+// loads); the wrapper checks the shapes. All threads of the block must
+// call it alike.
+__device__ inline void tile_mm(float& acc, const bf16* x, int ldx, int lo,
+                               int hi, const bf16* w, int ldw, int row0,
+                               int B, float* xs, float* ws) {
+  constexpr int P = TN / 8;  // 16-byte loads per staged row of the tile
   const int t = threadIdx.x, r = t / TN, c = t % TN;
   for (int k0 = lo; k0 < hi; k0 += KC) {
     for (int i = t; i < TM * KC; i += THREADS) {
       const int rr = i / KC, kk = i % KC;
       const int row = row0 + rr, k = k0 + kk;
-      xs[i] = (row < B && k < hi) ? load(row, k) : 0.f;
+      xs[i] = (row < B && k < hi) ? to_f(x[(size_t)row * ldx + k]) : 0.f;
     }
-    for (int i = t; i < NW * KC * P; i += THREADS) {
-      const int j = i / (KC * P), rem = i % (KC * P);
-      const int kk = rem / P, part = rem % P, k = k0 + kk;
-      float* dst = ws + (j * KC + kk) * TN + part * V;
+    for (int i = t; i < KC * P; i += THREADS) {
+      const int kk = i / P, part = i % P, k = k0 + kk;
+      float* dst = ws + kk * TN + part * 8;
       if (k < hi) {
-        load16(w + (size_t)j * wstep + (size_t)k * ldw + part * V, dst);
+        load16(w + (size_t)k * ldw + part * 8, dst);
       } else {
 #pragma unroll
-        for (int q = 0; q < V; ++q) dst[q] = 0.f;
+        for (int q = 0; q < 8; ++q) dst[q] = 0.f;
       }
     }
     __syncthreads();
     const float* xr = xs + r * KC;
 #pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      const float x = xr[kk];
-#pragma unroll
-      for (int j = 0; j < NW; ++j) acc[j] += x * ws[(j * KC + kk) * TN + c];
-    }
+    for (int kk = 0; kk < KC; ++kk) acc += xr[kk] * ws[kk * TN + c];
     __syncthreads();
   }
 }
 
 // The part of segment [seg, seg + len) of a concatenated contraction that
-// falls in this split's [lo, hi): X and W are indexed from the segment's
+// falls in this split's [lo, hi): x and w are indexed from the segment's
 // start. The condition is the same for every thread of the block.
-template <class Loader, class W>
-__device__ void segment_mm(float (&acc)[1], const Loader& load, int seg,
-                           int len, int lo, int hi, const W* w, int ldw,
-                           int row0, int B, float* xs, float* ws) {
+__device__ inline void segment_mm(float& acc, const bf16* x, int ldx,
+                                  int seg, int len, int lo, int hi,
+                                  const bf16* w, int ldw, int row0, int B,
+                                  float* xs, float* ws) {
   const int a = max(lo - seg, 0), b = min(hi - seg, len);
-  if (a < b) tile_mm<1>(acc, load, a, b, w, 0, ldw, row0, B, xs, ws);
+  if (a < b) tile_mm(acc, x, ldx, a, b, w, ldw, row0, B, xs, ws);
 }
 
 // --- Tensor-core helpers ----------------------------------------------------
@@ -284,10 +265,11 @@ __device__ __forceinline__ uint32_t smem(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i + 7 giving
-// the row addresses of matrix i; with `trans`, each matrix transposed.
+// Four 8 x 8 matrices of 16-bit elements from shared memory, lanes
+// 8 i .. 8 i + 7 giving the row addresses of matrix i; with `trans`, each
+// matrix transposed.
 template <bool trans>
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
   if constexpr (trans) {
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -337,18 +319,19 @@ __device__ __forceinline__ void store8_bf16(bf16* dst, const float* p,
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
 }
 
-// --- Tensor-core products at 16 rows (below MMA_ROWS) -----------------------
+// --- Tensor-core products at 16 rows (below MMA_ROWS; int8 at any batch) ----
 //
 // mma.sync m16n8k16 takes 16 rows, the acting and window batch exactly.
 // A block computes one 16 x TC_BN output tile over its split's part of the
 // contraction: the four warps own 16 columns each (two n8 tiles), and all
-// of them read the tile's 16 staged rows. Weight tiles (TC_BK x TC_BN bf16,
-// 8 KB) stream through a ring of TC_STAGES shared-memory stages filled by
-// 16-byte cp.async loads, so three chunks are in flight while one is
-// multiplied; fragments come from ldmatrix. The products are bound by the
-// weight bytes, so the split count (tc_splits) keeps about two blocks per
-// SM streaming, and every split writes its own f32 partials (`parts` in the
-// FMA stages' layout), which the consumer adds in split order.
+// of them read the tile's 16 staged rows. Weight tiles (8 KB: 64 k x TC_BN
+// in bf16, 128 k in int8) stream through a ring of TC_STAGES shared-memory
+// stages filled by 16-byte cp.async loads, so three chunks are in flight
+// while one is multiplied; fragments come from ldmatrix. The products are
+// bound by the weight bytes, so the split count (tc_splits) keeps about
+// two blocks per SM streaming, and every split writes its own f32 partials
+// (`parts` in the FMA stages' layout), which the consumer adds in split
+// order.
 //
 // The forward product (trans = false) reads X (bf16) against W (K x N,
 // row-major: its tile is staged [k][n] and read by ldmatrix.trans); the
@@ -357,65 +340,96 @@ __device__ __forceinline__ void store8_bf16(bf16* dst, const float* p,
 // operand in the compute dtype) against the rows of W, contiguous along k
 // (staged [n][k], plain ldmatrix). The ring takes 46 KB of shared memory,
 // 55 KB with f32 rows, so four blocks fit an SM.
+//
+// Int8 weights (forward only) stay int8 up to the registers: 16 columns a
+// cp.async load, 128-deep chunks, so a stage carries the 8 KB a bf16
+// stage does (57 KB a ring with its 4 KB of rows, three blocks an SM) and
+// a product takes the bf16 split count. ldmatrix.trans reads a pair of
+// int8 columns as one 16-bit element, so each register holds two columns
+// at two consecutive k: bytes (c, k), (c + 1, k), (c, k + 1), (c + 1,
+// k + 1). Its even and its odd bytes are each a bf16 pair of the B
+// fragment (i8x2_bf16: two bit operations and a bf16x2 fma, exact), so a
+// warp's two n8 tiles take its even and its odd columns, and the epilogue
+// writes each sum to its own column. Converting in registers costs no
+// shared-memory pass and no barrier more than bf16 (converting the landed
+// tile into a bf16 [k][n] tile for the bf16 fragments would cost both).
+// The epilogue multiplies the sums by the segment's column scales (flat
+// column q gN + j, loaded while the first chunks are in flight); a split
+// that runs from segment a into b scales a's sums where it crosses, as
+// the hidden layer's two segments (wblk, win) have scales of their own.
+// On an H100 the int8 window ran slower with int8 tiles 128 columns wide
+// (whole 128-byte rows), whether 64 deep with twice the splits (their
+// partials cost the row stages that add them more than the products
+// gained) or 128 deep with one block of four or eight warps an SM.
 
-constexpr int TC_STAGES = 4, TC_THREADS = 128, TC_PAD = TC_BK + 8;
+constexpr int TC_STAGES = 4, TC_THREADS = 128;
 
 // One operand pair of a 16-row product. Output column n lies in group
 // q = n / gN at offset j = n - q gN; the segment adds, over k < len,
 //   X(row, k) = x[row * ldx + q * xgs + k]      (bf16; f32 if trans)
 // times
 //   w[q * wgs + k * ldw + j]                    (forward)
-//   w[q * wgs + j * ldw + k]                    (trans)
-// len, ldx, xgs, ldw and wgs are multiples of 8 and gN of 16 (16-byte
-// loads); the wrappers check the widths.
-struct Opnd {
+//   w[q * wgs + j * ldw + k]                    (trans, bf16 w only)
+// and for int8 w multiplies the sums by scale[n]. len, ldx and xgs are
+// multiples of 8, ldw, wgs and gN multiples of 16 / sizeof(W) (16-byte
+// loads) and gN of 16; the wrappers check the widths.
+template <class W>
+struct OpndT {
   const void* x;
   int ldx;
   int xgs;
-  const bf16* w;
+  const W* w;
   int ldw;
   size_t wgs;
   int len;
+  const float* scale = nullptr;  // int8 w: f32 column scales
 };
+typedef OpndT<bf16> Opnd;
 
-inline Opnd no_opnd() { return Opnd{nullptr, 0, 0, nullptr, 0, 0, 0}; }
+template <class W = bf16>
+inline OpndT<W> no_opnd() {
+  return OpndT<W>{nullptr, 0, 0, nullptr, 0, 0, 0};
+}
 
-template <bool trans>
+template <bool trans, class W>
 struct TcStage {
   // The rows, [row][k]: bf16, or f32 for trans, staged as they lie and
   // rounded to bf16 as the fragments are formed.
-  typename std::conditional<trans, float, bf16>::type x[16][TC_PAD];
-  bf16 w[TC_BK][TC_PAD];  // [k][n] forward, [n][k] trans
+  typename std::conditional<trans, float, bf16>::type x[16][tc_bk<W> + 8];
+  // [k][n] forward, [n][k] trans (bf16: TC_BN = tc_bk).
+  W w[tc_bk<W>][TC_BN + 16 / sizeof(W)];
 };
 
-// Stage chunk [k0, k0 + TC_BK) of segment o for the tile at column j0 of
-// group q (`valid` columns of it inside the group), rows row0.. < B;
-// zeros outside, all by 16-byte cp.async. Rows padded by 8 values (144
-// bytes of bf16, 288 of f32) keep the 16-byte stores aligned, an
-// ldmatrix's eight rows on distinct banks, and the f32 fragment loads of
-// each half-warp on distinct banks.
-template <bool trans>
-__device__ __forceinline__ void tc_stage(TcStage<trans>& s, const Opnd& o,
-                                         int k0, int q, int j0, int valid,
-                                         int row0, int B) {
+// Stage chunk [k0, k0 + tc_bk<W>) of segment o for the tile at column j0
+// of group q (`valid` columns of it inside the group), rows row0.. < B;
+// zeros outside, all by 16-byte cp.async. Rows padded by 16 bytes (X by 8
+// values) keep the 16-byte stores aligned, an ldmatrix's eight rows on
+// distinct banks, and the f32 fragment loads of each half-warp on
+// distinct banks.
+template <bool trans, class W>
+__device__ __forceinline__ void tc_stage(TcStage<trans, W>& s,
+                                         const OpndT<W>& o, int k0, int q,
+                                         int j0, int valid, int row0, int B) {
+  constexpr int BK = tc_bk<W>, V = 16 / sizeof(W);  // weights a load
+  constexpr int P = (trans ? BK : TC_BN) / V;       // loads a staged row
   const int t = threadIdx.x;
-  const bf16* W = o.w + (size_t)q * o.wgs;
+  const W* Wq = o.w + (size_t)q * o.wgs;
 #pragma unroll
-  for (int j = 0; j < TC_BK * TC_BN / 8 / TC_THREADS; ++j) {
+  for (int j = 0; j < BK * TC_BN / V / TC_THREADS; ++j) {
     const int i = t + j * TC_THREADS;
-    const int r = i / (TC_BN / 8), c = (i % (TC_BN / 8)) * 8;
+    const int r = i / P, c = (i % P) * V;
     const bool ok = trans ? (r < valid && k0 + c < o.len)
                           : (k0 + r < o.len && c < valid);
-    const bf16* src = trans ? W + (size_t)(j0 + r) * o.ldw + k0 + c
-                            : W + (size_t)(k0 + r) * o.ldw + j0 + c;
+    const W* src = trans ? Wq + (size_t)(j0 + r) * o.ldw + k0 + c
+                         : Wq + (size_t)(k0 + r) * o.ldw + j0 + c;
     cp_async16(&s.w[r][c], ok ? src : o.w, ok ? 16 : 0);
   }
-  // 16 rows of TC_BK, 16 bytes a load: 8 bf16 or 4 f32 values.
-  constexpr int V = 16 / sizeof(s.x[0][0]);
+  // 16 rows of BK, 16 bytes a load: 8 bf16 or 4 f32 values.
+  constexpr int VX = 16 / sizeof(s.x[0][0]);
 #pragma unroll
-  for (int j = 0; j < 16 * TC_BK / V / TC_THREADS; ++j) {
+  for (int j = 0; j < 16 * BK / VX / TC_THREADS; ++j) {
     const int i = t + j * TC_THREADS;
-    const int r = i / (TC_BK / V), c = (i % (TC_BK / V)) * V;
+    const int r = i / (BK / VX), c = (i % (BK / VX)) * VX;
     const bool ok = row0 + r < B && k0 + c < o.len;
     const size_t at =
         (size_t)(row0 + r) * o.ldx + (size_t)q * o.xgs + k0 + c;
@@ -432,33 +446,51 @@ __device__ __forceinline__ uint32_t bf16x2(const float* p) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// The int8 values in bytes 0 and 2 of r as a bf16 pair (byte 0 low).
+// Each byte b is q = (b & 127) - 128 [b < 0], the difference of two bf16
+// values that its bits give: 128 + (b & 127) (0x4300 | b & 0x7f) and
+// 128 or 256 (0x4300 | b & 0x80, negated: 0xc300 | ...). Their sum is an
+// integer of magnitude <= 128, so the bf16x2 fma is exact.
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t r) {
+  const uint32_t hi = (r & 0x007f007fu) | 0x43004300u;
+  const uint32_t lo = (r & 0x00800080u) | 0xc300c300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(hi), "r"(0x3f803f80u), "r"(lo));
+  return d;
+}
+
 // out[z][row, n] (row stride ldo, split stride B ldo): split z of the
 // products of segments a and b (b.len may be 0) for n < N, plus bias[n]
 // (bf16 or f32, optional) in split 0. Every split writes, an empty one
 // zeros. Grid ((N / gN) ceil(gN / TC_BN), ceil(B / 16), ns); the
-// contraction is cut into TC_BK chunks, a's then b's, and split z takes
+// contraction is cut into tc_bk<W> chunks, a's then b's, and split z takes
 // its share of them in order. Fragment layouts: PTX's mma.m16n8k16.
-template <bool trans, class Bias, class Out>
+template <bool trans, class W, class Bias, class Out>
 __global__ void __launch_bounds__(TC_THREADS)
-tc16_kernel(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
-            int B, int ns) {
+tc16_kernel(OpndT<W> a, OpndT<W> b, int gN, const Bias* bias, Out* out,
+            int ldo, int B, int ns) {
+  constexpr bool i8 = std::is_same<W, int8_t>::value;
+  static_assert(!trans || !i8, "the transposed product takes bf16 weights");
+  constexpr int BK = tc_bk<W>;
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  TcStage<trans>* s = reinterpret_cast<TcStage<trans>*>(tc_smem);
+  TcStage<trans, W>* s = reinterpret_cast<TcStage<trans, W>*>(tc_smem);
   const int tpg = (gN + TC_BN - 1) / TC_BN;
   const int q = blockIdx.x / tpg, j0 = (blockIdx.x % tpg) * TC_BN;
   const int valid = min(TC_BN, gN - j0);
   const int row0 = blockIdx.y * 16, z = blockIdx.z;
-  const int ca = (a.len + TC_BK - 1) / TC_BK, cb = (b.len + TC_BK - 1) / TC_BK;
+  const int ca = (a.len + BK - 1) / BK, cb = (b.len + BK - 1) / BK;
   int lo, hi;
   split_range(ca + cb, ns, z, &lo, &hi);
   const int n = hi - lo;
   auto stage = [&](int i) {
     const int c = lo + i;
     if (c < ca)
-      tc_stage<trans>(s[i % TC_STAGES], a, c * TC_BK, q, j0, valid, row0, B);
+      tc_stage<trans, W>(s[i % TC_STAGES], a, c * BK, q, j0, valid, row0, B);
     else
-      tc_stage<trans>(s[i % TC_STAGES], b, (c - ca) * TC_BK, q, j0, valid,
-                      row0, B);
+      tc_stage<trans, W>(s[i % TC_STAGES], b, (c - ca) * BK, q, j0, valid,
+                         row0, B);
   };
 #pragma unroll
   for (int i = 0; i < TC_STAGES - 1; ++i) {
@@ -468,33 +500,94 @@ tc16_kernel(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m = lane / 8, l8 = lane % 8, nb = warp * 16;
   const int g = lane / 4, tq = lane % 4;
-  float acc[2][4] = {};
+  // The tile column of sum e of n8 tile nt: int8 tiles take the warp's
+  // even (nt 0) and odd (nt 1) columns.
+  auto column = [&](int nt, int e) {
+    return i8 ? nb + 4 * tq + 2 * e + nt : nb + nt * 8 + tq * 2 + e;
+  };
+  // acc[nt][h * 2 + e]: row g + 8 h, column column(nt, e). Int8: `done`
+  // holds segment a's scaled sums once the split has crossed into b, and
+  // sa, sb the two segments' scales of the thread's columns, loaded while
+  // the first chunks are in flight (zeros outside the tile).
+  float acc[2][4] = {}, done[2][4] = {}, sa[2][4] = {}, sb[2][4] = {};
+  if constexpr (i8) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = column(nt, e), col = q * gN + j0 + cl;
+        if (cl >= valid) continue;
+        sa[nt][e] = sa[nt][e + 2] = a.scale[col];
+        if (b.len) sb[nt][e] = sb[nt][e + 2] = b.scale[col];
+      }
+  }
+  auto scale_into = [&](float (&dst)[2][4], const float (&sc)[2][4]) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        dst[nt][v] += acc[nt][v] * sc[nt][v];
+        acc[nt][v] = 0.f;
+      }
+  };
   for (int i = 0; i < n; ++i) {
     cp_wait<TC_STAGES - 2>();  // chunk i has landed
     __syncthreads();           // and every warp is done with chunk i - 1
     if (i + TC_STAGES - 1 < n) stage(i + TC_STAGES - 1);
     cp_commit();
-    const TcStage<trans>& c = s[i % TC_STAGES];
+    const TcStage<trans, W>& c = s[i % TC_STAGES];
+    if constexpr (i8) {
+      if (i > 0 && lo + i == ca) scale_into(done, sa);
+      // One k step of 16: rows af against the int8 registers of its k
+      // rows 0..7 (w0) and 8..15 (w1); the even bytes feed tile 0, the
+      // odd ones tile 1.
+      auto step = [&](const uint32_t (&af)[4], uint32_t w0, uint32_t w1) {
+        mma_bf16(acc[0], af[0], af[1], af[2], af[3], i8x2_bf16(w0),
+                 i8x2_bf16(w1));
+        mma_bf16(acc[1], af[0], af[1], af[2], af[3], i8x2_bf16(w0 >> 8),
+                 i8x2_bf16(w1 >> 8));
+      };
 #pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-      uint32_t af[4], bfr[4];
-      if constexpr (trans) {
-        const float* x0 = &c.x[g][kk + 2 * tq];
-        const float* x1 = &c.x[g + 8][kk + 2 * tq];
-        af[0] = bf16x2(x0);
-        af[1] = bf16x2(x1);
-        af[2] = bf16x2(x0 + 8);
-        af[3] = bf16x2(x1 + 8);
-        ldsm4<false>(bfr, &c.w[nb + (m >> 1) * 8 + l8][kk + (m & 1) * 8]);
-      } else {
-        ldsm4<false>(af, &c.x[(m & 1) * 8 + l8][kk + (m >> 1) * 8]);
-        ldsm4<true>(bfr, &c.w[kk + (m & 1) * 8 + l8][nb + (m >> 1) * 8]);
+      for (int kk = 0; kk < BK; kk += 32) {
+        // Rows for k steps kk and kk + 16; wq[j]: k rows kk + 8 j .. + 7
+        // of the warp's 16 columns.
+        uint32_t a0[4], a1[4], wq[4];
+        ldsm4<false>(a0, &c.x[(m & 1) * 8 + l8][kk + (m >> 1) * 8]);
+        ldsm4<false>(a1, &c.x[(m & 1) * 8 + l8][kk + 16 + (m >> 1) * 8]);
+        ldsm4<true>(wq, &c.w[kk + m * 8 + l8][nb]);
+        step(a0, wq[0], wq[1]);
+        step(a1, wq[2], wq[3]);
       }
-      mma_bf16(acc[0], af[0], af[1], af[2], af[3], bfr[0], bfr[1]);
-      mma_bf16(acc[1], af[0], af[1], af[2], af[3], bfr[2], bfr[3]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[4], bfr[4];
+        if constexpr (trans) {
+          const float* x0 = &c.x[g][kk + 2 * tq];
+          const float* x1 = &c.x[g + 8][kk + 2 * tq];
+          af[0] = bf16x2(x0);
+          af[1] = bf16x2(x1);
+          af[2] = bf16x2(x0 + 8);
+          af[3] = bf16x2(x1 + 8);
+          ldsm4<false>(bfr, &c.w[nb + (m >> 1) * 8 + l8][kk + (m & 1) * 8]);
+        } else {
+          ldsm4<false>(af, &c.x[(m & 1) * 8 + l8][kk + (m >> 1) * 8]);
+          ldsm4<true>(bfr, &c.w[kk + (m & 1) * 8 + l8][nb + (m >> 1) * 8]);
+        }
+        mma_bf16(acc[0], af[0], af[1], af[2], af[3], bfr[0], bfr[1]);
+        mma_bf16(acc[1], af[0], af[1], af[2], af[3], bfr[2], bfr[3]);
+      }
     }
   }
   cp_wait<0>();
+  if constexpr (i8) {
+    // The sums of the segment the split ends in, times its scales (a's in
+    // an empty split, whose sums are zeros).
+    if (hi > ca)
+      scale_into(done, sb);
+    else
+      scale_into(done, sa);
+  }
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -503,12 +596,12 @@ tc16_kernel(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
       if (row >= B) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int cl = nb + nt * 8 + tq * 2 + e;
+        const int cl = column(nt, e);
         if (cl >= valid) continue;
         const int col = q * gN + j0 + cl;
         const float add = (z == 0 && bias) ? to_f(bias[col]) : 0.f;
-        store(out + ((size_t)z * B + row) * ldo + col,
-              acc[nt][h * 2 + e] + add);
+        const float v = i8 ? done[nt][h * 2 + e] : acc[nt][h * 2 + e];
+        store(out + ((size_t)z * B + row) * ldo + col, v + add);
       }
     }
   }
@@ -820,7 +913,7 @@ namespace {
 // an inline function would be one object for the whole process (GCC makes
 // it a unique symbol across shared libraries), and the second library's
 // kernel would launch without the attribute.
-template <bool trans, class Bias, class Out>
+template <bool trans, class W, class Bias, class Out>
 bool tc16_allowed = false;
 // The same for tc128_kernel.
 template <class Bias, class Out>
@@ -839,20 +932,21 @@ EncodeTiled encode_tiled = nullptr;
 
 namespace blockgru {
 
-template <bool trans, class Bias, class Out>
-inline void tc16(Opnd a, Opnd b, int gN, const Bias* bias, Out* out, int ldo,
-                 int B, int N, int ns, cudaStream_t st) {
-  // The ring exceeds the 48 KB of static shared memory with f32 rows: the
-  // kernel takes it dynamically, allowed once per instantiation (the port
-  // runs on one card; a repeated call is harmless).
-  constexpr int bytes = TC_STAGES * sizeof(TcStage<trans>);
-  if (!tc16_allowed<trans, Bias, Out>) {
-    cudaFuncSetAttribute(tc16_kernel<trans, Bias, Out>,
+template <bool trans, class W, class Bias, class Out>
+inline void tc16(OpndT<W> a, OpndT<W> b, int gN, const Bias* bias, Out* out,
+                 int ldo, int B, int N, int ns, cudaStream_t st) {
+  // The ring exceeds the 48 KB of static shared memory with f32 rows or
+  // int8 weights: the kernel takes it dynamically, allowed once per
+  // instantiation (the port runs on one card; a repeated call is
+  // harmless).
+  constexpr int bytes = TC_STAGES * sizeof(TcStage<trans, W>);
+  if (!tc16_allowed<trans, W, Bias, Out>) {
+    cudaFuncSetAttribute(tc16_kernel<trans, W, Bias, Out>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    tc16_allowed<trans, Bias, Out> = true;
+    tc16_allowed<trans, W, Bias, Out> = true;
   }
   const dim3 grid((N / gN) * ((gN + TC_BN - 1) / TC_BN), (B + 15) / 16, ns);
-  tc16_kernel<trans, Bias, Out><<<grid, TC_THREADS, bytes, st>>>(
+  tc16_kernel<trans, W, Bias, Out><<<grid, TC_THREADS, bytes, st>>>(
       a, b, gN, bias, out, ldo, B, ns);
 }
 
@@ -928,15 +1022,22 @@ inline void tc128(Opnd a, Opnd b, int gN, const Bias* bias, Out* out,
       sa, sb, gN, bias, out, ldo, B, ns);
 }
 
-// A forward product on the tensor cores: the 16-row stage below MMA_ROWS
-// rows, the 128-row stage from there on. Its split count comes from
-// tc_fwd_splits.
-template <class Bias, class Out>
-inline void tc_fwd(Opnd a, Opnd b, int gN, const Bias* bias, Out* out,
-                   int ldo, int B, int N, int ns, cudaStream_t st) {
-  if (B < MMA_ROWS)
+// Whether a forward product of B rows on weights W takes the 16-row
+// stage: below MMA_ROWS rows, and int8 weights at every batch (the 128-row
+// stage takes bf16 only).
+template <class W>
+inline bool rows16(int B) {
+  return !std::is_same<W, bf16>::value || B < MMA_ROWS;
+}
+
+// A forward product on the tensor cores: the 16-row stage where rows16,
+// else the 128-row stage. Its split count comes from tc_fwd_splits.
+template <class W, class Bias, class Out>
+inline void tc_fwd(OpndT<W> a, OpndT<W> b, int gN, const Bias* bias,
+                   Out* out, int ldo, int B, int N, int ns, cudaStream_t st) {
+  if (rows16<W>(B))
     tc16<false>(a, b, gN, bias, out, ldo, B, N, ns, st);
-  else
+  else if constexpr (std::is_same<W, bf16>::value)
     tc128(a, b, gN, bias, out, ldo, B, N, ns, st);
 }
 
@@ -951,43 +1052,41 @@ struct XSeg {
 };
 
 // out[z][row, col] (row stride N): split z of [a | b](row, :) @ w, where
-// w (a.len + b.len, N) stacks the rows for a over those for b, times the
-// column scale (int8 w; one scale for both parts); split 0 adds the bias
-// (bf16 or f32). Grid (N / TN, ceil(B / TM), ns).
-template <class Bias, class Out, class W>
+// w (a.len + b.len, N) bf16 stacks the rows for a over those for b; split
+// 0 adds the bias (bf16 or f32). Grid (N / TN, ceil(B / TM), ns).
+template <class Bias, class Out>
 __global__ void __launch_bounds__(THREADS)
-mm_kernel(XSeg a, XSeg b, const W* w, const Bias* bias, const float* scale,
-          Out* out, int B, int N, int ns) {
+mm_kernel(XSeg a, XSeg b, const bf16* w, const Bias* bias, Out* out, int B,
+          int N, int ns) {
   __shared__ float xs[TM * KC];
   __shared__ float ws[KC * TN];
   const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM, z = blockIdx.z;
   int lo, hi;
   split_range(a.len + b.len, ns, z, &lo, &hi);
-  float acc[1] = {0.f};
-  segment_mm(acc, LoadBf16{a.x, a.ld}, 0, a.len, lo, hi, w + col0, N, row0, B,
-             xs, ws);
-  segment_mm(acc, LoadBf16{b.x, b.ld}, a.len, b.len, lo, hi,
+  float acc = 0.f;
+  segment_mm(acc, a.x, a.ld, 0, a.len, lo, hi, w + col0, N, row0, B, xs, ws);
+  segment_mm(acc, b.x, b.ld, a.len, b.len, lo, hi,
              w + (size_t)a.len * N + col0, N, row0, B, xs, ws);
   const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
   if (row < B) {
     const float add = (z == 0 && bias) ? to_f(bias[col]) : 0.f;
-    store(out + ((size_t)z * B + row) * N + col,
-          scaled(acc[0], scale, col) + add);
+    store(out + ((size_t)z * B + row) * N + col, acc + add);
   }
 }
 
 // Whether mm of B rows into N columns on weights W takes the tensor cores:
-// bf16 weights, and from MMA_ROWS rows on at least 64 columns (the action
-// head's 16 or 32 stay on the FMA stage: a 128-column tile would be mostly
-// empty).
+// every product on the 16-row stage, and from MMA_ROWS rows on bf16
+// products of at least 64 columns (the action head's 16 or 32 stay on the
+// FMA stage: a 128-column tile would be mostly empty).
 template <class W>
-constexpr bool use_tc(int B, int N) {
-  return std::is_same<W, bf16>::value && (B < MMA_ROWS || N >= 64);
+inline bool use_tc(int B, int N) {
+  return rows16<W>(B) || N >= 64;
 }
 
 // The split count of a forward product on the tensor cores.
+template <class W>
 inline int tc_fwd_splits(int N, int gN, int B, int K, int sms) {
-  return B < MMA_ROWS ? tc_splits(N, gN, B, K, sms)
+  return rows16<W>(B) ? tc_splits<W>(N, gN, B, K, sms)
                       : tc128_splits(N, gN, B, K, sms);
 }
 
@@ -995,28 +1094,27 @@ inline int tc_fwd_splits(int N, int gN, int B, int K, int sms) {
 // contraction on weights W.
 template <class W>
 inline int mm_splits(int B, int N, int K, int sms) {
-  return use_tc<W>(B, N) ? tc_fwd_splits(N, N, B, K, sms)
+  return use_tc<W>(B, N) ? tc_fwd_splits<W>(N, N, B, K, sms)
                          : fma_splits(N, B, K, sms);
 }
 
-// [a | b] @ w (times the column scales of an int8 w) + bias into `out`:
-// f32 split partials (ns of them, from mm_splits), or with ns == 1 the
-// finished product in f32 or bf16.
+// [a | b] @ w (times the column scales of an int8 w, one for both parts)
+// + bias into `out`: f32 split partials (ns of them, from mm_splits), or
+// with ns == 1 the finished product in f32 or bf16.
 template <class Bias, class Out, class W>
 inline void mm(XSeg a, XSeg b, const W* w, const Bias* bias, Out* out,
                int B, int N, int ns, cudaStream_t st,
                const float* scale = nullptr) {
-  if constexpr (std::is_same<W, bf16>::value) {
-    if (use_tc<W>(B, N)) {
-      tc_fwd(Opnd{a.x, a.ld, 0, w, N, 0, a.len},
-             b.len ? Opnd{b.x, b.ld, 0, w + (size_t)a.len * N, N, 0, b.len}
-                   : no_opnd(),
-             N, bias, out, N, B, N, ns, st);
-      return;
-    }
+  if (use_tc<W>(B, N)) {
+    tc_fwd(OpndT<W>{a.x, a.ld, 0, w, N, 0, a.len, scale},
+           b.len ? OpndT<W>{b.x, b.ld, 0, w + (size_t)a.len * N, N, 0, b.len,
+                            scale}
+                 : no_opnd<W>(),
+           N, bias, out, N, B, N, ns, st);
+  } else if constexpr (std::is_same<W, bf16>::value) {
+    mm_kernel<Bias, Out><<<grid_for(N, B, ns), THREADS, 0, st>>>(
+        a, b, w, bias, out, B, N, ns);
   }
-  mm_kernel<Bias, Out, W><<<grid_for(N, B, ns), THREADS, 0, st>>>(
-      a, b, w, bias, scale, out, B, N, ns);
 }
 
 // out[row, g W + c] (row stride ldo) = bf16(silu(x * rstd * scale_g[c])),
@@ -1072,106 +1170,6 @@ __global__ void mask_kernel(const bf16* x, int ldx, int W, const float* keep,
 inline void mask(const bf16* x, int ldx, int W, const float* keep, bf16* out,
                  int ldo, int B, cudaStream_t st) {
   mask_kernel<<<B, 256, 0, st>>>(x, ldx, W, keep, out, ldo);
-}
-
-// The input projections, split z = blockIdx.z: pre[z][:, :H] and
-// pre[z][:, H:], the split's partial sums of deter @ w0 and stoch @ w1
-// (times q0, q1 for int8 weights); split 0 adds b0, b1. Grid
-// (2 * H / TN, ceil(B / TM), ns).
-template <class W>
-__global__ void __launch_bounds__(THREADS)
-in_proj_kernel(const bf16* deter, const bf16* stoch, const W* w0,
-               const bf16* b0, const W* w1, const bf16* b1, const float* q0,
-               const float* q1, float* pre, int B, int D, int S, int H,
-               int ns) {
-  __shared__ float xs[TM * KC];
-  __shared__ float ws[KC * TN];
-  const int tiles = H / TN, z = blockIdx.z;
-  const bool second = blockIdx.x >= tiles;
-  const int col0 = (blockIdx.x % tiles) * TN, row0 = blockIdx.y * TM;
-  int lo, hi;
-  split_range(second ? S : D, ns, z, &lo, &hi);
-  float acc[1] = {0.f};
-  const LoadBf16 load = second ? LoadBf16{stoch, S} : LoadBf16{deter, D};
-  tile_mm<1>(acc, load, lo, hi, (second ? w1 : w0) + col0, 0, H, row0, B,
-             xs, ws);
-  const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
-  if (row < B) {
-    const float bias = z ? 0.f : to_f((second ? b1 : b0)[col]);
-    pre[((size_t)z * B + row) * 2 * H + (second ? H : 0) + col] =
-        scaled(acc[0], second ? q1 : q0, col) + bias;
-  }
-}
-
-// Split z of [deter block (dg) | x (lx)] @ [wblk[blk]; win] for the GRU
-// hidden layer, where x = [xd, x0, act] (row stride ldx) and blk is the GRU
-// block of the tile's columns; split 0 adds bblk. Int8 weights keep the two
-// products' sums apart, each times its own column scales (qblk (g, dg)
-// flat, qin (D)). Grid (D / TN, ceil(B / TM), ns); a column tile lies
-// inside one GRU block.
-template <class W>
-__global__ void __launch_bounds__(THREADS)
-hidden_kernel(const bf16* x, int ldx, int lx, const bf16* deter,
-              const W* wblk, const bf16* bblk, const W* win,
-              const float* qblk, const float* qin, float* hpre, int B, int D,
-              int g, int ns) {
-  __shared__ float xs[TM * KC];
-  __shared__ float ws[KC * TN];
-  const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM, z = blockIdx.z;
-  const int dg = D / g, blk = col0 / dg;
-  int lo, hi;
-  split_range(dg + lx, ns, z, &lo, &hi);
-  float acc[1] = {0.f}, accin[1] = {0.f};
-  segment_mm(acc, LoadBf16{deter + (size_t)blk * dg, D}, 0, dg, lo, hi,
-             wblk + (size_t)blk * dg * dg + (col0 - blk * dg), dg, row0, B,
-             xs, ws);
-  segment_mm(qin ? accin : acc, LoadBf16{x, ldx}, dg, lx, lo, hi,
-             win + col0, D, row0, B, xs, ws);
-  const int row = row0 + threadIdx.x / TN, col = col0 + threadIdx.x % TN;
-  if (row < B) {
-    const float bias = z ? 0.f : to_f(bblk[col]);
-    const float v =
-        qin ? scaled(acc[0], qblk, col) + scaled(accin[0], qin, col) : acc[0];
-    hpre[((size_t)z * B + row) * D + col] = v + bias;
-  }
-}
-
-// The gate products of block blk for the tile's columns i (reset i,
-// candidate dg + i, update 2 dg + i of wg[blk]) and the GRU update; with
-// `gates`, also saves the gate pre-activations (bias included, f32, in
-// wg's column layout [blk][reset | cand | update], row stride 3D). Int8
-// weights scale each gate product by qg (g, 3 dg) flat, in wg's column
-// layout. Grid (D / TN, ceil(B / TM)).
-template <class W>
-__global__ void __launch_bounds__(THREADS)
-gru_kernel(const bf16* h, const W* wg, const bf16* bg, const float* qg,
-           const bf16* deter, bf16* out, float* gates, int B, int D, int g) {
-  __shared__ float xs[TM * KC];
-  __shared__ float ws[3 * KC * TN];
-  const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM;
-  const int dg = D / g, blk = col0 / dg, i0 = col0 - blk * dg;
-  float acc[3] = {0.f, 0.f, 0.f};
-  tile_mm<3>(acc, LoadBf16{h + (size_t)blk * dg, D}, 0, dg,
-             wg + (size_t)blk * dg * 3 * dg + i0, dg, 3 * dg, row0, B, xs,
-             ws);
-  const int row = row0 + threadIdx.x / TN, c = threadIdx.x % TN;
-  if (row < B) {
-    const size_t gb = (size_t)blk * 3 * dg + i0 + c;
-    const float gr = scaled(acc[0], qg, gb) + to_f(bg[gb]);
-    const float gc = scaled(acc[1], qg, gb + dg) + to_f(bg[gb + dg]);
-    const float gu = scaled(acc[2], qg, gb + 2 * dg) + to_f(bg[gb + 2 * dg]);
-    const float r = sigmoid(gr);
-    const float cand = tanhf(r * gc);
-    const float u = sigmoid(gu - 1.f);
-    const size_t at = (size_t)row * D + col0 + c;
-    out[at] = __float2bfloat16(u * cand + (1.f - u) * to_f(deter[at]));
-    if (gates) {
-      float* gp = gates + (size_t)row * 3 * D + gb;
-      gp[0] = gr;
-      gp[dg] = gc;
-      gp[2 * dg] = gu;
-    }
-  }
 }
 
 // The GRU update from the gate pre-activations, the sum of ns split
@@ -1254,71 +1252,41 @@ struct CoreSave {
 // The core stages of one step. x (B, 2H + A) holds the action embedding in
 // its last A columns; the stages write [xd, x0] into its first 2H, the
 // hidden activation into h (B, D) and the new deter into out (B, D).
-// `parts` holds core_parts floats. With bf16 weights every product runs on
-// the tensor cores (core_tc), at any batch; int8 weights take the FMA
-// stages.
-//
-// core_tc is the first case: each product on the tensor-core stage of its
-// batch (tc_fwd), into split partials, the gates too (then the update adds
-// their splits).
-inline void core_tc(const CoreT<bf16>& w, const bf16* deter,
-                    const bf16* stoch, bf16* x, bf16* h, bf16* out,
-                    float* parts, const CoreSave& save, int B, int D, int H,
-                    int S, int A, int g, int sms, float eps,
-                    cudaStream_t st) {
-  const int dg = D / g, lx = 2 * H + A;
-  const Opnd none = no_opnd();
-  // Both input projections take one split count, as finish adds them. The
-  // 16-row stage counts the tiles of both; the 128-row stage's parts fill
-  // the card in each launch.
-  const int n1 = B < MMA_ROWS ? 2 * H : H;
-  const int ns1 = tc_fwd_splits(n1, n1, B, D > S ? D : S, sms);
-  tc_fwd(Opnd{deter, D, 0, w.w0, H, 0, D}, none, H, w.b0, parts, 2 * H, B, H,
-         ns1, st);
-  tc_fwd(Opnd{stoch, S, 0, w.w1, H, 0, S}, none, H, w.b1, parts + H, 2 * H, B,
-         H, ns1, st);
-  finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
-         save.rstd01, st);
-  // The hidden layer: GRU block q of the deter against wblk[q], then x
-  // against win's columns of block q.
-  const int ns2 = tc_fwd_splits(D, dg, B, dg + lx, sms);
-  tc_fwd(Opnd{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg},
-         Opnd{x, lx, 0, w.win, D, (size_t)dg, lx}, dg, w.bblk, parts, D, B, D,
-         ns2, st);
-  finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
-         save.rstdh, st);
-  const int ns3 = tc_fwd_splits(3 * D, 3 * dg, B, dg, sms);
-  tc_fwd(Opnd{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, dg}, none, 3 * dg,
-         w.bg, parts, 3 * D, B, 3 * D, ns3, st);
-  gru_update(parts, ns3, save.gates, deter, out, B, D, g, st);
-}
-
+// `parts` holds core_parts floats. Every product runs on the tensor-core
+// stage of its batch and weights (tc_fwd) into split partials, the gates
+// too (then the update adds their splits); int8 weights with their column
+// scales.
 template <class W>
 inline void core_stages(const CoreT<W>& w, const bf16* deter,
                         const bf16* stoch, bf16* x, bf16* h, bf16* out,
                         float* parts, const CoreSave& save, int B, int D,
                         int H, int S, int A, int g, int sms, float eps,
                         cudaStream_t st) {
-  if constexpr (std::is_same<W, bf16>::value) {
-    core_tc(w, deter, stoch, x, h, out, parts, save, B, D, H, S, A, g, sms,
-            eps, st);
-  } else {
-    const int dg = D / g, lx = 2 * H + A;
-    const int ns1 = fma_splits(2 * H, B, D > S ? D : S, sms);
-    in_proj_kernel<W><<<grid_for(2 * H, B, ns1), THREADS, 0, st>>>(
-        deter, stoch, w.w0, w.b0, w.w1, w.b1, w.q0, w.q1, parts, B, D, S, H,
-        ns1);
-    finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
-           save.rstd01, st);
-    const int ns2 = fma_splits(D, B, dg + lx, sms);
-    hidden_kernel<W><<<grid_for(D, B, ns2), THREADS, 0, st>>>(
-        x, lx, lx, deter, w.wblk, w.bblk, w.win, w.qblk, w.qin, parts, B, D,
-        g, ns2);
-    finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
-           save.rstdh, st);
-    gru_kernel<W><<<grid_for(D, B), THREADS, 0, st>>>(
-        h, w.wg, w.bg, w.qg, deter, out, save.gates, B, D, g);
-  }
+  const int dg = D / g, lx = 2 * H + A;
+  const OpndT<W> none = no_opnd<W>();
+  // Both input projections take one split count, as finish adds them. The
+  // 16-row stage counts the tiles of both; the 128-row stage's parts fill
+  // the card in each launch.
+  const int n1 = rows16<W>(B) ? 2 * H : H;
+  const int ns1 = tc_fwd_splits<W>(n1, n1, B, D > S ? D : S, sms);
+  tc_fwd(OpndT<W>{deter, D, 0, w.w0, H, 0, D, w.q0}, none, H, w.b0, parts,
+         2 * H, B, H, ns1, st);
+  tc_fwd(OpndT<W>{stoch, S, 0, w.w1, H, 0, S, w.q1}, none, H, w.b1,
+         parts + H, 2 * H, B, H, ns1, st);
+  finish(parts, ns1, B, 2 * H, H, 2, w.s0, w.s1, eps, x, lx, save.pre01,
+         save.rstd01, st);
+  // The hidden layer: GRU block q of the deter against wblk[q], then x
+  // against win's columns of block q, each segment with its own scales.
+  const int ns2 = tc_fwd_splits<W>(D, dg, B, dg + lx, sms);
+  tc_fwd(OpndT<W>{deter, D, dg, w.wblk, dg, (size_t)dg * dg, dg, w.qblk},
+         OpndT<W>{x, lx, 0, w.win, D, (size_t)dg, lx, w.qin}, dg, w.bblk,
+         parts, D, B, D, ns2, st);
+  finish(parts, ns2, B, D, D, 1, w.sh, w.sh, eps, h, D, save.hpre,
+         save.rstdh, st);
+  const int ns3 = tc_fwd_splits<W>(3 * D, 3 * dg, B, dg, sms);
+  tc_fwd(OpndT<W>{h, D, dg, w.wg, 3 * dg, (size_t)dg * 3 * dg, dg, w.qg},
+         none, 3 * dg, w.bg, parts, 3 * D, B, 3 * D, ns3, st);
+  gru_update(parts, ns3, save.gates, deter, out, B, D, g, st);
 }
 
 // Floats of split partials the core stages need at most (the gates' too).

@@ -4,27 +4,30 @@
 //
 // It is the bf16 window's forward (seq_common.cuh, window_fwd, which
 // observe_seq.cu runs on bf16 weights) on the seven matrices w0, w1, wblk,
-// win, wg, wo and wl in int8. Each FMA stage of blockgru_common.cuh loads
-// 16 int8 weights per 16-byte load, converts each to float (exact: |q| <=
-// 127) and, once its sums are formed, multiplies them by the matrix's
-// per-output-column f32 scales, before split 0 adds the bias: the scale
-// multiplies the (B, cols) output, never the weight, as the TPU kernel's
-// _qmm does. wblk and wg carry one scale per block column ((g, dg) and
-// (g, 3 dg)); wo one scale for both of its parts (new and tokens). Biases
-// and norm scales stay exact. The TPU kernel's column chunks (`nch`, a
-// bound on a VMEM temporary) have no counterpart: every stage already
-// stages 128-deep chunks of 16 columns.
+// win, wg, wo and wl in int8. Every product runs on the 16-row
+// tensor-core stage of blockgru_common.cuh (tc16_kernel), which streams
+// the int8 tiles as they lie (16 weights per 16-byte cp.async load,
+// 128-deep chunks), forms the bf16 fragments from them in registers
+// (exact: |q| <= 127) and, once its f32 sums are formed, multiplies them
+// by the matrix's per-output-column f32 scales before split 0 adds the
+// bias: the scale multiplies the (B, cols) output, never the weight, as
+// the TPU kernel's _qmm does. wblk and wg carry one scale per block column
+// ((g, dg) and (g, 3 dg)); wo one scale for both of its parts (new and
+// tokens); the hidden layer's two segments (wblk, win) each their own.
+// Biases and norm scales stay exact. The TPU kernel's column chunks
+// (`nch`, a bound on a VMEM temporary) have no counterpart: the stage
+// already stages 64-column tiles.
 //
 // Bound on an H100 at the default configuration (D 8192, H 1024, L 2048,
 // K 9216, T 64, B 16): the seven matrices hold 89 M weights, 89 MB in int8
 // and 178 MB in bf16. Either is beyond the 50 MB L2, so unlike the TPU
 // kernel's VMEM residency, every step streams its weights from device
 // memory: 64 x 89 MB over 3.35 TB/s is a floor of 1.7 ms per window (3.4
-// ms in bf16). Its 182 GFLOP run on the 16-row FMA stages, whose float32
-// rate (67 TFLOP/s at most) puts them near 2.7 ms or more, while the bf16
-// window runs its products on the tensor-core stage: so this kernel need
-// not beat the bf16 window. Dequantizing the int8 tile into that stage's
-// staged operand is later work.
+// ms in bf16). At 16 rows a product does 32 flops per weight, far below
+// the rate at which operations would bind, so the design streams the int8
+// tiles through the same ring and fragments as bf16, with half the bytes
+// a column; the window's row stages and launches (finish, mask, the gate
+// update, the sample) are those of the bf16 window.
 
 #include "seq_common.cuh"
 

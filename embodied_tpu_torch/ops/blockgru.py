@@ -150,7 +150,7 @@ def _lib():
              [ctypes.c_int] * 7 + [ctypes.c_float])
   build.bind(lib, 'blockgru_core_bwd', 10,
              [ctypes.c_int] * 7 + [ctypes.c_float])
-  build.bind(lib, 'blockgru_stage_product', 3, [ctypes.c_int] * 7)
+  build.bind(lib, 'blockgru_stage_product', 7, [ctypes.c_int] * 9)
   build.bind(lib, 'blockgru_stage_wgrad', 3, [ctypes.c_int] * 4)
   build.bind(lib, 'blockgru_stage_product128', 6, [ctypes.c_int] * 9)
   return lib
@@ -313,41 +313,76 @@ def work_bwd(B, D, H, S, A, g, L=0, K=0):
   return 2 * weights + ins + 2 * B * (D + S + A + K), 3 * flops
 
 
-def reference_stage_product(x, w, trans=False):
+def reference_stage_product(x, w, trans=False, scale=None, x2=None,
+                            w2=None, scale2=None):
   """Plain version of `stage_product`, in float32 on the bf16-rounded
-  operands: (B, N)."""
+  operands (int8 weights are exact in bf16): (B, N)."""
   g = w.shape[0]
-  x = x.to(torch.bfloat16).float().reshape(x.shape[0], g, -1)
+  B = x.shape[0]
+  x = x.to(torch.bfloat16).float().reshape(B, g, -1)
   w = w.float().transpose(1, 2) if trans else w.float()
-  return torch.einsum('bgk,gkn->bgn', x, w).reshape(x.shape[0], -1)
+  out = torch.einsum('bgk,gkn->bgn', x, w).reshape(B, -1)
+  if scale is not None:
+    out = out * scale.reshape(-1).float()
+  if x2 is not None:
+    out2 = x2.to(torch.bfloat16).float() @ w2.float()
+    out = out + (out2 if scale2 is None else out2 * scale2.float())
+  return out
 
 
-def stage_product(x, w, trans=False, splits=0):
+def stage_product(x, w, trans=False, splits=0, scale=None, x2=None, w2=None,
+                  scale2=None):
   """The 16-row tensor-core product of csrc/blockgru_common.cuh on its own,
-  for the card tests. Block-diagonal in g = w.shape[0] groups: x (B, g K)
-  against w (g, K, N / g), or with `trans` x in float32 (rounded to bf16
-  as the backward stages it) against w (g, N / g, K) transposed. Returns
+  for the card tests and the smoke run. Block-diagonal in g = w.shape[0]
+  groups: x (B, g K) bf16 against w (g, K, N / g), plus x2 (B, K2) bf16
+  dense against w2 (K2, N) where given (as the hidden layer's x against
+  win). w and w2 are bf16, or int8 with their float32 column scales
+  `scale` ((N,) or (g, N / g), by flat column) and `scale2` (N,). With
+  `trans`, x is float32 (rounded to bf16 as the backward stages it)
+  against bf16 w (g, N / g, K) transposed, and no second segment. Returns
   the split partials (ns, B, N) in float32; `splits` <= 0 takes the
   stage's own split count."""
   g = w.shape[0]
   B, gK = x.shape
   K = w.shape[2] if trans else w.shape[1]
   N = g * (w.shape[1] if trans else w.shape[2])
+  K2 = 0 if x2 is None else x2.shape[1]
+  int8 = w.dtype == torch.int8
   if x.dtype != (torch.float32 if trans else torch.bfloat16):
     raise TypeError(f'x has dtype {x.dtype}')
-  if w.dtype != torch.bfloat16 or gK != g * K:
-    raise ValueError(f'x {tuple(x.shape)} does not fit w {tuple(w.shape)}')
-  check_widths(depth=K, columns=N // g)
+  if w.dtype not in (torch.bfloat16, torch.int8) or gK != g * K:
+    raise ValueError(f'x {tuple(x.shape)} does not fit w {tuple(w.shape)} '
+                     f'{w.dtype}')
+  if trans and (int8 or x2 is not None):
+    raise ValueError('the transposed product takes bf16 w, one segment')
+  if x2 is not None and (x2.dtype != torch.bfloat16 or x2.shape[0] != B or
+                         w2.dtype != w.dtype or w2.shape != (K2, N)):
+    raise ValueError(f'x2 {tuple(x2.shape)} does not fit w2 '
+                     f'{tuple(w2.shape)} {w2.dtype}')
+  for name, t in dict(x=x, w=w, scale=scale, x2=x2, w2=w2,
+                      scale2=scale2).items():
+    if t is not None and (t.device != x.device or x.device.type != 'cuda'):
+      raise ValueError(f'{name} on {t.device}, expected one CUDA device')
+  scales = [s for s in (scale, scale2) if s is not None]
+  if len(scales) != int8 * (1 + (x2 is not None)) or any(
+      s.dtype != torch.float32 or s.numel() != N for s in scales):
+    raise ValueError('int8 weights take float32 column scales, one for '
+                     'each of their N columns; bf16 weights none')
+  check_widths(depth=K, columns=N // g, depth2=K2)
   device = x.device
   lib = _lib()
   sms = _sms(device)
-  most = max(splits, -(-K // 64))
-  out = torch.zeros((most, B, N), dtype=torch.float32, device=device)
-  x, w = x.contiguous(), w.contiguous()
+  # Every split writes its part (an empty one zeros).
+  most = max(splits, -(-(K + K2) // 64))
+  out = torch.empty((most, B, N), dtype=torch.float32, device=device)
+  tensors = [t if t is None else t.contiguous()
+             for t in (x, w, scale, x2, w2, scale2)]
+  ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr())
+          for t in tensors]
   with torch.cuda.device(device):
     ns = lib.blockgru_stage_product(
-        *_ptrs([x, w, out]), int(trans), B, N, K, g, splits, sms,
-        _stream(device))
+        *ptrs, ctypes.c_void_p(out.data_ptr()), int(trans), int(int8), B, N,
+        K, K2, g, splits, sms, _stream(device))
   build.check(max(-ns, 0), 'blockgru_stage_product')
   return out[:ns]
 

@@ -15,19 +15,22 @@ time-major deter (T, B, D), one-hot stoch (T, B, L) and f32 logits
 (T, B, L). Forward only: no training path runs it.
 
 The kernel lives in csrc/qcore.cu: the bf16 window's forward
-(csrc/seq_common.cuh, window_fwd) on int8 weights, whose FMA stages load
-16 int8 weights per 16-byte load and apply the column scales to their
-sums (csrc/blockgru_common.cuh). At the default configuration's dims
-(D 8192, H 1024, L 2048, K 9216) the seven matrices hold 89 M weights:
-178 MB in bf16, 89 MB in int8, both beyond the H100's 50 MB L2, so every
-step streams them from device memory; int8 halves those bytes. The
-`nch` argument, the TPU kernel's column chunks (a bound on a VMEM
-temporary), changes nothing here: the result is the same for every value.
+(csrc/seq_common.cuh, window_fwd) on int8 weights, every product on the
+16-row tensor-core stage of csrc/blockgru_common.cuh, which streams the
+int8 tiles (16 weights per 16-byte load), forms exact bf16 fragments from
+them in registers and applies the column scales to its float32 sums. At
+the default configuration's dims (D 8192, H 1024, L 2048, K 9216) the
+seven matrices hold 89 M weights: 178 MB in bf16, 89 MB in int8, both
+beyond the H100's 50 MB L2, so every step streams them from device
+memory; int8 halves those bytes. The `nch` argument, the TPU kernel's
+column chunks (a bound on a VMEM temporary), changes nothing here: the
+result is the same for every value.
 
 `qobs_window` is the wrapper: a CPU tensor takes the plain version
 `reference_qobs_window`; a CUDA tensor launches the kernel or raises on a
-wrong device, dtype, shape or contiguity. It counts its launches in
-`.launches`.
+wrong device, dtype, shape or contiguity, or on widths the 16-byte int8
+loads do not take (H, D / g and so 3 D / g multiples of 16, checked with
+the weights' shapes). It counts its launches in `.launches`.
 """
 
 import ctypes

@@ -13,9 +13,10 @@ of 16), the second on them.
 
 The 16-row and the 128-row tensor-core products and the tensor-core
 weight gradient that every kernel's stages share are also held on their
-own against float32 matmul of the same bf16-rounded operands, and the
-window's backward and the 128-row stage are run twice for bit-equal
-results.
+own against float32 matmul of the same bf16-rounded operands (the 16-row
+stage also on int8 weights with column scales, kernel 9's products), and
+the window's backward, the int8 window and the 128-row stage are run
+twice for bit-equal results.
 
 Widths are multiples of 16, as the kernels take them, and deep enough
 that every matmul stage splits its contraction (2, 2 and 5 parts on a
@@ -116,6 +117,64 @@ def test_tensor_core_stage(card, B, trans, g, splits):
     assert parts.shape[0] > 1
   close(parts.sum(0), blockgru.reference_stage_product(x, w, trans),
         'product')
+
+
+# The int8 16-row stage's cases: (groups, depth K, columns per group, the
+# dense second segment's depth K2). 80 columns leave a ragged 128-column
+# tile, depths 320 and 192 ragged 128-deep chunks; the second segment has
+# scales of its own, as the hidden layer's x against win beside wblk.
+STAGE16_INT8 = dict(dense=(1, 320, 80, 0), grouped=(4, 320, 80, 0),
+                    two_segments=(4, 192, 80, 320))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('splits', [1, 3, 0])
+@pytest.mark.parametrize('case', sorted(STAGE16_INT8))
+@pytest.mark.parametrize('B', [1, 16, 40])
+def test_int8_tensor_core_stage(card, B, case, splits):
+  """The 16-row tensor-core stage on int8 weights with float32 column
+  scales (kernel 9's products) against float32 matmul of the same values,
+  in one split, three (uneven over five 128-deep chunks, one crossing
+  from the first segment into the second) or the stage's own count; and
+  the bf16 stage on the same values, whose sums it must match before the
+  scales."""
+  rng = np.random.default_rng(18)
+  g, K, gN, K2 = STAGE16_INT8[case]
+  N = g * gN
+  bf = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+                               device=card)
+  ints = lambda *s: torch.tensor(rng.integers(-127, 128, s),
+                                 dtype=torch.int8, device=card)
+  scales = lambda n: torch.tensor(1e-2 * rng.uniform(0.5, 1.5, n),
+                                  dtype=torch.float32, device=card)
+  x, w, scale = bf(B, g * K), ints(g, K, gN), scales(N)
+  second = dict(x2=bf(B, K2), w2=ints(K2, N), scale2=scales(N)) if K2 else {}
+  parts = blockgru.stage_product(x, w, False, splits, scale, **second)
+  assert parts.shape == (splits or parts.shape[0], B, N)
+  close(parts.sum(0), blockgru.reference_stage_product(x, w, False, scale,
+                                                       **second), case)
+  if not K2:
+    plain = blockgru.stage_product(x, w.to(torch.bfloat16), False, splits)
+    close(parts.sum(0), plain.sum(0) * scale, f'{case} against bf16')
+
+
+@pytest.mark.cuda
+def test_int8_tensor_core_stage_checks_its_operands(card):
+  """Int8 weights take float32 column scales, one per column, and the
+  forward product only; widths not multiples of 16 raise before any
+  launch."""
+  x = torch.zeros((16, 320), dtype=torch.bfloat16, device=card)
+  w = torch.zeros((1, 320, 80), dtype=torch.int8, device=card)
+  scale = torch.ones(80, device=card)
+  with pytest.raises(ValueError, match='column scales'):
+    blockgru.stage_product(x, w)
+  with pytest.raises(ValueError, match='column scales'):
+    blockgru.stage_product(x, w, scale=scale[:64])
+  with pytest.raises(ValueError, match='transposed'):
+    blockgru.stage_product(x.float(), w.reshape(1, 80, 320), True,
+                           scale=scale)
+  with pytest.raises(ValueError, match='columns width 72'):
+    blockgru.stage_product(x, w[:, :, :72].contiguous(), scale=scale[:72])
 
 
 # The 128-row stage's cases: (groups, depth K, columns per group, the
@@ -487,6 +546,21 @@ def test_int8_window(card):
 
 
 @pytest.mark.cuda
+def test_int8_window_is_deterministic(card):
+  """Kernel 9 gives the same bits in two calls on the same inputs: split
+  partials added in split order, no atomics."""
+  rng = np.random.default_rng(19)
+  C = SEQ['C']
+  params, *ins = seq_case(rng, card, **SEQ)
+  qparams, scales = qcore.quantize_params(params)
+  with torch.no_grad():
+    first = qcore.qobs_window(*ins, qparams, scales, C)
+    again = qcore.qobs_window(*ins, qparams, scales, C)
+  for a, b in zip(first, again):
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_int8_window_raises_rather_than_fall_back(card):
   rng = np.random.default_rng(12)
   C = SEQ['C']
@@ -505,6 +579,13 @@ def test_int8_window_raises_rather_than_fall_back(card):
   with pytest.raises(ValueError, match='CUDA'):
     qcore.qobs_window(deter0, stoch0, acts, toks, keep, gum, qparams,
                       dict(scales, wg=scales['wg'].cpu()), C)
+  # Widths the 16-byte int8 loads do not take: the hidden width H and the
+  # GRU block D / g (and so 3 D / g) not multiples of 16.
+  for dims, message in ((dict(H=24), 'w0 width 24'),
+                        (dict(G=32), 'wblk width 8')):
+    bad, *bad_ins = seq_case(rng, card, **dict(SEQ, **dims))
+    with pytest.raises(ValueError, match=message):
+      qcore.qobs_window(*bad_ins, *qcore.quantize_params(bad), C)
   assert qcore.qobs_window.launches == before
 
 

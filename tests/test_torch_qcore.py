@@ -7,6 +7,9 @@ tensors. Shapes are those of tests/test_ops_seq.py. Tolerances, float32:
 quantization bit for bit; the window 2e-4 on deter and 2e-3 on the
 logits, as tests/test_ops_qcore.py holds the JAX kernel to its reference
 (the logits sum over the hidden width in another order); samples equal.
+The plain version of the int8 tensor-core stage (ops/blockgru.py
+reference_stage_product on int8 weights with column scales) is held
+against the JAX kernel's _qmm within 1e-5.
 """
 
 import jax.numpy as jnp
@@ -16,13 +19,16 @@ import torch
 
 from embodied_tpu.ops import observe_seq as jobserve
 from embodied_tpu.ops import qcore as jqcore
-from embodied_tpu_torch.ops import observe_seq, qcore
+from embodied_tpu_torch.ops import blockgru, observe_seq, qcore
 
 from test_ops_seq import A, C, D, G, H, K, S, T, B, make_inputs, make_params
 
 L = S * C
 DETER_TOL = 2e-4
 LOGIT_TOL = 2e-3
+# The plain int8 stage against the JAX _qmm: float32 sums of the same
+# exact products (int8 values are exact in bf16) in another order.
+STAGE_TOL = 1e-5
 
 
 def gumbel(seed):
@@ -152,3 +158,44 @@ def test_work_counts_each_int8_weight_once():
   # The scales' shapes cover every column of their matrix once.
   shapes = qcore.scale_shapes(D, H, L, G)
   assert sum(int(np.prod(s)) for s in shapes.values()) == columns
+
+
+# The int8 stage's cases: (groups, depth, columns per group, the depth of a
+# dense second segment with scales of its own, as the hidden layer's x
+# against win beside wblk's blocks).
+STAGE_CASES = dict(dense=(1, 96, 64, 0), grouped=(4, 48, 32, 0),
+                   two_segments=(4, 48, 32, 80))
+
+
+@pytest.mark.parametrize('nch', [1, 4])
+@pytest.mark.parametrize('case', sorted(STAGE_CASES))
+@pytest.mark.parametrize('seed', [0, 1])
+def test_int8_stage_matches_the_jax_qmm(seed, case, nch):
+  """The plain int8 stage, whose products the card's tensor-core stage
+  forms, against JAX _qmm on the same bf16 rows, int8 weights and column
+  scales: one _qmm per block for grouped weights, as _q_step runs wblk
+  and wg, plus one for the dense segment, as it runs win."""
+  g, K, gN, K2 = STAGE_CASES[case]
+  rng = np.random.default_rng(seed)
+  B, N = 16, g * gN
+  rows = lambda *s: np.asarray(jnp.asarray(
+      rng.standard_normal(s), jnp.bfloat16).astype(jnp.float32))
+  ints = lambda *s: rng.integers(-127, 128, s).astype(np.int8)
+  scales = lambda *s: (1e-2 * rng.uniform(0.5, 1.5, s)).astype(np.float32)
+  x, q, scale = rows(B, g * K), ints(g, K, gN), scales(g, gN)
+  jbf = lambda a: jnp.asarray(a, jnp.bfloat16)
+  want = jnp.concatenate([
+      jqcore._qmm(jbf(x[:, b * K:(b + 1) * K]), jnp.asarray(q[b]),
+                  jnp.asarray(scale[b]), nch) for b in range(g)], -1)
+  second = {}
+  if K2:
+    x2, q2, scale2 = rows(B, K2), ints(K2, N), scales(N)
+    want = want + jqcore._qmm(jbf(x2), jnp.asarray(q2), jnp.asarray(scale2),
+                              nch)
+    second = dict(x2=torch.tensor(x2).to(torch.bfloat16),
+                  w2=torch.tensor(q2), scale2=torch.tensor(scale2))
+  got = blockgru.reference_stage_product(
+      torch.tensor(x).to(torch.bfloat16), torch.tensor(q),
+      scale=torch.tensor(scale), **second)
+  assert got.shape == (B, N) and got.dtype == torch.float32
+  close(got, want, STAGE_TOL, case)
