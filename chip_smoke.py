@@ -59,17 +59,40 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
   default  the default configuration (no preset, 202,982,304 parameters):
            policy calls, Agent.train steps with the losses against
            kernel: off and a profile, and main.main with the process
-           driver (train steps, a report and a save).
-  script   the port's `train` script, main.main([...]) in-process, on
-           size12m with 16 dummy_disc envs and the default process
-           driver: it trains, reports, logs and saves, then runs again on
-           the same logdir and must resume from the checkpoint.
+           driver, script train and script train_eval (train steps,
+           reports, eval episodes and a save).
+  latents  the device-resident latent table at the default configuration
+           and at size12m: the table's slots, bytes and regions; policy
+           calls on the table path and on the host path (latents in the
+           batch) from one store, the table's rows at the returned slots
+           equal to the host path's latents bit for bit; the first train
+           step from those slots against the host path (losses,
+           latents/valid, the refreshed rows), and with stale generations;
+           then train steps in turns, (a) the host path (the phases
+           above), (b) the defaults (the table, fetch_depth 3, batches
+           through agent.stream) and (c) the defaults on numpy batches:
+           ms per step, the card's busy time and idle share, the bytes
+           that cross per step, and where the host waited for the card.
+           It runs after qcore and before default.
+  script   the port's `train` and `train_eval` scripts, main.main([...])
+           in-process, on size12m with 16 dummy_disc envs and the default
+           process driver: each trains, reports, logs and saves, then runs
+           again on the same logdir and must resume from the checkpoint;
+           train_eval also runs eval episodes and eval reports. Then
+           eval_only from the train_eval checkpoint, with the DreamerV3
+           agent and with the random agent.
+
+The phases slice, train, modes and default run the host path
+(HOST_PATH: torch.latent_slots 0, fetch_depth 0), on which each train
+call returns its own step and can be held against the plain path; the
+latents phase and the scripts run the defaults.
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
 The script imports nothing of JAX or of the JAX package.
 """
 
+import gc
 import json
 import math
 import os
@@ -112,6 +135,12 @@ MINSTD, MAXSTD = 0.1, 1.0
 # and a near-tie sample that flips moves the rest of its sequence. Sound
 # kernels read within 0.05%.
 LOSS_RTOL = 5e-3
+# The phases slice, train, modes and default run the host path: the
+# latents ride the batch (no latent table), and each train call returns
+# its own step's results (no fetch pipeline), so a step can be held
+# against the plain path on the same batch. Phase latents and the
+# script runs take the defaults (the table, fetch_depth 3, prefetching).
+HOST_PATH = ['--torch.latent_slots', '0', '--torch.fetch_depth', '0']
 
 
 def emit(**fields):
@@ -994,7 +1023,7 @@ def drive(argv, calls, modes):
   from embodied_tpu_torch import core
   from embodied_tpu_torch.models import common
   from embodied_tpu_torch.models.dreamerv3 import main
-  config = common.assemble_config(main.CONFIGS, argv)
+  config = common.assemble_config(main.CONFIGS, argv + HOST_PATH)
   agent = main.make_agent(config)
   driver = core.Driver(
       [lambda i=i: common.make_env(config, i) for i in range(ENVS)],
@@ -1112,13 +1141,14 @@ def phase_slice(torch, paths=SLICE_PATHS):
   return launches
 
 
-def collect_batch(agent, config):
+def collect_batch(agent, config, policy=None, init_policy=None):
   """One (batch_size, batch_length + replay_context) train batch collected
   by the acting path: a Driver over batch_size dummy envs with the agent's
-  policy, each env's steps in order as the replay stores them
-  (observation, action, the policy's latents), plus a `consec` of 0 (every
-  window starts fresh and grafts its stored latents) and unique stepids."""
-  import numpy as np
+  policy (or `policy`, from `init_policy`'s carry), each env's steps in
+  order as the replay stores them (observation, action, the policy's
+  latents or slots), plus a `consec` of 0 (every window starts fresh and
+  grafts its stored latents) and unique stepids. Returns the batch and the
+  rows it was cut from."""
   from embodied_tpu_torch import core
   from embodied_tpu_torch.models import common
   B = config.batch_size
@@ -1128,9 +1158,16 @@ def collect_batch(agent, config):
       parallel=False)
   rows = [[] for _ in range(B)]
   driver.on_step(lambda row, i, **kw: rows[i].append(row))
-  driver.reset(agent.init_policy)
-  driver(agent.policy, steps=B * T)
+  driver.reset(init_policy or agent.init_policy)
+  driver(policy or agent.policy, steps=B * T)
   driver.close()
+  return batch_from_rows(agent, rows, T), rows
+
+
+def batch_from_rows(agent, rows, T):
+  """The train batch of `agent`'s replay keys from per-env rows."""
+  import numpy as np
+  B = len(rows)
   data = agent._example_batch(B, T)
   filled = set()
   for key in data:
@@ -1183,7 +1220,8 @@ def check_losses(kernel, plain):
 
 
 def profile_train(torch, agent, carry, data, step_ms, steps=2):
-  """Device time of train steps from torch.profiler: busy time (the union
+  """Device time of train steps from torch.profiler (`data` a batch, or a
+  function that returns the next one): busy time (the union
   of kernel intervals), the port's kernels (namespaces seq:: and
   blockgru::) and the largest other kernels. The idle share is taken
   against `step_ms`, the step time without the profiler, whose own host
@@ -1193,7 +1231,7 @@ def profile_train(torch, agent, carry, data, step_ms, steps=2):
   start = time.perf_counter()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     for _ in range(steps):
-      carry, _, _ = agent.train(carry, data)
+      carry, _, _ = agent.train(carry, data() if callable(data) else data)
     torch.cuda.synchronize()
   wall = (time.perf_counter() - start) * 1e3 / steps
   spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -1228,9 +1266,10 @@ def phase_train(torch, paths=TRAIN_PATHS):
   wrappers = train_wrappers()
   launches = {}
   for label, argv, warmup, steps, against_plain in paths:
+    argv = argv + HOST_PATH
     config = common.assemble_config(dmain.CONFIGS, argv)
     agent = dmain.make_agent(config)
-    data = collect_batch(agent, config)
+    data, _ = collect_batch(agent, config)
     B, T = config.batch_size, config.batch_length
     carry = agent.init_train(B)
     before = agent.save()
@@ -1339,10 +1378,11 @@ def phase_modes(torch, modes=MODES):
   counts = lambda: {k: w.launches for k, w in wrappers.items()}
   launches = {}
   for label, flags, per_step, per_report in modes:
-    argv = ['--configs', 'size12m', '--task', 'dummy_disc'] + flags
+    argv = ['--configs', 'size12m', '--task', 'dummy_disc'] + flags + (
+        HOST_PATH)
     config = common.assemble_config(dmain.CONFIGS, argv)
     agent = dmain.make_agent(config)
-    data = collect_batch(agent, config)
+    data, _ = collect_batch(agent, config)
     B = config.batch_size
     carry = agent.init_train(B)
     before = agent.save()
@@ -1419,28 +1459,50 @@ def phase_modes(torch, modes=MODES):
 # The train script's runs: (label, flags, env steps of each run on one
 # logdir, the log and report interval and the save interval in seconds).
 # Each run goes through the default process driver with ENVS envs.
+SIZE12M = ['--configs', 'size12m', '--run.envs', str(ENVS)]
 SCRIPTS = (
-    # size12m, then again to more steps: the second run resumes.
-    ('size12m', ['--configs', 'size12m', '--run.envs', str(ENVS)],
-     (3000, 4500), 2, 2),
+    # size12m, then again to more steps: the second run resumes. Then
+    # train_eval the same way, with its 4 eval envs and eval replay; an
+    # evaluation (an eval episode and two reports) takes some 2 s, so it
+    # comes every 6 s.
+    ('size12m', SIZE12M, (3000, 4500), 2, 2),
+    ('size12m train_eval', SIZE12M + ['--script', 'train_eval'],
+     (3000, 4500), 6, 2),
 )
-# The default configuration (no preset), once: train steps begin after
-# some 2,100 env steps fill the replay. A save writes its 2.4 GB of
-# parameters and optimizer slots (5-10 s), so saves come less often than
-# at size12m, or they would take the run (a save due while one runs
-# starts at once), but often enough that one fires in a loop of some 20 s.
-DEFAULT_SCRIPT = ('default', [], (4000,), 10, 12)
+# The default configuration (no preset), once each: train steps begin
+# after some 2,100 env steps fill the replay. A save writes its 2.4 GB of
+# parameters and optimizer slots (5-9 s), and the next save's interval
+# starts when one starts, so an interval near a save's time saves again
+# at almost every poll (10 s took 114 s for 4,500 steps); 20 s lets one
+# save fire in the loop of 6,500 steps (some 25 s: 145 train steps of
+# 133-160 ms) and rarely a second. Reports (some 2 s each) and evaluations
+# come at the same interval.
+DEFAULT_SCRIPTS = (
+    ('default', [], (6500,), 20, 20),
+    ('default train_eval', ['--script', 'train_eval'], (6500,), 20, 20),
+)
+# eval_only from the size12m train_eval run's checkpoint: (label, flags).
+# 1,700 env steps over ENVS envs end each env's first 100-step episode.
+EVAL_ONLY = (
+    ('size12m eval_only', SIZE12M),
+    ('size12m eval_only, random agent', SIZE12M + ['--random_agent', 'True']),
+)
+EVAL_ONLY_STEPS = 1700
 
 
 def phase_script(torch, scripts=SCRIPTS):
-  """The train script in-process on each configuration, with the launch
-  counts set to 0 before each run and read after, on a logdir under
-  build/; where a configuration runs twice, the second run must load the
-  checkpoint and continue the step counter. The log, report and save
-  intervals are short enough that each fires in each run; the report's
-  results are read as the script computes them, and the transport of
-  every driver the script makes is recorded. Returns each configuration's
-  launches."""
+  """The train and train_eval scripts in-process on each configuration,
+  with the launch counts set to 0 before each run and read after, on a
+  logdir under build/; where a configuration runs twice, the second run
+  must load the checkpoint and continue the step counter. The log, report
+  and save intervals are short enough that each fires in each run; the
+  report's results are read as the script computes them, and the
+  transport of every driver the script makes is recorded. Each run keeps
+  its latents on the card (the default latent table): the checkpoint
+  holds the slot allocator, and the logged latents/valid lies in [0, 1].
+  A train_eval run must log eval episodes and eval reports, and allocate
+  eval slots; after the size12m train_eval runs, eval_only runs from their
+  checkpoint (phase_eval_only). Returns each configuration's launches."""
   import pickle
   import shutil
   from embodied_tpu_torch.models.dreamerv3 import main as dmain
@@ -1457,8 +1519,11 @@ def phase_script(torch, scripts=SCRIPTS):
     return mets
 
   def made(*args):
-    drivers.append(make_driver(*args))
-    return drivers[-1]
+    # The transport only: a driver holds its callbacks, and with them the
+    # agent, which must go when its run ends.
+    driver = make_driver(*args)
+    drivers.append(driver.parallel)
+    return driver
   loop.Reporter.__call__ = recorded
   loop.make_driver = made
   launches = {}
@@ -1471,6 +1536,8 @@ def phase_script(torch, scripts=SCRIPTS):
       for wrapper in wrappers.values():
         wrapper.launches = 0
       nreports = len(reports)
+      gc.collect()  # the agents of earlier runs
+      torch.cuda.empty_cache()
       argv = ['--task', 'dummy_disc', *flags, '--logdir', logdir,
               '--run.steps', str(steps), '--run.log_every', str(every),
               '--run.report_every', str(every), '--run.save_every',
@@ -1487,11 +1554,14 @@ def phase_script(torch, scripts=SCRIPTS):
       # ENVS envs a tick at a time until it reaches `steps`, so a save
       # after the last tick may hold up to ENVS - 1 steps more.
       step, counters = int(saved['step']), saved['agent']['counters']
+      slots = saved['agent'].get('latents', {}).get('counters')
       del saved
+      valid = [l['train/latents/valid'] for l in lines
+               if 'train/latents/valid' in l]
       first = previous['step'] if previous else 0
       row = dict(
           phase='script', config=label, argv=argv, wall_s=wall,
-          driver=drivers[-1].parallel, checkpoint_step=step,
+          driver=drivers[-1], checkpoint_step=step,
           resumed_from_step=previous and previous['step'],
           env_steps_per_s=(steps - first) / wall,
           train_steps=counters['train'] - (
@@ -1502,7 +1572,19 @@ def phase_script(torch, scripts=SCRIPTS):
           report_keys=reports[-1] if len(reports) > nreports else None,
           logged_report_keys=len({k for l in lines for k in l
                                   if k.startswith('report/')}),
+          latent_slot_counters=slots, latents_valid=valid,
           peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+      if '--script' in flags:
+        row.update(
+            eval_episodes=sum('eval_episode/score' in l for l in lines),
+            logged_eval_keys=len({k for l in lines for k in l
+                                  if k.startswith('eval/')}))
+        if not row['eval_episodes'] or not row['logged_eval_keys']:
+          problems.append('no eval episodes or eval reports were logged')
+        if not (slots or {}).get('eval'):
+          problems.append(f'no eval slots were allocated: {slots}')
+      if not slots or not valid or not all(0 <= v <= 1 for v in valid):
+        problems.append(f'the latent table: slots {slots}, valid {valid}')
       if row['driver'] != 'process':
         problems.append(f'the script stepped its envs by {row["driver"]}')
       if not first < step < steps + ENVS:
@@ -1526,10 +1608,303 @@ def phase_script(torch, scripts=SCRIPTS):
     if problems:
       fail('script', f'{label}: ' + '; '.join(problems))
     launches[label] = rows[-1]['launches']
+    if label == 'size12m train_eval':
+      phase_eval_only(torch, os.path.join(logdir, 'checkpoint.pkl'))
     shutil.rmtree(logdir, ignore_errors=True)
     torch.cuda.empty_cache()
   loop.Reporter.__call__ = reporter_call
   loop.make_driver = make_driver
+  return launches
+
+
+def phase_eval_only(torch, checkpoint, runs=EVAL_ONLY):
+  """eval_only in-process from `checkpoint`, with the launch counts set to
+  0 before each run and read after: it must load the checkpoint, log
+  episodes, launch no train kernel and save nothing; the DreamerV3 agent
+  acts through the observe-step kernel, the random agent through none."""
+  import contextlib
+  import io
+  import shutil
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  wrappers = train_wrappers()
+  for label, flags in runs:
+    logdir = os.path.join(ROOT, 'build', 'chip_smoke_eval_only')
+    shutil.rmtree(logdir, ignore_errors=True)
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    argv = ['--task', 'dummy_disc', *flags, '--script', 'eval_only',
+            '--run.from_checkpoint', checkpoint, '--logdir', logdir,
+            '--run.steps', str(EVAL_ONLY_STEPS), '--run.log_every', '2']
+    out = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+      dmain.main(argv)
+    wall = time.perf_counter() - start
+    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+      lines = [json.loads(line) for line in f]
+    random = '--random_agent' in flags
+    launches = {k: w.launches for k, w in wrappers.items()}
+    row = dict(
+        phase='script', config=label, argv=argv, wall_s=wall,
+        env_steps_per_s=EVAL_ONLY_STEPS / wall, launches=launches,
+        loaded='Loading checkpoint' in out.getvalue(),
+        episodes=sum('episode/score' in l for l in lines),
+        saved=os.path.exists(os.path.join(logdir, 'checkpoint.pkl')))
+    problems = []
+    if not row['loaded'] or row['saved'] or not row['episodes']:
+      problems.append(f'loaded {row["loaded"]}, saved {row["saved"]}, '
+                      f'{row["episodes"]} episodes')
+    acted = launches['obs_step']
+    if any(launches[k] for k in TRAIN_KERNELS) or bool(acted) == random:
+      problems.append(f'launches {launches}')
+    emit(**row, ok=not problems)
+    if problems:
+      fail('script', f'{label}: ' + '; '.join(problems))
+    shutil.rmtree(logdir, ignore_errors=True)
+
+
+# The latent table's path (phase latents): (label, argv, timed steps in
+# each turn). Each runs the defaults (the table, torch.fetch_depth 3, the
+# prefetching `agent.stream`) beside the host path (HOST_PATH, the path of
+# the phases before it) on the same store, observations and noise.
+LATENT_PATHS = (
+    ('default', ['--task', 'dummy_disc'], 5),
+    ('size12m', ['--configs', 'size12m', '--task', 'dummy_disc'], 8),
+)
+# (a), (b), (a), (b), ...: host path, then table path. The host's clock
+# drifts by 10% and more between turns on a shared host, so each (b) is
+# compared with the (a) just before it.
+TURNS = 4
+TURN_WARMUP = 2
+SYNC_STEPS = 3
+STALE = (1, 5)  # windows whose context step carries an older generation
+
+
+def set_fetch_depth(agent, depth):
+  """A fresh fetch pipeline of `depth`: 0 while the table path is held
+  against the host path step by step, the configured depth for timing."""
+  agent._pending_train.clear()
+  agent._fetched_train = None
+  agent._fetch_depth = depth
+
+
+def nbytes_in(data):
+  return sum(v.nbytes for v in data.values())
+
+
+def nbytes_out(outs, mets):
+  """Bytes a train call brought back: its outputs and metrics (scalars
+  cross as float32)."""
+  return sum(v.nbytes for value in outs.values() for v in value.values()) + (
+      sum(4 if isinstance(v, float) else v.nbytes for v in mets.values()))
+
+
+def sync_sites(torch, fn):
+  """Where `fn` made the host wait for the card, by
+  torch.cuda.set_sync_debug_mode('warn'): {file:line: count}."""
+  import warnings
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('warn')
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      fn()
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  sites = {}
+  for w in caught:
+    if 'synchroniz' in str(w.message):
+      site = f'{os.path.relpath(w.filename, ROOT)}:{w.lineno}'
+      sites[site] = sites.get(site, 0) + 1
+  return sites
+
+
+def phase_latents(torch, paths=LATENT_PATHS):
+  """The latent table at each configuration, through the entry points a
+  user calls. Two agents on one store: the table path (the defaults) and
+  the host path. They act together on the same observations of ENVS dummy
+  envs for batch_length + replay_context calls; after each call the
+  table's rows at the returned slots must equal the host path's packed
+  latents bit for bit. The first train step on a batch of those steps
+  (slots on the table path, the latents as columns on the host path) must
+  give the same losses within LOSS_RTOL, latents/valid 1, and table rows
+  at the trained steps equal to the host path's refreshed latents; a
+  batch with stale generations at the context step of windows STALE must
+  give latents/valid below 1 and the host path's losses with
+  is_first[:, K] set there. Then train steps in TURNS turns, each turn a
+  path's steps ended by one synchronize: (a) the host path on numpy
+  batches, (b) the defaults, batches through agent.stream, (c) the
+  defaults on numpy batches; each with the card's busy time from a
+  profile, the bytes that cross per step, and where the host waited for
+  the card. Returns the launches of the default configuration's table
+  path: the policy calls' and the train steps' of mode (b)."""
+  import numpy as np
+  from embodied_tpu_torch.core import streams
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  wrappers = train_wrappers()
+  counts = lambda: {k: w.launches for k, w in wrappers.items()}
+  launches = {}
+  for label, argv, steps in paths:
+    problems = []
+    began = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    config = common.assemble_config(dmain.CONFIGS, argv)
+    table = dmain.make_agent(config)
+    host = dmain.make_agent(
+        common.assemble_config(dmain.CONFIGS, argv + HOST_PATH))
+    host.load(table.save())
+    depth = int(config.torch.fetch_depth)
+    set_fetch_depth(table, 0)
+    lat = table._latents
+    keys = table._latent_keys
+    row = dict(phase='latents', config=label, argv=argv,
+               slots=lat.capacity, table_bytes=lat.nbytes,
+               bytes_per_slot=lat.bytes_per_slot(lat.spaces),
+               regions={k: [lat.bases[k], lat.spans[k]] for k in lat.spans})
+    stats = dict(calls=0, differ=0, act_differ=0, launches=0)
+
+    def both(carry, obs, mode='train'):
+      tcarry, hcarry = carry
+      before = wrappers['obs_step'].launches
+      tcarry, act, out = table.policy(tcarry, obs, mode)
+      stats['launches'] += wrappers['obs_step'].launches - before
+      hcarry, hact, hout = host.policy(hcarry, obs, mode)
+      got = lat.gather(torch.from_numpy(out['slot']).to(table.device))
+      stats['calls'] += 1
+      stats['differ'] += any(
+          not np.array_equal(got[k].cpu().numpy(), hout[k]) for k in keys)
+      stats['act_differ'] += any(
+          not np.array_equal(act[k], hact[k]) for k in act)
+      return (tcarry, hcarry), act, dict(out, **{k: hout[k] for k in keys})
+
+    tdata, rows = collect_batch(
+        table, config, both,
+        lambda B: (table.init_policy(B), host.init_policy(B)))
+    B, T = tdata['is_first'].shape
+    K = config.replay_context
+    hdata = batch_from_rows(host, rows, T)
+    row.update(policy_calls=stats['calls'], rows_differ=stats['differ'],
+               actions_differ=stats['act_differ'])
+    if stats['differ'] or stats['act_differ']:
+      problems.append(f'{stats["differ"]} calls wrote rows and '
+                      f'{stats["act_differ"]} chose actions off the host path')
+    if stats['launches'] != stats['calls']:
+      problems.append(f'obs_step launched {stats["launches"]} times in '
+                      f'{stats["calls"]} table-path calls')
+    if len(np.unique(tdata['slot'])) != B * T:
+      problems.append('the batch repeats a slot')
+    # The first step on both paths, same store and noise.
+    before = table.save()
+    _, touts, tmets = table.train(table.init_train(B), tdata)
+    _, houts, hmets = host.train(host.init_train(B), hdata)
+    losses, bad = check_losses(tmets, hmets)
+    refreshed = lat.gather(torch.from_numpy(tdata['slot'][:, K:]).to(
+        table.device))
+    off = {k: int((refreshed[k].cpu().numpy() != houts['replay'][k]).sum())
+           for k in keys}
+    row.update(losses_table_vs_host=losses, latents_valid=tmets[
+        'latents/valid'], refreshed_rows_differ=off, loss_rtol=LOSS_RTOL)
+    if bad:
+      problems.append(f'losses off the host path: {bad}')
+    if tmets['latents/valid'] != 1.0:
+      problems.append(f'latents/valid {tmets["latents/valid"]} on fresh slots')
+    if any(off.values()) or 'replay' in touts:
+      problems.append(f'refreshed latents off the host path: {off}')
+    # Stale generations at the context step of windows STALE.
+    table.load(before)
+    host.load(before)
+    stale = dict(tdata, slotgen=tdata['slotgen'].copy())
+    stale['slotgen'][list(STALE), K - 1] += 1
+    reset = dict(hdata, is_first=hdata['is_first'].copy())
+    reset['is_first'][list(STALE), K] = True
+    _, _, smets = table.train(table.init_train(B), stale)
+    _, _, rmets = host.train(host.init_train(B), reset)
+    losses, bad = check_losses(smets, rmets)
+    row.update(stale_windows=list(STALE), stale_latents_valid=smets[
+        'latents/valid'], stale_losses_table_vs_host=losses)
+    if not smets['latents/valid'] < 1 or bad:
+      problems.append(f'stale slots: valid {smets["latents/valid"]}, '
+                      f'losses off the host path {bad}')
+    # Turns: (a) the host path on numpy batches, (b) the defaults.
+    set_fetch_depth(table, depth)
+    # A finite source: its prefetch thread ends with it, and lets go of
+    # the agent.
+    total = TURN_WARMUP + TURNS * steps + 2 + SYNC_STEPS
+    stream = iter(table.stream(streams.Stateless(iter([tdata] * total))))
+    # (c): the table and the fetch pipeline on numpy batches, which parts
+    # the prefetch thread's share from the rest of (b).
+    paths = dict(a=(host, lambda: hdata), b=(table, lambda: next(stream)),
+                 c=(table, lambda: tdata))
+    state = {mode: dict(carry=paths[mode][0].init_train(B), steps=0,
+                        launches={k: 0 for k in TRAIN_KERNELS})
+             for mode in paths}
+
+    def run(mode, n=0, fn=None):
+      """n train steps of `mode`, or `fn` on it, counting its steps and
+      its launches of the train kernels."""
+      agent, data = paths[mode]
+      st = state[mode]
+      before = counts()
+      if fn is None:
+        for _ in range(n):
+          st['carry'], outs, mets = agent.train(st['carry'], data())
+        st['out_bytes'] = nbytes_out(outs, mets)
+      else:
+        st['carry'], result = fn(agent, st['carry'], data)
+      st['steps'] += n
+      for k in TRAIN_KERNELS:
+        st['launches'][k] += wrappers[k].launches - before[k]
+      return None if fn is None else result
+
+    for mode in paths:
+      run(mode, TURN_WARMUP)
+    times = {mode: [] for mode in paths}
+    for _ in range(TURNS):
+      for mode in paths:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run(mode, steps)
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - start) * 1e3 / steps)
+    modes = {}
+    for mode, name in (
+        ('a', 'host path, fetch_depth 0, numpy batches'),
+        ('b', f'latent table, fetch_depth {depth}, agent.stream'),
+        ('c', f'latent table, fetch_depth {depth}, numpy batches')):
+      ms = statistics.median(times[mode])
+      profile = run(mode, 2, lambda agent, carry, data: profile_train(
+          torch, agent, carry, data, ms, steps=2))
+      sites = sync_sites(torch, lambda: run(mode, SYNC_STEPS))
+      st = state[mode]
+      modes[mode] = dict(
+          path=name, ms_per_train_step=ms, turns_ms=times[mode],
+          busy_ms_per_step=profile['busy_ms_per_step'],
+          idle_share=profile['idle_share'],
+          kernels_per_step=profile['kernels_per_step'],
+          host_to_card_bytes=nbytes_in(hdata if mode == 'a' else tdata),
+          card_to_host_bytes=st['out_bytes'],
+          syncs_per_step=sum(sites.values()) / SYNC_STEPS, sync_sites=sites,
+          train_steps=st['steps'], launches=st['launches'])
+      if any(v != st['steps'] for v in st['launches'].values()):
+        problems.append(f'mode {mode}: {st["steps"]} steps launched '
+                        f'{st["launches"]}')
+    row.update(modes=modes, step_ratio_b_over_a=(
+        modes['b']['ms_per_train_step'] / modes['a']['ms_per_train_step']),
+        step_ratio_b_over_a_by_turn=[
+            b / a for a, b in zip(times['a'], times['b'])],
+        step_ratio_c_over_a_by_turn=[
+            c / a for a, c in zip(times['a'], times['c'])],
+        peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+        seconds=time.perf_counter() - began)
+    if label == 'default':
+      launches = dict(obs_step=stats['launches'], **state['b']['launches'])
+    row['ok'] = not problems
+    emit(**row)
+    if problems:
+      fail('latents', f'{label}: ' + '; '.join(problems))
+    del table, host, stream, paths
+    torch.cuda.empty_cache()
   return launches
 
 
@@ -1553,7 +1928,7 @@ def phase_default(torch):
   launches = phase_slice(torch, DEFAULT_SLICE)
   trained = phase_train(torch, DEFAULT_TRAIN)[DEFAULT_TRAIN[0][0]]
   launches.update({k: trained[k] for k in TRAIN_KERNELS})
-  phase_script(torch, (DEFAULT_SCRIPT,))
+  phase_script(torch, DEFAULT_SCRIPTS)
   emit(phase='default', ok=True, launches=launches)
   return launches
 
@@ -1593,7 +1968,12 @@ def main():
   # This slice's paths: kernel 9 on the int8 window's validation, kernels
   # 3, 5, 6 and 8 on the default configuration.
   launches['qobs_window'] = phase_qcore(torch)
+  # The default configuration as it runs by default: its policy calls and
+  # train steps on the latent table (their launches, in place of those of
+  # the default phase's host path).
+  table_launches = phase_latents(torch)
   launches.update(phase_default(torch))
+  launches.update(table_launches)
   phase_script(torch)
   kernels = []
   for row in rows:

@@ -1,8 +1,10 @@
 """Wall-clock schedules.
 
 The LocalClock of embodied_tpu/core/clock.py (every=0 disables, negative
-fires always). The cluster-wide GlobalClock serves the multi-replica
-scripts, which come in a later slice.
+fires always), and its GlobalClock in the single-process form: without a
+decision server it is a LocalClock. The decision server that keeps
+replicas' decisions identical comes with the distribution slice
+(ROADMAP.md §1, item 9); `setup` raises for more than one replica.
 """
 
 import time
@@ -30,3 +32,23 @@ class LocalClock:
       self.armed_at = now
       return True
     return False
+
+
+def setup(is_server, replica, replicas, port, addr):
+  """Connect the replicas to one decision server: nothing to do for one
+  replica; more than one raises."""
+  if replicas > 1:
+    raise NotImplementedError(
+        f'GlobalClock across {replicas} replicas needs the decision server, '
+        'which comes with the distribution slice (ROADMAP.md §1, item 9).')
+
+
+class GlobalClock:
+  """Cluster-consistent clock. With one replica, the only form so far, it
+  decides as a LocalClock."""
+
+  def __init__(self, every, first=False):
+    self.local = LocalClock(every, first)
+
+  def __call__(self, step=None, skip=None):
+    return self.local(step, skip)

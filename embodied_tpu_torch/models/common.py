@@ -5,8 +5,8 @@ config view, the replay, stream and logger factories, and script
 dispatch.
 
 A copy of embodied_tpu/models/common.py with the scripts, envs and outputs
-the port has: the single-host `train` script (the others raise), the
-Dummy env.
+the port has: the single-host scripts `train`, `train_eval` and
+`eval_only` (the `parallel` scripts and `pretrain` raise), the Dummy env.
 """
 
 import importlib
@@ -43,8 +43,8 @@ def assemble_config(configs_path, argv=None):
 
 
 # The JAX package's scripts that wait for later slices of the port.
-LATER_SCRIPTS = ('train_eval', 'eval_only', 'pretrain', 'parallel',
-                 'parallel_env', 'parallel_envs', 'parallel_replay')
+LATER_SCRIPTS = ('parallel', 'parallel_env', 'parallel_envs',
+                 'parallel_replay')
 
 
 def run_script(config, make_agent_fn):
@@ -55,8 +55,17 @@ def run_script(config, make_agent_fn):
   if config.script in LATER_SCRIPTS:
     raise NotImplementedError(
         f'Script {config.script!r} is not ported yet; it comes in a later '
-        'slice of the port. The port runs script: train.')
-  if config.script != 'train':
+        'slice of the port. The port runs the scripts train, train_eval '
+        'and eval_only.')
+  if config.script == 'pretrain':
+    # The JAX package hands run.pretrain make_stream, which needs a replay
+    # that pretrain never gives it; the source of offline batches is the
+    # dataset reader (data/bag.py), which the port does not have yet.
+    # run.pretrain itself runs on a stream the caller gives.
+    raise NotImplementedError(
+        'Script pretrain needs the dataset reader (data/bag.py), which is '
+        'not ported yet; call run.pretrain with a stream of batches.')
+  if config.script not in ('train', 'train_eval', 'eval_only'):
     raise NotImplementedError(config.script)
   logdir.mkdir()
   config.save(logdir / 'config.yaml')
@@ -74,13 +83,30 @@ def run_script(config, make_agent_fn):
       consec_report=config.consec_report,
       replay_context=config.replay_context,
   )
-  run.train(
-      bind(make_agent_fn, config),
-      bind(make_replay, config, 'replay'),
-      bind(make_env, config),
-      bind(make_stream, config),
-      bind(make_logger, config),
-      args)
+  if config.script == 'train':
+    run.train(
+        bind(make_agent_fn, config),
+        bind(make_replay, config, 'replay'),
+        bind(make_env, config),
+        bind(make_stream, config),
+        bind(make_logger, config),
+        args)
+  elif config.script == 'train_eval':
+    run.train_eval(
+        bind(make_agent_fn, config),
+        bind(make_replay, config, 'replay'),
+        bind(make_replay, config, 'eval_replay', 'eval'),
+        bind(make_env, config),
+        bind(make_env, config),
+        bind(make_stream, config),
+        bind(make_logger, config),
+        args)
+  else:
+    run.eval_only(
+        bind(make_agent_fn, config),
+        bind(make_env, config),
+        bind(make_logger, config),
+        args)
 
 
 def agent_config(config):

@@ -24,6 +24,7 @@ if __name__ == '__main__' and __package__ is None:
       os.path.join(os.path.dirname(__file__), '..', '..', '..')))
   __package__ = 'embodied_tpu_torch.models.dreamerv3'
 
+from ... import core as corelib
 from ... import nn
 from ... import parallel
 from .. import common
@@ -33,12 +34,12 @@ CONFIGS = pathlib.Path(__file__).with_name('configs.yaml')
 
 def make_agent(config, device=None):
   """The torch Agent for `config`, on `device` (default: the config's
-  torch.device, 'cuda'). Raises without a card unless the device is the
-  CPU."""
-  if config.random_agent:
-    raise NotImplementedError('The random agent is not ported yet')
-  device = parallel.agent.resolve_device(device or config.torch.device)
+  torch.device, 'cuda'), or under `random_agent` the agent that acts at
+  random. Raises without a card unless the device is the CPU."""
   obs_space, act_space = common.env_spaces(config)
+  if config.random_agent:
+    return corelib.RandomAgent(obs_space, act_space)
+  device = parallel.agent.resolve_device(device or config.torch.device)
   from .model import Model
   acfg = common.agent_config(config)
   model = Model(obs_space, act_space, acfg,

@@ -118,11 +118,22 @@ class Model(nn.Module):
     return r'^(enc|dyn|dec|pol)/'
 
   @property
+  def latent_keys(self):
+    """Replay keys the device-resident latent table holds (the packed
+    replay-context latents; see parallel/latents.py)."""
+    if not self.config.replay_context:
+      return ()
+    return tuple(self._entry_space_flat())
+
+  def _entry_space_flat(self):
+    return tree.flatdict({
+        name: getattr(self, name).entry_space for name in self.WM})
+
+  @property
   def ext_space(self):
     spaces = {'consec': Space(np.int32), 'stepid': Space(np.uint8, 20)}
     if self.config.replay_context:
-      spaces.update(tree.flatdict({
-          name: getattr(self, name).entry_space for name in self.WM}))
+      spaces.update(self._entry_space_flat())
     return spaces
 
   # --- Carries ------------------------------------------------------------

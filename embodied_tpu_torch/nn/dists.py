@@ -96,7 +96,10 @@ class Binary(Dist):
     return self.logit > 0
 
   def logp(self, value):
-    on = torch.as_tensor(value, device=self.logit.device).float()
+    # A host number stays a scalar: copying it to the card would make the
+    # host wait for the card.
+    on = (float(value) if isinstance(value, (bool, int, float)) else
+          torch.as_tensor(value, device=self.logit.device).float())
     return on * self._lp1 + (1.0 - on) * self._lp0
 
   def entropy(self):

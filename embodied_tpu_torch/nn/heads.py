@@ -8,6 +8,7 @@ the outputs binary, categorical, onehot, mse, symlog_mse, symexp_twohot
 import math
 
 import numpy as np
+import torch
 
 from ..utils import Space
 from . import core, dists
@@ -77,7 +78,10 @@ class Head(core.Module):
       self.pred = Linear(din, shape or 1, 'pred', **kw)
     elif output == 'symexp_twohot':
       self.logits = Linear(din, (*shape, bins), 'logits', **kw)
-      self.binvals = dists.symexp_bins(bins)
+      # A constant on the module's device, outside the store: a copy from
+      # the host at each call would make the host wait for the card.
+      self.register_buffer('binvals', torch.from_numpy(
+          dists.symexp_bins(bins)), persistent=False)
     elif output == 'bounded_normal':
       self.mean = Linear(din, shape or 1, 'mean', **kw)
       self.stddev = Linear(din, shape or 1, 'stddev', **kw)

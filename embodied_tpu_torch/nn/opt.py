@@ -104,7 +104,8 @@ class Optimizer(core.Module):
       pieces.append(update.reshape(-1))
     vec = torch.cat(pieces)
     pvec = torch.cat([p.reshape(-1) for p in params])
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=vec.device)
+    # A fill, not a copy from the host, which would wait for the card.
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=vec.device)
     self.rms_flat.copy_(
         self.beta2 * self.rms_flat + (1 - self.beta2) * vec.square())
     nu_hat = self.rms_flat / (1 - f32(self.beta2) ** (step + 1))

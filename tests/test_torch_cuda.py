@@ -18,6 +18,11 @@ stage also on int8 weights with column scales, kernel 9's products), and
 the window's backward, the int8 window and the 128-row stage are run
 twice for bit-equal results.
 
+The Agent's data path runs on the card too: `agent.stream`'s pinned
+copies on the agent's copy stream (a train step on them gives what the
+numpy batch gives), the fetch pipeline's pinned copies behind an event,
+and the latent table's rows against the host path's latents.
+
 Widths are multiples of 16, as the kernels take them, and deep enough
 that every matmul stage splits its contraction (2, 2 and 5 parts on a
 132-SM card), with uneven parts; B = 40 spans three row tiles. Tolerance
@@ -623,3 +628,77 @@ def test_presets_act_and_train_under_auto(card, preset, kernels):
   assert all(np.isfinite(v) for v in mets.values())
   got = [w.launches - b for w, b in zip(wrappers, before)]
   assert got == ([3, 1, 1, 1] if kernels else [0, 0, 0, 0]), got
+
+
+def debug_agent(*extra):
+  config = common.assemble_config(main.CONFIGS, [
+      '--configs', 'debug', '--task', 'dummy_disc', '--torch.device', 'cuda',
+      '--batch_size', '4', '--batch_length', '8',
+      '--torch.compute_dtype', 'float32', *extra])
+  return main.make_agent(config), config
+
+
+@pytest.mark.cuda
+def test_stream_copies_on_a_side_stream_and_trains_as_numpy(card):
+  """agent.stream puts each batch in pinned memory and copies it to the
+  card on the agent's copy stream, with an event the train step waits on;
+  the step gives what the same numpy batch gives. The fetch pipeline's
+  copies land in pinned memory behind an event."""
+  fed, config = debug_agent('--torch.fetch_depth', '0')
+  direct, _ = debug_agent('--torch.fetch_depth', '0')
+  data = batch(fed, config)
+  data['is_first'][:, 0] = True
+  prefetched = next(iter(fed.stream(iter([data]))))
+  assert prefetched.ready is not None
+  assert fed._copy_stream != torch.cuda.current_stream()
+  assert all(v.device.type == 'cuda' for v in prefetched.values())
+  _, _, got = fed.train(fed.init_train(4), prefetched)
+  _, _, want = direct.train(direct.init_train(4), data)
+  assert got == want
+  numbers, scalars, host, event = fed._start_fetch(
+      {}, {'a': torch.ones((), device='cuda'), 'b': torch.zeros(3,
+                                                                device='cuda')})
+  assert scalars == ['a'] and not numbers and event is not None
+  assert all(v.is_pinned() for v in host.values())
+  outs, mets = fed._finish_fetch((numbers, scalars, host, event))
+  assert mets['a'] == 1.0 and (mets['b'] == 0).all() and not outs
+
+
+@pytest.mark.cuda
+def test_table_on_the_card_holds_the_host_paths_latents(card):
+  """Policy calls on the table path write, at the slots they return, the
+  packed latents the host path returns."""
+  table, config = debug_agent()
+  host, _ = debug_agent('--torch.latent_slots', '0')
+  host.load(table.save())
+  obs = table._example_obs(3)
+  obs['is_first'][:] = True
+  _, _, tout = table.policy(table.init_policy(3), obs)
+  _, _, hout = host.policy(host.init_policy(3), obs)
+  rows = table._latents.gather(torch.from_numpy(tout['slot']).cuda())
+  for key in ('dyn/deter', 'dyn/stoch'):
+    np.testing.assert_array_equal(rows[key].cpu().numpy(), hout[key])
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_defaults_never_waits_for_the_card(card):
+  """The default data path (the latent table, batches through
+  agent.stream, fetch_depth 3) makes no synchronizing CUDA call in a train
+  step once the pipeline is full: the host queues the next step while the
+  card runs."""
+  agent, config = debug_agent()
+  assert agent._fetch_depth == 3 and agent._latents is not None
+  data = batch(agent, config)
+  data['is_first'][:, 0] = True
+  stream = iter(agent.stream(iter([data] * 6)))
+  carry = agent.init_train(4)
+  for _ in range(4):
+    carry, _, _ = agent.train(carry, next(stream))
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    for _ in range(2):
+      carry, _, mets = agent.train(carry, next(stream))
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  assert all(np.isfinite(v) for v in mets.values())

@@ -110,7 +110,9 @@ def test_kernel_eligibility_is_structural(deter, hidden, blocks):
 
 
 def small_config(*extra):
-  return common.assemble_config(main.CONFIGS, SMALL + list(extra))
+  """SMALL on the host path: the policy returns its packed latents."""
+  return common.assemble_config(
+      main.CONFIGS, SMALL + ['--torch.latent_slots', '0'] + list(extra))
 
 
 def test_make_agent_asks_for_cuda_by_default(monkeypatch):

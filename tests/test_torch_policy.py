@@ -53,7 +53,8 @@ def jax_model():
 
 def port_agent(kernel='auto'):
   config = common.assemble_config(main.CONFIGS, SIZE + [
-      '--torch.compute_dtype', 'float32', '--agent.dyn.rssm.kernel', kernel])
+      '--torch.compute_dtype', 'float32', '--agent.dyn.rssm.kernel', kernel,
+      '--torch.latent_slots', '0'])
   return main.make_agent(config, device='cpu')
 
 

@@ -187,8 +187,11 @@ def jax_model(argv):
 
 
 def port_agent(argv, kernel='auto'):
+  """The port's agent on the host path (the latents ride the batch, as
+  the JAX Model takes them), one step's results per train call."""
   config = common.assemble_config(main.CONFIGS, argv + [
-      '--torch.compute_dtype', 'float32', '--agent.dyn.rssm.kernel', kernel])
+      '--torch.compute_dtype', 'float32', '--agent.dyn.rssm.kernel', kernel,
+      '--torch.latent_slots', '0', '--torch.fetch_depth', '0'])
   return main.make_agent(config, device='cpu')
 
 
@@ -516,7 +519,10 @@ def test_agent_report_gives_host_values():
   scalars = {k: v for k, v in mets.items() if k != 'openloop/image'}
   assert all(isinstance(v, float) and np.isfinite(v)
              for v in scalars.values()), scalars
-  assert agent.stream('source') == 'source'
+  batch = next(iter(agent.stream(iter([data]))))
+  assert sorted(batch) == sorted(data)
+  for key, value in batch.items():
+    np.testing.assert_array_equal(value.numpy(), data[key], err_msg=key)
   assert float(agent.model.opt.step) == 0  # nothing updated
 
 
