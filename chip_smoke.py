@@ -57,10 +57,14 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            the int8 and bf16 window kernels timed in turns (CUDA events),
            and the device kernels of one int8 window by name (profiler).
   default  the default configuration (no preset, 202,982,304 parameters):
-           policy calls, Agent.train steps with the losses against
-           kernel: off and a profile, and main.main with the process
-           driver, script train and script train_eval (train steps,
-           reports, eval episodes and a save).
+           policy calls on dummy_disc and on PinPad (pinpad_three, 16
+           envs), Agent.train steps with the losses against kernel: off
+           and a profile, and main.main with the process driver, script
+           train and script train_eval on dummy_disc, and train_eval on
+           PinPad with its episodes cut to 300 steps, each to a budget of
+           35-50 s (train steps, reports, train and eval episodes with
+           their scores, and a save); env steps/s of the two train_eval
+           runs side by side.
   latents  the device-resident latent table at the default configuration
            and at size12m: the table's slots, bytes and regions; policy
            calls on the table path and on the host path (latents in the
@@ -1018,7 +1022,8 @@ def kernels_by_name(torch, fn, attempts=3):
 
 def drive(argv, calls, modes):
   """Build the agent for `argv` (on the card unless `--torch.device cpu`)
-  and drive it over ENVS dummy envs for `calls` policy calls per mode.
+  and drive it over ENVS envs of its task for `calls` policy calls per
+  mode.
   Returns the agent, timings and the last carry and observations."""
   from embodied_tpu_torch import core
   from embodied_tpu_torch.models import common
@@ -1456,30 +1461,50 @@ def phase_modes(torch, modes=MODES):
   return launches
 
 
-# The train script's runs: (label, flags, env steps of each run on one
-# logdir, the log and report interval and the save interval in seconds).
-# Each run goes through the default process driver with ENVS envs.
+# The train script's runs: (label, flags, the wall-clock budget in seconds
+# of each run on one logdir, the log and report interval and the save
+# interval in seconds). Each run goes through the default process driver
+# with ENVS envs and ends on its budget (run.duration), not on a step
+# count: the intervals are wall-clock and fire first one interval into
+# the loop, and a faster host took 3,000 size12m steps in under 6 s and
+# ended its train_eval run before the first evaluation. A budget makes
+# each task fire whatever the host's speed; the env steps a run takes are
+# counted (STEP_CAP is not reached) and are the measurement. On a slower
+# host (PR 10's second run of this script) train steps began after some
+# 8 s of the first run, so each first run's budget leaves a log after
+# that.
 SIZE12M = ['--configs', 'size12m', '--run.envs', str(ENVS)]
+STEP_CAP = 10 ** 6
 SCRIPTS = (
-    # size12m, then again to more steps: the second run resumes. Then
-    # train_eval the same way, with its 4 eval envs and eval replay; an
-    # evaluation (an eval episode and two reports) takes some 2 s, so it
-    # comes every 6 s.
-    ('size12m', SIZE12M, (3000, 4500), 2, 2),
-    ('size12m train_eval', SIZE12M + ['--script', 'train_eval'],
-     (3000, 4500), 6, 2),
+    # size12m, then again on the same logdir: the second run resumes.
+    # Then train_eval the same way, with its 4 eval envs and eval replay;
+    # an evaluation (an eval episode and two reports) takes some 2 s, so
+    # it comes every 6 s.
+    ('size12m', SIZE12M, (15, 10), 2, 2),
+    ('size12m train_eval', SIZE12M + ['--script', 'train_eval'], (15, 10),
+     6, 2),
 )
 # The default configuration (no preset), once each: train steps begin
 # after some 2,100 env steps fill the replay. A save writes its 2.4 GB of
 # parameters and optimizer slots (5-9 s), and the next save's interval
 # starts when one starts, so an interval near a save's time saves again
-# at almost every poll (10 s took 114 s for 4,500 steps); 20 s lets one
-# save fire in the loop of 6,500 steps (some 25 s: 145 train steps of
-# 133-160 ms) and rarely a second. Reports (some 2 s each) and evaluations
-# come at the same interval.
+# at almost every poll (10 s took 114 s for 4,500 steps); at 20 s one
+# save fires in a run's loop and rarely a second. Reports (some 2 s each)
+# and evaluations come at the same interval. Each budget leaves room
+# after the 20 s mark for an evaluation (PinPad's: 300 policy calls and
+# two reports, some 4 s) and a save.
+# PinPad (pinpad_three: 64 x 64 x 3 frames, 5 actions, the train step's
+# shapes those of dummy_disc) renders on the host in the env processes.
+# Its episodes last 10,000 steps by default; cut to 300 steps, each of the
+# 16 train envs ends one by env step 4,816, which took 18 s on a slower
+# host; its 50 s budget holds some 34 s of stepping beside two
+# evaluations and two saves.
+PINPAD = ['--task', 'pinpad_three', '--env.pinpad.length', '300']
 DEFAULT_SCRIPTS = (
-    ('default', [], (6500,), 20, 20),
-    ('default train_eval', ['--script', 'train_eval'], (6500,), 20, 20),
+    ('default', [], (35,), 20, 20),
+    ('default train_eval', ['--script', 'train_eval'], (40,), 20, 20),
+    ('default pinpad train_eval', PINPAD + ['--script', 'train_eval'],
+     (50,), 20, 20),
 )
 # eval_only from the size12m train_eval run's checkpoint: (label, flags).
 # 1,700 env steps over ENVS envs end each env's first 100-step episode.
@@ -1491,26 +1516,42 @@ EVAL_ONLY_STEPS = 1700
 
 
 def phase_script(torch, scripts=SCRIPTS):
-  """The train and train_eval scripts in-process on each configuration,
-  with the launch counts set to 0 before each run and read after, on a
-  logdir under build/; where a configuration runs twice, the second run
-  must load the checkpoint and continue the step counter. The log, report
-  and save intervals are short enough that each fires in each run; the
-  report's results are read as the script computes them, and the
-  transport of every driver the script makes is recorded. Each run keeps
-  its latents on the card (the default latent table): the checkpoint
-  holds the slot allocator, and the logged latents/valid lies in [0, 1].
-  A train_eval run must log eval episodes and eval reports, and allocate
-  eval slots; after the size12m train_eval runs, eval_only runs from their
-  checkpoint (phase_eval_only). Returns each configuration's launches."""
+  """The train and train_eval scripts in-process on each configuration
+  (dummy_disc unless its flags name a task), with the launch counts set
+  to 0 before each run and read after, on a logdir under build/; where a
+  configuration runs twice, the second run must load the checkpoint and
+  continue the step counter. The log, report and save intervals are short
+  enough that each fires in each run, which ends on a wall-clock budget
+  that outlasts them and counts its env steps; the report's results are read as
+  the script computes them, and the transport of every driver the script
+  makes is recorded. Each Agent.train call must launch kernels 5, 6 and 8
+  once each, and every logged loss must be finite. Each run keeps its
+  latents on the card (the default latent table): the checkpoint holds
+  the slot allocator, and the logged latents/valid lies in [0, 1]. A
+  train_eval run must log eval episodes and eval reports, and allocate
+  eval slots; a PinPad run must log ENVS train episodes and an eval
+  episode, each with its score and length. After the size12m
+  train_eval runs, eval_only runs from their checkpoint
+  (phase_eval_only). Returns each configuration's launches."""
   import pickle
   import shutil
+  from embodied_tpu_torch import parallel
   from embodied_tpu_torch.models.dreamerv3 import main as dmain
   from embodied_tpu_torch.run import loop
   wrappers = train_wrappers()
-  reports, drivers = [], []
+  reports, drivers, ticks, train_calls = [], [], [], []
   reporter_call = loop.Reporter.__call__
   make_driver = loop.make_driver
+  agent_train = parallel.Agent.train
+
+  def trained(self, *args):
+    # Each train call's own launches: the policy calls and reports between
+    # them launch kernels 3, 5 and 8 too.
+    counts = {k: wrappers[k].launches for k in TRAIN_KERNELS}
+    result = agent_train(self, *args)
+    train_calls.append(
+        {k: wrappers[k].launches - counts[k] for k in TRAIN_KERNELS})
+    return result
 
   def recorded(self):
     mets = reporter_call(self)
@@ -1519,29 +1560,40 @@ def phase_script(torch, scripts=SCRIPTS):
     return mets
 
   def made(*args):
-    # The transport only: a driver holds its callbacks, and with them the
-    # agent, which must go when its run ends.
+    # The transport and a count of its env steps, not the driver: a driver
+    # holds its callbacks, and with them the agent, which must go when its
+    # run ends.
     driver = make_driver(*args)
     drivers.append(driver.parallel)
+    ticks.append(0)
+    index = len(ticks) - 1
+
+    def tick(tran, worker):
+      ticks[index] += 1
+    driver.on_step(tick)
     return driver
   loop.Reporter.__call__ = recorded
   loop.make_driver = made
-  launches = {}
+  parallel.Agent.train = trained
+  launches, speeds = {}, {}
   for label, flags, runs, every, save_every in scripts:
     logdir = os.path.join(ROOT, 'build', f'chip_smoke_{label}')
     shutil.rmtree(logdir, ignore_errors=True)
     rows, problems = [], []
     previous = None
-    for steps in runs:
+    for budget in runs:
       for wrapper in wrappers.values():
         wrapper.launches = 0
       nreports = len(reports)
+      del train_calls[:]
       gc.collect()  # the agents of earlier runs
       torch.cuda.empty_cache()
-      argv = ['--task', 'dummy_disc', *flags, '--logdir', logdir,
-              '--run.steps', str(steps), '--run.log_every', str(every),
-              '--run.report_every', str(every), '--run.save_every',
-              str(save_every)]
+      task = [] if '--task' in flags else ['--task', 'dummy_disc']
+      argv = [*task, *flags, '--logdir', logdir,
+              '--run.steps', str(STEP_CAP), '--run.duration', str(budget),
+              '--run.log_every', str(every), '--run.report_every',
+              str(every), '--run.save_every', str(save_every)]
+      ndrivers = len(ticks)
       torch.cuda.reset_peak_memory_stats()
       start = time.perf_counter()
       dmain.main(argv)
@@ -1550,20 +1602,27 @@ def phase_script(torch, scripts=SCRIPTS):
         saved = pickle.load(f)
       with open(os.path.join(logdir, 'metrics.jsonl')) as f:
         lines = [json.loads(line) for line in f]
-      # The checkpoint holds the step of the last save; the run steps its
-      # ENVS envs a tick at a time until it reaches `steps`, so a save
-      # after the last tick may hold up to ENVS - 1 steps more.
+      # The checkpoint holds the step of the last save, which the loop
+      # polls between ticks, at most the step the run ended on; the train
+      # driver is the run's first.
+      first = previous['step'] if previous else 0
+      end = first + ticks[ndrivers]
       step, counters = int(saved['step']), saved['agent']['counters']
       slots = saved['agent'].get('latents', {}).get('counters')
       del saved
       valid = [l['train/latents/valid'] for l in lines
                if 'train/latents/valid' in l]
-      first = previous['step'] if previous else 0
+      losses = {k: v for l in lines for k, v in l.items()
+                if k.startswith('train/loss/')}
+      episodes = {prefix: [(l[f'{prefix}/score'], l[f'{prefix}/length'])
+                           for l in lines if f'{prefix}/score' in l]
+                  for prefix in ('episode', 'eval_episode')}
       row = dict(
           phase='script', config=label, argv=argv, wall_s=wall,
           driver=drivers[-1], checkpoint_step=step,
           resumed_from_step=previous and previous['step'],
-          env_steps_per_s=(steps - first) / wall,
+          budget_s=budget, env_steps=end - first,
+          env_steps_per_s=(end - first) / wall,
           train_steps=counters['train'] - (
               previous['train'] if previous else 0),
           agent_counters=counters,
@@ -1573,6 +1632,13 @@ def phase_script(torch, scripts=SCRIPTS):
           logged_report_keys=len({k for l in lines for k in l
                                   if k.startswith('report/')}),
           latent_slot_counters=slots, latents_valid=valid,
+          train_calls=len(train_calls),
+          train_call_launches=sorted({tuple(c.values())
+                                      for c in train_calls}),
+          last_losses={k: losses[k] for k in sorted(losses)},
+          episodes={k: dict(count=len(v), scores=[s for s, _ in v],
+                            lengths=sorted({n for _, n in v}))
+                    for k, v in episodes.items()},
           peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
       if '--script' in flags:
         row.update(
@@ -1583,12 +1649,26 @@ def phase_script(torch, scripts=SCRIPTS):
           problems.append('no eval episodes or eval reports were logged')
         if not (slots or {}).get('eval'):
           problems.append(f'no eval slots were allocated: {slots}')
+      if not train_calls or any(
+          c[k] != 1 for c in train_calls for k in TRAIN_KERNELS):
+        problems.append(
+            f'train calls launched {row["train_call_launches"]}, not one '
+            f'of each of {TRAIN_KERNELS}')
+      if not losses or not all(math.isfinite(v) for v in losses.values()):
+        problems.append(f'logged losses {losses}')
+      if 'pinpad_three' in flags and (
+          len(episodes['episode']) < ENVS or
+          not episodes['eval_episode']):
+        problems.append(
+            f'{len(episodes["episode"])} train and '
+            f'{len(episodes["eval_episode"])} eval episodes logged')
       if not slots or not valid or not all(0 <= v <= 1 for v in valid):
         problems.append(f'the latent table: slots {slots}, valid {valid}')
       if row['driver'] != 'process':
         problems.append(f'the script stepped its envs by {row["driver"]}')
-      if not first < step < steps + ENVS:
-        problems.append(f'saved at step {step}, resumed from {first}')
+      if not first < step <= end:
+        problems.append(f'saved at step {step}, resumed from {first}, '
+                        f'ended at {end}')
       if row['reports'] < 1 or not row['logged_report_keys']:
         problems.append('the report did not run')
       if row['train_steps'] < 1 or not all(
@@ -1597,7 +1677,7 @@ def phase_script(torch, scripts=SCRIPTS):
       if previous and not (step >= previous['step'] and
                            counters['train'] > previous['train']):
         problems.append(f'did not resume: {previous} -> {counters}, {step}')
-      if previous and row['train_steps'] > (steps - first) * 2:
+      if previous and row['train_steps'] > (end - first) * 2:
         problems.append('the resumed run retrained from the start')
       rows.append(row)
       emit(**row, ok=not problems)
@@ -1608,12 +1688,19 @@ def phase_script(torch, scripts=SCRIPTS):
     if problems:
       fail('script', f'{label}: ' + '; '.join(problems))
     launches[label] = rows[-1]['launches']
+    speeds[label] = rows[-1]['env_steps_per_s']
     if label == 'size12m train_eval':
       phase_eval_only(torch, os.path.join(logdir, 'checkpoint.pkl'))
     shutil.rmtree(logdir, ignore_errors=True)
     torch.cuda.empty_cache()
   loop.Reporter.__call__ = reporter_call
   loop.make_driver = make_driver
+  parallel.Agent.train = agent_train
+  if 'default pinpad train_eval' in speeds:
+    # PinPad's host rendering beside the dummy env, on one configuration.
+    emit(phase='script', ok=True, env_steps_per_s={
+        k: speeds[k] for k in ('default train_eval',
+                               'default pinpad train_eval')})
   return launches
 
 
@@ -1912,18 +1999,21 @@ def phase_latents(torch, paths=LATENT_PATHS):
 # calls, modes, kernel) as SLICE_PATHS, and (label, argv, warm-up steps,
 # timed steps, against kernel: off) as TRAIN_PATHS.
 DEFAULT_ARGV = ['--task', 'dummy_disc']
-DEFAULT_SLICE = (('acting default', DEFAULT_ARGV, 20, ('train',),
-                  'obs_step'),)
+DEFAULT_SLICE = (
+    ('acting default', DEFAULT_ARGV, 20, ('train',), 'obs_step'),
+    ('acting default pinpad', PINPAD, 20, ('train',), 'obs_step'),
+)
 DEFAULT_TRAIN = (('train default', DEFAULT_ARGV, 1, 3, True),)
 
 
 def phase_default(torch):
   """The default configuration (configs.yaml `defaults`, 202,982,304
-  parameters on dummy_disc) through the entry points a user calls: policy
-  calls (kernel 3 once each) against the plain path, Agent.train steps
-  (kernels 5, 6 and 8 once each) with the first step's losses against
-  kernel: off and a profile, and main.main with the process driver. Each
-  path runs with the launch counts set to 0 before it and read after.
+  parameters) through the entry points a user calls: policy calls on
+  dummy_disc and on PinPad (kernel 3 once each) against the plain path,
+  Agent.train steps (kernels 5, 6 and 8 once each) with the first step's
+  losses against kernel: off and a profile, and main.main with the
+  process driver on dummy_disc and PinPad. Each path runs with the launch
+  counts set to 0 before it and read after.
   Returns the launches of the policy calls and of the train steps."""
   launches = phase_slice(torch, DEFAULT_SLICE)
   trained = phase_train(torch, DEFAULT_TRAIN)[DEFAULT_TRAIN[0][0]]

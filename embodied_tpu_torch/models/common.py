@@ -4,9 +4,10 @@ construction by task prefix with the standard wrapper stack, the agent's
 config view, the replay, stream and logger factories, and script
 dispatch.
 
-A copy of embodied_tpu/models/common.py with the scripts, envs and outputs
-the port has: the single-host scripts `train`, `train_eval` and
-`eval_only` (the `parallel` scripts and `pretrain` raise), the Dummy env.
+A copy of embodied_tpu/models/common.py with the scripts and outputs the
+port has: the single-host scripts `train`, `train_eval` and `eval_only`
+(the `parallel` scripts and `pretrain` raise), and every env suite of the
+JAX package.
 """
 
 import importlib
@@ -24,6 +25,18 @@ from ..utils import (
 
 ENV_CTORS = {
     'dummy': 'embodied_tpu_torch.envs.dummy:Dummy',
+    'gym': 'embodied_tpu_torch.envs.from_gym:FromGym',
+    'dm': 'embodied_tpu_torch.envs.from_dm:FromDM',
+    'crafter': 'embodied_tpu_torch.envs.crafter:Crafter',
+    'dmc': 'embodied_tpu_torch.envs.dmc:DMC',
+    'atari': 'embodied_tpu_torch.envs.atari:Atari',
+    'atari100k': 'embodied_tpu_torch.envs.atari:Atari',
+    'dmlab': 'embodied_tpu_torch.envs.dmlab:DMLab',
+    'minecraft': 'embodied_tpu_torch.envs.minecraft:Minecraft',
+    'loconav': 'embodied_tpu_torch.envs.loconav:LocoNav',
+    'pinpad': 'embodied_tpu_torch.envs.pinpad:PinPad',
+    'procgen': 'embodied_tpu_torch.envs.procgen:ProcGen',
+    'bsuite': 'embodied_tpu_torch.envs.bsuite:BSuite',
 }
 
 
@@ -136,14 +149,17 @@ def env_spaces(config):
 
 def make_env(config, index, **overrides):
   suite, task = config.task.split('_', 1)
-  if suite not in ENV_CTORS:
-    raise NotImplementedError(f'Env suite {suite!r} is not ported yet')
-  module, cls = ENV_CTORS[suite].split(':')
-  ctor = getattr(importlib.import_module(module), cls)
+  ctor = ENV_CTORS[suite]
+  if isinstance(ctor, str):
+    module, cls = ctor.split(':')
+    module = importlib.import_module(module)
+    ctor = getattr(module, cls)
   kwargs = dict(dict(config.env).get(suite, {}))
   kwargs.update(overrides)
   if kwargs.pop('use_seed', False):
     kwargs['seed'] = hash((config.seed, index)) % (2 ** 32 - 1)
+  if kwargs.pop('use_logdir', False):
+    kwargs['logdir'] = Path(config.logdir) / f'env{index}'
   env = ctor(task, **kwargs)
   return wrap_env(env, config)
 
