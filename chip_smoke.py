@@ -85,11 +85,26 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            train_eval also runs eval episodes and eval reports. Then
            eval_only from the train_eval checkpoint, with the DreamerV3
            agent and with the random agent.
+  ppo      PPO's default configuration (models/ppo/configs.yaml) on
+           PinPad (pinpad_three, 300-step episodes): its parameter count,
+           20 policy calls of 16 envs, 1 warm-up and 3 timed train steps
+           on a 16 x 65 batch that those calls collected, with finite
+           losses and a profile, main.main `train` on a 20 s budget with
+           the process driver (env steps/s, episodes), and the JAX
+           package's bandit learning check (tests/test_learning.py) on
+           the card with its thresholds. PPO launches no kernel.
+  director Director's default configuration on PinPad: 20 policy calls
+           of 16 envs, one launch of kernel 3 each, held against the plain
+           path; 1 warm-up and 3 timed train steps, each one launch of
+           kernels 5 and 6 and one of kernel 1 per step of the
+           hierarchy's 16-step rollout, the first step's losses against
+           kernel: off, and a profile; main.main `train_eval` on a 25 s
+           budget.
 
-The phases slice, train, modes and default run the host path
-(HOST_PATH: torch.latent_slots 0, fetch_depth 0), on which each train
-call returns its own step and can be held against the plain path; the
-latents phase and the scripts run the defaults.
+The phases slice, train, modes, default, ppo and director run the host
+path (HOST_PATH: torch.latent_slots 0, fetch_depth 0), on which each
+train call returns its own step and can be held against the plain path;
+the latents phase and the scripts run the defaults.
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
@@ -1062,13 +1077,16 @@ def drive(argv, calls, modes):
   return agent, stats, last
 
 
-def check_against_plain(torch, agent, last):
+def check_against_plain(torch, agent, last, dyn_carry=1, prevact=3):
   """One observe step on the card through the kernel path and through the
-  plain path (kernel: off), with the same carry, inputs and Gumbel noise."""
+  plain path (kernel: off), with the same carry, inputs and Gumbel noise.
+  `dyn_carry` and `prevact` index the RSSM's carry and the previous
+  action in the policy's carry (DreamerV3's by default)."""
   from embodied_tpu_torch.nn import dists
   model = agent.model
   carry, obs = last['carry'], {
       k: agent._to_device(v) for k, v in last['obs'].items()}
+  carry = {1: carry[dyn_carry], 3: carry[prevact]}
   dyn = model.dyn
   gen = torch.Generator(agent.device).manual_seed(SEED + 1)
   noise = dists.gumbel((ENVS, dyn.stoch, dyn.classes), gen, agent.device)
@@ -1216,9 +1234,14 @@ def train_wrappers():
               imag_step=imagine.imag_step)
 
 
-def check_losses(kernel, plain):
+def is_loss(key):
+  """DreamerV3's per-term losses."""
+  return key.startswith('loss/')
+
+
+def check_losses(kernel, plain, is_loss=is_loss):
   """Per-key losses through the kernels against the plain path."""
-  keys = sorted(k for k in kernel if k.startswith('loss/'))
+  keys = sorted(k for k in kernel if is_loss(k))
   off = {k: abs(kernel[k] - plain[k]) for k in keys}
   bad = [k for k in keys if not off[k] <= LOSS_RTOL * (1 + abs(plain[k]))]
   return {k: (kernel[k], plain[k]) for k in keys}, bad
@@ -1260,12 +1283,95 @@ def profile_train(torch, agent, carry, data, step_ms, steps=2):
       top_kernels_ms=[(k[:120], v) for k, v in top])
 
 
+def train_steps(torch, agent, data, wrappers, warmup, steps, per_step,
+                plain=None, losses=is_loss, trained=(), at_floor=None,
+                changed_after=CHANGED_AFTER, replay=True):
+  """`warmup` + `steps` Agent.train calls on one batch, each call's
+  launches counted: each must launch `per_step` ({wrapper: count}; the
+  others are not checked) and give finite metrics, and with `replay` give
+  outs['replay'] entries of the batch's shape. With `plain(agent, data)`
+  (the metrics of one train step on the plain path, which must launch
+  nothing), the first step's `losses` against it from the same parameters
+  and draws. Every parameter under the `trained` scopes must have changed
+  by the end of step `changed_after`; where `at_floor(row)` says that
+  every KL sat at the free-nats floor, the prior gets no gradient (as in
+  the JAX model), which is noted, not a fault. Returns the last carry, the
+  row (times, frames/s, peak memory, each call's launches, the last
+  metrics) and the problems found."""
+  B = data['is_first'].shape[0]
+  T = data['is_first'].shape[1] - agent.replay_context
+  carry = agent.init_train(B)
+  before = agent.save()
+  problems, times, row, calls = [], [], {}, []
+  for i in range(warmup + steps):
+    if i == warmup:
+      torch.cuda.reset_peak_memory_stats()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    start = time.perf_counter()
+    carry, outs, mets = agent.train(carry, data)
+    times.append((time.perf_counter() - start) * 1e3)
+    step = {k: w.launches - counts[k] for k, w in wrappers.items()}
+    calls.append(step)
+    if any(step[k] != n for k, n in per_step.items()):
+      problems.append(f'step {i} launched {step}, not {per_step}')
+    bad = sorted(k for k, v in mets.items() if not math.isfinite(v))
+    if bad:
+      problems.append(f'step {i}: non-finite {bad[:5]}')
+    if replay:
+      shapes = {k: v.shape[:2] for k, v in outs['replay'].items()}
+      if any(s != (B, T) for s in shapes.values()):
+        problems.append(f'replay entries of shapes {shapes}')
+    if i == 0:
+      row['first_losses'] = {k: v for k, v in mets.items() if losses(k)}
+      if plain is not None:
+        after = agent.save()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        agent.load(before)
+        other = plain(agent, data)
+        agent.load(after)
+        if any(w.launches != counts[k] for k, w in wrappers.items()):
+          problems.append('the plain path launched a kernel')
+        row['losses_kernel_vs_plain'], bad = check_losses(
+            mets, other, losses)
+        if bad:
+          problems.append(f'losses off the plain path: {bad}')
+    if trained and i == changed_after:
+      now = agent.save()['store']
+      under = lambda k: any(k == t or k.startswith(t + '/') for t in trained)
+      same = sorted(k for k, v in before['store'].items()
+                    if under(k) and (v == now[k]).all())
+      if at_floor and at_floor(row):
+        row['prior_at_free_nats'] = [k for k in same
+                                     if k.startswith('dyn/prior')]
+        same = [k for k in same if not k.startswith('dyn/prior')]
+      if same:
+        problems.append(f'{len(same)} parameters unchanged: {same[:5]}')
+  timed = times[warmup:]
+  ms = statistics.median(timed)
+  row.update(
+      batch=[B, T], train_steps=len(times), first_step_ms=times[0],
+      ms_per_train_step=ms, ms_per_train_step_max=max(timed),
+      timed_steps=len(timed), train_frames_per_s=B * T / ms * 1e3,
+      peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+      launches_per_call=calls, metrics={k: mets[k] for k in sorted(mets)})
+  return carry, row, problems
+
+
+def plain_train(agent, data):
+  """One train step's metrics on the plain path (kernel: off)."""
+  agent.model.dyn.kernel = 'off'
+  _, _, mets = agent.train(agent.init_train(data['is_first'].shape[0]),
+                           data)
+  agent.model.dyn.kernel = 'auto'
+  return mets
+
+
 def phase_train(torch, paths=TRAIN_PATHS):
   """Drives each train path: a batch from the acting path, then train
   steps through Agent.train with the launch counts set to 0 just before
-  and read just after. Each step must launch each train kernel once, give
-  finite metrics, and (after the warm-up, whose first step has a zero
-  learning rate) have changed every trained parameter."""
+  and read just after (train_steps). Each step must launch each train
+  kernel once, give finite metrics, and (after the warm-up, whose first
+  step has a zero learning rate) have changed every trained parameter."""
   from embodied_tpu_torch.models import common
   from embodied_tpu_torch.models.dreamerv3 import main as dmain
   wrappers = train_wrappers()
@@ -1275,72 +1381,23 @@ def phase_train(torch, paths=TRAIN_PATHS):
     config = common.assemble_config(dmain.CONFIGS, argv)
     agent = dmain.make_agent(config)
     data, _ = collect_batch(agent, config)
-    B, T = config.batch_size, config.batch_length
-    carry = agent.init_train(B)
-    before = agent.save()
     for wrapper in wrappers.values():
       wrapper.launches = 0
-    problems, times, row = [], [], {}
-    for i in range(warmup + steps):
-      counts = {k: w.launches for k, w in wrappers.items()}
-      if i == warmup:
-        torch.cuda.reset_peak_memory_stats()
-      start = time.perf_counter()
-      carry, outs, mets = agent.train(carry, data)
-      times.append((time.perf_counter() - start) * 1e3)
-      step = {k: w.launches - counts[k] for k, w in wrappers.items()}
-      if any(step[k] != 1 for k in TRAIN_KERNELS):
-        problems.append(f'step {i} launched {step}')
-      bad = sorted(k for k, v in mets.items() if not math.isfinite(v))
-      if bad:
-        problems.append(f'step {i}: non-finite {bad[:5]}')
-      shapes = {k: v.shape[:2] for k, v in outs['replay'].items()}
-      if any(s != (B, T) for s in shapes.values()):
-        problems.append(f'replay entries of shapes {shapes}')
-      if i == 0:
-        row['first_losses'] = {k: v for k, v in mets.items()
-                               if k.startswith('loss/')}
-        if against_plain:
-          after = agent.save()
-          counts = {k: w.launches for k, w in wrappers.items()}
-          agent.load(before)
-          agent.model.dyn.kernel = 'off'
-          _, _, plain = agent.train(agent.init_train(B), data)
-          agent.model.dyn.kernel = 'auto'
-          agent.load(after)
-          if any(w.launches != counts[k] for k, w in wrappers.items()):
-            problems.append('the plain path launched a kernel')
-          row['losses_kernel_vs_plain'], bad = check_losses(mets, plain)
-          if bad:
-            problems.append(f'losses off the plain path: {bad}')
-      if i == CHANGED_AFTER:
-        now = agent.save()['store']
-        same = sorted(k for k, v in before['store'].items()
-                      if k.split('/')[0] in TRAINED and
-                      (v == now[k]).all())
-        # Where every KL sits at the free-nats floor, the prior gets no
-        # gradient (as in the JAX model); that is noted, not a fault.
-        floor = config.agent.dyn.rssm.free_nats
-        if row['first_losses']['loss/dyn'] <= floor:
-          row['prior_at_free_nats'] = [k for k in same
-                                       if k.startswith('dyn/prior')]
-          same = [k for k in same if not k.startswith('dyn/prior')]
-        if same:
-          problems.append(f'{len(same)} parameters unchanged: {same[:5]}')
+    floor = config.agent.dyn.rssm.free_nats
+    carry, row, problems = train_steps(
+        torch, agent, data, wrappers, warmup, steps,
+        {k: 1 for k in TRAIN_KERNELS},
+        plain=plain_train if against_plain else None, trained=TRAINED,
+        at_floor=lambda row: row['first_losses']['loss/dyn'] <= floor)
     counts = {k: w.launches for k, w in wrappers.items()}
     launches[label] = counts
-    timed = times[warmup:]
-    ms = statistics.median(timed)
-    row.update(
-        path=label, argv=argv, batch=[B, T], launches=counts,
-        train_steps=len(times), first_step_ms=times[0],
-        ms_per_train_step=ms, ms_per_train_step_max=max(timed),
-        timed_steps=len(timed), train_frames_per_s=B * T / ms * 1e3,
-        peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
-        metrics={k: mets[k] for k in sorted(mets)
-                 if k.startswith(('loss/', 'opt/'))})
+    del row['launches_per_call']
+    row.update(path=label, argv=argv, launches=counts, metrics={
+        k: v for k, v in row['metrics'].items()
+        if k.startswith(('loss/', 'opt/'))})
     if against_plain:
-      carry, row['profile'] = profile_train(torch, agent, carry, data, ms)
+      carry, row['profile'] = profile_train(
+          torch, agent, carry, data, row['ms_per_train_step'])
     row['ok'] = not problems
     emit(phase='train', **row)
     if problems:
@@ -1515,6 +1572,50 @@ EVAL_ONLY = (
 EVAL_ONLY_STEPS = 1700
 
 
+def count_drivers():
+  """Patches loop.make_driver so that each driver a script makes records
+  its transport and counts its env steps. Returns the lists of both, one
+  entry per driver in the order made, and the function that undoes the
+  patch. Neither list holds the driver: a driver holds its callbacks, and
+  with them the agent, which must go when its run ends."""
+  from embodied_tpu_torch.run import loop
+  transports, ticks = [], []
+  make_driver = loop.make_driver
+
+  def made(*args):
+    driver = make_driver(*args)
+    transports.append(driver.parallel)
+    ticks.append(0)
+    index = len(ticks) - 1
+
+    def tick(tran, worker):
+      ticks[index] += 1
+    driver.on_step(tick)
+    return driver
+
+  def restore():
+    loop.make_driver = make_driver
+  loop.make_driver = made
+  return transports, ticks, restore
+
+
+def read_log(logdir, losses=is_loss):
+  """A script's metrics log: its lines, the scores and lengths of its
+  train and eval episodes as (score, length) lists and as a row's
+  summary, and the last logged value of each train loss."""
+  with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+    lines = [json.loads(line) for line in f]
+  episodes = {prefix: [(l[f'{prefix}/score'], l[f'{prefix}/length'])
+                       for l in lines if f'{prefix}/score' in l]
+              for prefix in ('episode', 'eval_episode')}
+  summary = {k: dict(count=len(v), scores=[s for s, _ in v],
+                     lengths=sorted({n for _, n in v}))
+             for k, v in episodes.items()}
+  last = {k: v for l in lines for k, v in l.items()
+          if k.startswith('train/') and losses(k[len('train/'):])}
+  return lines, episodes, summary, {k: last[k] for k in sorted(last)}
+
+
 def phase_script(torch, scripts=SCRIPTS):
   """The train and train_eval scripts in-process on each configuration
   (dummy_disc unless its flags name a task), with the launch counts set
@@ -1539,9 +1640,8 @@ def phase_script(torch, scripts=SCRIPTS):
   from embodied_tpu_torch.models.dreamerv3 import main as dmain
   from embodied_tpu_torch.run import loop
   wrappers = train_wrappers()
-  reports, drivers, ticks, train_calls = [], [], [], []
+  reports, train_calls = [], []
   reporter_call = loop.Reporter.__call__
-  make_driver = loop.make_driver
   agent_train = parallel.Agent.train
 
   def trained(self, *args):
@@ -1559,21 +1659,8 @@ def phase_script(torch, scripts=SCRIPTS):
                     mets.items()})
     return mets
 
-  def made(*args):
-    # The transport and a count of its env steps, not the driver: a driver
-    # holds its callbacks, and with them the agent, which must go when its
-    # run ends.
-    driver = make_driver(*args)
-    drivers.append(driver.parallel)
-    ticks.append(0)
-    index = len(ticks) - 1
-
-    def tick(tran, worker):
-      ticks[index] += 1
-    driver.on_step(tick)
-    return driver
   loop.Reporter.__call__ = recorded
-  loop.make_driver = made
+  drivers, ticks, restore = count_drivers()
   parallel.Agent.train = trained
   launches, speeds = {}, {}
   for label, flags, runs, every, save_every in scripts:
@@ -1600,8 +1687,7 @@ def phase_script(torch, scripts=SCRIPTS):
       wall = time.perf_counter() - start
       with open(os.path.join(logdir, 'checkpoint.pkl'), 'rb') as f:
         saved = pickle.load(f)
-      with open(os.path.join(logdir, 'metrics.jsonl')) as f:
-        lines = [json.loads(line) for line in f]
+      lines, episodes, summary, losses = read_log(logdir)
       # The checkpoint holds the step of the last save, which the loop
       # polls between ticks, at most the step the run ended on; the train
       # driver is the run's first.
@@ -1612,11 +1698,6 @@ def phase_script(torch, scripts=SCRIPTS):
       del saved
       valid = [l['train/latents/valid'] for l in lines
                if 'train/latents/valid' in l]
-      losses = {k: v for l in lines for k, v in l.items()
-                if k.startswith('train/loss/')}
-      episodes = {prefix: [(l[f'{prefix}/score'], l[f'{prefix}/length'])
-                           for l in lines if f'{prefix}/score' in l]
-                  for prefix in ('episode', 'eval_episode')}
       row = dict(
           phase='script', config=label, argv=argv, wall_s=wall,
           driver=drivers[-1], checkpoint_step=step,
@@ -1635,10 +1716,7 @@ def phase_script(torch, scripts=SCRIPTS):
           train_calls=len(train_calls),
           train_call_launches=sorted({tuple(c.values())
                                       for c in train_calls}),
-          last_losses={k: losses[k] for k in sorted(losses)},
-          episodes={k: dict(count=len(v), scores=[s for s, _ in v],
-                            lengths=sorted({n for _, n in v}))
-                    for k, v in episodes.items()},
+          last_losses=losses, episodes=summary,
           peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
       if '--script' in flags:
         row.update(
@@ -1694,7 +1772,7 @@ def phase_script(torch, scripts=SCRIPTS):
     shutil.rmtree(logdir, ignore_errors=True)
     torch.cuda.empty_cache()
   loop.Reporter.__call__ = reporter_call
-  loop.make_driver = make_driver
+  restore()
   parallel.Agent.train = agent_train
   if 'default pinpad train_eval' in speeds:
     # PinPad's host rendering beside the dummy env, on one configuration.
@@ -2023,6 +2101,305 @@ def phase_default(torch):
   return launches
 
 
+# The PPO and Director agents at their default configurations (each
+# configs.yaml's `defaults`, no preset) on PinPad with 300-step episodes.
+FAMILY_CALLS = 20  # policy calls of ENVS envs
+FAMILY_STEPS = (1, 3)  # warm-up and timed train steps
+# The JAX package's PPO learning check (tests/test_learning.py), on the
+# card: 'dummy_bandit' rewards one fixed action of five; a random policy
+# scores some 20 per 100-step episode, the best 99.
+BANDIT = ['--configs', 'debug', '--torch.device', 'cuda',
+          '--task', 'dummy_bandit', '--batch_size', '8',
+          '--batch_length', '16', '--replay_context', '0',
+          '--run.steps', '3000', '--run.train_ratio', '64',
+          '--run.log_every', '2', '--run.report_every', '1e9',
+          '--run.save_every', '1e9', '--run.envs', '4',
+          '--replay.size', '4e3', '--agent.opt.lr', '3e-3',
+          '--agent.opt.warmup', '20', '--agent.enc.impala.depth', '4',
+          '--agent..*\\.units', '32']
+BANDIT_SEED = 0
+
+
+def act_timed(agent, config, calls):
+  """`calls` policy calls over ENVS envs of the config's task through a
+  Driver; returns ms per call, the last carry and observations, and the
+  count of actions out of their space."""
+  import numpy as np
+  from embodied_tpu_torch import core
+  from embodied_tpu_torch.models import common
+  driver = core.Driver(
+      [lambda i=i: common.make_env(config, i) for i in range(ENVS)],
+      parallel=False)
+  times, last, bad = [], {}, [0]
+
+  def policy(carry, obs, mode='train'):
+    start = time.perf_counter()
+    carry, act, out = agent.policy(carry, obs, mode)
+    times.append((time.perf_counter() - start) * 1e3)
+    for key, space in agent.act_space.items():
+      a = act[key]
+      bad[0] += int(((a < space.low) | (a >= space.high)).sum()
+                    if space.discrete else (~np.isfinite(a)).sum())
+    last.update(carry=carry, obs=obs)
+    return carry, act, out
+  driver.reset(agent.init_policy)
+  driver(policy, steps=calls * ENVS)
+  driver.close()
+  return times, last, bad[0]
+
+
+def family_loss(key):
+  """The losses PPO and Director log: per term and per optimizer."""
+  return key.startswith('loss/') or key.endswith(('/loss', '_loss'))
+
+
+def run_main(torch, module, label, argv, budget, every):
+  """main.main(argv) in-process on a wall-clock budget, with its env
+  steps counted and its log read back. Returns the run's row and its
+  problems."""
+  import shutil
+  logdir = os.path.join(ROOT, 'build', f'chip_smoke_{label}')
+  shutil.rmtree(logdir, ignore_errors=True)
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  argv = [*argv, '--logdir', logdir, '--run.steps', str(STEP_CAP),
+          '--run.duration', str(budget), '--run.log_every', str(every),
+          '--run.report_every', str(every), '--run.save_every', str(every)]
+  transports, ticks, restore = count_drivers()
+  start = time.perf_counter()
+  try:
+    module.main(argv)
+  finally:
+    restore()
+  wall = time.perf_counter() - start
+  _, _, summary, losses = read_log(logdir, family_loss)
+  row = dict(
+      config=label, argv=argv, wall_s=wall, budget_s=budget,
+      driver=transports[0], env_steps=ticks[0],
+      env_steps_per_s=ticks[0] / wall,
+      saved=os.path.exists(os.path.join(logdir, 'checkpoint.pkl')),
+      last_losses=losses, episodes=summary,
+      peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+  problems = []
+  if not losses or not all(math.isfinite(v) for v in losses.values()):
+    problems.append(f'logged losses {losses}')
+  if not row['saved'] or row['driver'] != 'process':
+    problems.append(f'saved {row["saved"]}, driver {row["driver"]}')
+  shutil.rmtree(logdir, ignore_errors=True)
+  return row, problems
+
+
+def scores_of(logdir):
+  with open(os.path.join(logdir, 'scores.jsonl')) as f:
+    return [json.loads(line)['score'] for line in f if line.strip()]
+
+
+def phase_ppo(torch):
+  """PPO's default configuration (models/ppo/configs.yaml) on PinPad:
+  its parameter count; FAMILY_CALLS policy calls of ENVS envs; train
+  steps on a 16 x 65 batch collected by those policy calls; main.main
+  `train` on a wall-clock budget with the process driver; and the JAX
+  package's bandit learning check with its thresholds. PPO reaches no
+  kernel: every count must stay 0."""
+  import shutil
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.ppo import main as pmain
+  wrappers = train_wrappers()
+  for wrapper in wrappers.values():
+    wrapper.launches = 0
+  config = common.assemble_config(pmain.CONFIGS, PINPAD + HOST_PATH)
+  agent = pmain.make_agent(config)
+  params = sum(p.numel() for p in agent.model.parameters())
+  times, _, bad = act_timed(agent, config, FAMILY_CALLS)
+  steady = sorted(times[len(times) // 2:])
+  problems = [f'{bad} actions out of their space'] if bad else []
+  data, _ = collect_batch(agent, config)
+  warmup, steps = FAMILY_STEPS
+  carry, row, more = train_steps(
+      torch, agent, data, wrappers, warmup, steps,
+      {k: 0 for k in wrappers}, losses=family_loss, replay=False)
+  problems += more
+  _, row['profile'] = profile_train(torch, agent, carry, data,
+                                    row['ms_per_train_step'])
+  row.update(
+      phase='ppo', path='ppo default pinpad', argv=PINPAD + HOST_PATH,
+      parameters=params, envs=ENVS, policy_calls=len(times),
+      first_call_ms=times[0], ms_per_policy_call=statistics.median(steady),
+      ms_per_policy_call_max=steady[-1])
+  del agent
+  script, more = run_main(torch, pmain, 'ppo_pinpad', PINPAD, 20, 8)
+  problems += more
+  row['script'] = script
+  # The bandit check: the JAX test's settings, on the card.
+  logdir = os.path.join(ROOT, 'build', 'chip_smoke_bandit')
+  shutil.rmtree(logdir, ignore_errors=True)
+  start = time.perf_counter()
+  bandit = common.assemble_config(pmain.CONFIGS, BANDIT + [
+      '--logdir', logdir, '--seed', str(BANDIT_SEED)])
+  common.run_script(bandit, pmain.make_agent)
+  scores = scores_of(logdir)
+  shutil.rmtree(logdir, ignore_errors=True)
+  quarter = max(3, len(scores) // 2 // 2)
+  early = statistics.mean(scores[:quarter])
+  late = statistics.mean(scores[-quarter:])
+  row['bandit'] = dict(
+      seed=BANDIT_SEED, episodes=len(scores), early=early, late=late,
+      wall_s=time.perf_counter() - start)
+  if not (len(scores) >= 10 and late > early + 10 and late > 40):
+    problems.append(f'the bandit check: {row["bandit"]}')
+  row['launches'] = {k: w.launches for k, w in wrappers.items()}
+  if any(row['launches'].values()):
+    problems.append(f'PPO launched a kernel: {row["launches"]}')
+  row['ok'] = not problems
+  emit(**row)
+  if problems:
+    fail('ppo', '; '.join(problems))
+
+
+WM_ROOTS = ('enc', 'dyn', 'dec', 'rew', 'con')
+
+
+def wm_grads(torch, agent, data):
+  """Director's world-model gradients on `data` (its first window, from
+  the agent's initial carry) through the kernels (kernel: auto) and the
+  plain path (kernel: off), with the same draws: per store root, the
+  relative error in norm and the plain norm; and whether the prior got no
+  gradient on the plain path (every KL at the free-nats floor)."""
+  from embodied_tpu_torch import nn
+  model = agent.model
+  B = data['is_first'].shape[0]
+  batch = agent._take_batch(data)
+  carry = nn.core.tree_map(agent._to_device, agent.init_train(B))
+  dyn_carry, obs, prevact, _ = model._resume_window(carry, batch)
+  params = nn.scope_params(model, model.WM)
+  grads = {}
+  for mode in ('auto', 'off'):
+    model.dyn.kernel = mode
+    gen = torch.Generator(agent.device).manual_seed(SEED + 2)
+    loss, _ = model.wm_loss(dyn_carry, obs, prevact,
+                            nn.dists.Draws(gen, agent.device))
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads[mode] = {k: torch.zeros_like(p) if g is None else g.float()
+                   for (k, p), g in zip(params.items(), got)}
+  model.dyn.kernel = 'auto'
+  flat = lambda mode, root: torch.cat([
+      g.reshape(-1) for k, g in grads[mode].items()
+      if k.split('/')[0] == root])
+  rel = {root: relerr(flat('auto', root), flat('off', root))
+         for root in WM_ROOTS}
+  norms = {root: float(flat('off', root).norm()) for root in WM_ROOTS}
+  prior_zero = not any(bool(g.any()) for k, g in grads['off'].items()
+                       if k.startswith('dyn/prior'))
+  return rel, norms, prior_zero
+
+
+def phase_director(torch):
+  """Director's default configuration (models/director/configs.yaml) on
+  PinPad, each path with the launch counts set to 0 just before and read
+  just after: FAMILY_CALLS policy calls of ENVS envs, each launching
+  kernel 3 once, held against the plain path; train steps on a 16 x 65
+  batch collected by those calls (train_steps), each launching kernels 5
+  and 6 once and kernel 1 once per step of the hierarchy's rollout
+  (imag_length), the first step's losses against kernel: off, every
+  trained parameter changed by the last step; and main.main `train_eval`
+  on a wall-clock budget. Before the train steps, kernels 5 and 6 are held
+  against their plain versions at Director's shapes (its token width, at
+  GRAD_RTOL for the backward), and the world model's gradients through
+  the kernels against kernel: off on the collected batch, per store root
+  at GRAD_RTOL. Returns the launches."""
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.director import main as dmain
+  wrappers = train_wrappers()
+  config = common.assemble_config(dmain.CONFIGS, PINPAD + HOST_PATH)
+  agent = dmain.make_agent(config)
+  model = agent.model
+  params = sum(p.numel() for p in model.parameters())
+  for wrapper in wrappers.values():
+    wrapper.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  times, last, bad = act_timed(agent, config, FAMILY_CALLS)
+  acting = {k: w.launches for k, w in wrappers.items()}
+  acting_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+  problems = [f'{bad} actions out of their space'] if bad else []
+  if acting != dict({k: 0 for k in wrappers}, obs_step=len(times)):
+    problems.append(f'{len(times)} policy calls launched {acting}')
+  errs, same = check_against_plain(torch, agent, last, 0, 2)
+  if not all(ok for _, ok in errs.values()):
+    problems.append(f'kernel 3 disagrees with the plain path: {errs}')
+  data, _ = collect_batch(agent, config)
+  # Kernels 5 and 6 at the shapes of Director's window: its RSSM is
+  # size12m's, its tokens PinPad's at Director's encoder width.
+  dyn = model.dyn
+  dims = dict(D=dyn.deter, H=dyn.hidden, S=dyn.stoch, K=dyn.token_dim)
+  gen = torch.Generator(DEV).manual_seed(SEED + 3)
+  flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=DEV)
+  core, head = size12m_params(torch, gen, dims['D'], dims['H'],
+                              dims['S'] * dyn.classes, dyn.blocks,
+                              dims['K'], dims['S'] * dyn.classes)
+  window = window_kernels(torch, gen, core + head, flush,
+                          T=config.batch_length, B=config.batch_size,
+                          C=dyn.classes, config='director', **dims)
+  del flush
+  grad_rel, grad_norms, prior_zero = wm_grads(torch, agent, data)
+  off = [k for k, e in grad_rel.items() if not e <= GRAD_RTOL]
+  if off:
+    problems.append(f'world-model gradients off the plain path: {grad_rel}')
+  warmup, steps = FAMILY_STEPS
+  per_step = dict({k: 0 for k in wrappers}, observe_seq=1,
+                  observe_seq_bwd=1, core_step=config.agent.imag_length)
+  for wrapper in wrappers.values():
+    wrapper.launches = 0
+  carry, row, more = train_steps(
+      torch, agent, data, wrappers, warmup, steps, per_step,
+      plain=plain_train, losses=family_loss,
+      trained=model.WM + ('goal_enc', 'goal_dec') + model.AC,
+      at_floor=lambda row: prior_zero, changed_after=warmup + steps - 1)
+  problems += more
+  train_launches = {k: w.launches for k, w in wrappers.items()}
+  _, row['profile'] = profile_train(torch, agent, carry, data,
+                                    row['ms_per_train_step'])
+  steady = sorted(times[len(times) // 2:])
+  row.update(
+      phase='director', path='director default pinpad',
+      argv=PINPAD + HOST_PATH, parameters=params, envs=ENVS,
+      policy_calls=len(times), first_call_ms=times[0],
+      ms_per_policy_call=statistics.median(steady),
+      ms_per_policy_call_max=steady[-1], acting_launches=acting,
+      acting_peak_mem_mb=acting_peak,
+      plain_max_abs_err={k: e for k, (e, _) in errs.items()},
+      sample_agreement=same, train_launches=train_launches,
+      window_kernels={r['name']: dict(
+          dims, max_abs_err=r['max_abs_err'], ms=r['ms'],
+          plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+          **({'relative_errors': r['relative_errors']}
+             if 'relative_errors' in r else {})) for r in window},
+      wm_grad_relative_errors=grad_rel, wm_grad_norms=grad_norms,
+      grad_rtol=GRAD_RTOL)
+  dyn_classes = dyn.classes
+  del agent, model, dyn
+  script, more = run_main(torch, dmain, 'director_pinpad',
+                          PINPAD + ['--script', 'train_eval'], 25, 10)
+  problems += more
+  row['script'] = script
+  row['ok'] = not problems
+  emit(**row)
+  if problems:
+    fail('director', '; '.join(problems))
+  # Each kernel's launches on Director's path, with the shape it ran at
+  # there (the `kernels` line's rows are measured at other shapes).
+  size = f'D={dims["D"]}, H={dims["H"]}, {dims["S"]}x{dyn_classes} stoch'
+  window = f'T={config.batch_length}, B={config.batch_size}, {size}, ' \
+           f'K={dims["K"]} tokens'
+  return dict(
+      obs_step=(acting['obs_step'], f'B={ENVS}, {size}, K={dims["K"]} '
+                                    'tokens'),
+      observe_seq=(train_launches['observe_seq'], window),
+      observe_seq_bwd=(train_launches['observe_seq_bwd'], window),
+      core_step=(train_launches['core_step'],
+                 f'B={config.batch_size * config.batch_length}, {size}'))
+
+
 def main():
   try:
     import torch
@@ -2065,6 +2442,8 @@ def main():
   launches.update(phase_default(torch))
   launches.update(table_launches)
   phase_script(torch)
+  phase_ppo(torch)
+  director = phase_director(torch)
   kernels = []
   for row in rows:
     # The list holds each kernel once: at the default configuration's dims
@@ -2085,6 +2464,9 @@ def main():
         ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
         bound_by=row['bound_by'], library_ms=None,
         config=row.get('config', 'size12m')))
+    if name in director:
+      kernels[-1]['director_launches'], kernels[-1]['director_shape'] = (
+          director[name])
   if sorted(k['name'] for k in kernels) != sorted(SOURCES):
     fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
   emit(phase='total', ok=True, seconds=time.perf_counter() - start)

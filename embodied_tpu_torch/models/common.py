@@ -16,7 +16,7 @@ from functools import partial as bind
 
 import yaml
 
-from .. import core, run
+from .. import core, nn, parallel, run
 from ..core import selectors as selectorlib
 from ..core import streams as streamlib
 from ..utils import (
@@ -120,6 +120,21 @@ def run_script(config, make_agent_fn):
         bind(make_env, config),
         bind(make_logger, config),
         args)
+
+
+def make_agent(config, model_cls, device=None):
+  """The torch Agent of `model_cls` for `config`, on `device` (default:
+  the config's torch.device, 'cuda'), or under `random_agent` the agent
+  that acts at random. Raises without a card unless the device is the
+  CPU."""
+  obs_space, act_space = env_spaces(config)
+  if config.random_agent:
+    return core.RandomAgent(obs_space, act_space)
+  device = parallel.agent.resolve_device(device or config.torch.device)
+  acfg = agent_config(config)
+  model = model_cls(obs_space, act_space, acfg,
+                    cdtype=nn.DTYPES[config.torch.compute_dtype])
+  return parallel.Agent(model, obs_space, act_space, acfg, device)
 
 
 def agent_config(config):

@@ -24,27 +24,16 @@ if __name__ == '__main__' and __package__ is None:
       os.path.join(os.path.dirname(__file__), '..', '..', '..')))
   __package__ = 'embodied_tpu_torch.models.dreamerv3'
 
-from ... import core as corelib
-from ... import nn
-from ... import parallel
 from .. import common
 
 CONFIGS = pathlib.Path(__file__).with_name('configs.yaml')
 
 
 def make_agent(config, device=None):
-  """The torch Agent for `config`, on `device` (default: the config's
-  torch.device, 'cuda'), or under `random_agent` the agent that acts at
-  random. Raises without a card unless the device is the CPU."""
-  obs_space, act_space = common.env_spaces(config)
-  if config.random_agent:
-    return corelib.RandomAgent(obs_space, act_space)
-  device = parallel.agent.resolve_device(device or config.torch.device)
+  """The torch Agent for `config` (common.make_agent with this package's
+  Model)."""
   from .model import Model
-  acfg = common.agent_config(config)
-  model = Model(obs_space, act_space, acfg,
-                cdtype=nn.DTYPES[config.torch.compute_dtype])
-  return parallel.Agent(model, obs_space, act_space, acfg, device)
+  return common.make_agent(config, Model, device)
 
 
 def main(argv=None):

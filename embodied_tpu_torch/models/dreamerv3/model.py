@@ -21,10 +21,6 @@ from ... import nn
 from ...utils import Space, tree
 from . import ac, rssm
 
-_TORCH_DTYPES = {
-    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
-    np.dtype(np.float32): torch.float32, np.dtype(bool): torch.bool,
-    np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8}
 OPT_SCOPES = ('enc', 'dyn', 'dec', 'rew', 'con', 'pol', 'val')
 isimage = lambda s: s.dtype == np.uint8 and len(s.shape) == 3
 
@@ -90,11 +86,9 @@ class Model(nn.Module):
     self.valnorm = nn.Normalize(**dict(acfg.valnorm), name='valnorm')
     self.advnorm = nn.Normalize(**dict(acfg.advnorm), name='advnorm')
 
-    params = {f'{scope}/{path.replace(".", "/")}': value
-              for scope in OPT_SCOPES
-              for path, value in getattr(self, scope).named_parameters()}
     self.opt = nn.Optimizer(
-        params, 'opt', scaling=cdtype == torch.float16, **dict(acfg.opt))
+        nn.scope_params(self, OPT_SCOPES), 'opt',
+        scaling=cdtype == torch.float16, **dict(acfg.opt))
 
     scales = dict(acfg.loss_scales)
     rec = scales.pop('rec')
@@ -141,7 +135,7 @@ class Model(nn.Module):
   def init_policy(self, batch_size):
     device = self.device
     zeros = lambda s: torch.zeros(
-        (batch_size, *s.shape), dtype=_TORCH_DTYPES[s.dtype], device=device)
+        (batch_size, *s.shape), dtype=nn.torch_dtype(s.dtype), device=device)
     return (self.enc.initial(batch_size, device),
             self.dyn.initial(batch_size, device), {},
             {k: zeros(v) for k, v in self.act_space.items()})
@@ -162,7 +156,7 @@ class Model(nn.Module):
     dyn_carry, dyn_entry, feat = self.dyn.observe(
         dyn_carry, tokens, prevact, reset, gen=gen, **kw)
     policy = self.pol(self._feat2tensor(feat), bdims=1)
-    act = {k: v.sample(gen).to(_TORCH_DTYPES[self.act_space[k].dtype])
+    act = {k: v.sample(gen).to(nn.torch_dtype(self.act_space[k].dtype))
            for k, v in policy.items()}
     # Finite-ness screening, logged per episode (log/ keys bypass replay).
     screen = lambda x: (
@@ -190,7 +184,7 @@ class Model(nn.Module):
         value = dist.sample(noise=draws.gumbel(dist.logits.shape))
       else:
         value = dist.sample(noise=draws.normal(dist.pred().shape))
-      out[key] = value.to(_TORCH_DTYPES[space.dtype])
+      out[key] = value.to(nn.torch_dtype(space.dtype))
     return out
 
   def _fused_policy_spec(self):

@@ -29,6 +29,15 @@ PARAM_DTYPE = torch.float32
 DTYPES = {
     'bfloat16': torch.bfloat16, 'float16': torch.float16,
     'float32': torch.float32}
+_NUMPY_DTYPES = {
+    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32, np.dtype(bool): torch.bool,
+    np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8}
+
+
+def torch_dtype(dtype):
+  """The torch dtype of a numpy dtype (a space's)."""
+  return _NUMPY_DTYPES[np.dtype(dtype)]
 
 
 class Module(torch.nn.Module):

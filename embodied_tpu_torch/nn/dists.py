@@ -1,6 +1,6 @@
 """Output distributions with pred/sample/logp/entropy/kl/loss.
 
-Counterparts of embodied_tpu/nn/dists.py: MSE, Normal, Binary,
+Counterparts of embodied_tpu/nn/dists.py: MSE, Huber, Normal, Binary,
 Categorical, OneHot (straight-through samples), TwoHot (symexp bins, an
 exactly-zero prediction at uniform logits) and Agg. Categorical families
 keep normalized log-probabilities (optionally mixed with the uniform
@@ -56,7 +56,22 @@ class MSE(Dist):
   def loss(self, target):
     target = self._squash(_as_float(target)).detach()
     assert target.shape == self.mean.shape, (target.shape, self.mean.shape)
-    return torch.square(self.mean - target)
+    return self._penalty(self.mean - target)
+
+  def _penalty(self, err):
+    return torch.square(err)
+
+
+class Huber(MSE):
+  """Regression with the Charbonnier (smooth Huber) penalty
+  sqrt(err^2 + eps^2) - eps."""
+
+  def __init__(self, mean, eps=1.0, squash=None):
+    super().__init__(mean, squash)
+    self._eps = eps
+
+  def _penalty(self, err):
+    return torch.sqrt(torch.square(err) + self._eps ** 2) - self._eps
 
 
 class Normal(Dist):

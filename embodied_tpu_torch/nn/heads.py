@@ -1,8 +1,9 @@
 """Output heads producing distribution objects: MLPHead, DictHead, Head.
 
 Counterparts of embodied_tpu/nn/heads.py with the same parameter paths and
-the outputs binary, categorical, onehot, mse, symlog_mse, symexp_twohot
-(zero-initialised with outscale 0) and bounded_normal.
+every output of the JAX Head: binary, categorical, onehot, mse, huber,
+symlog_mse, symexp_twohot (zero-initialised with outscale 0),
+bounded_normal and normal_logstd.
 """
 
 import math
@@ -74,7 +75,7 @@ class Head(core.Module):
       self.logits = Linear(din, (*shape, space.classes), 'logits', **kw)
     elif output == 'onehot':
       self.logits = Linear(din, shape, 'logits', **kw)
-    elif output in ('mse', 'symlog_mse'):
+    elif output in ('mse', 'huber', 'symlog_mse'):
       self.pred = Linear(din, shape or 1, 'pred', **kw)
     elif output == 'symexp_twohot':
       self.logits = Linear(din, (*shape, bins), 'logits', **kw)
@@ -82,11 +83,11 @@ class Head(core.Module):
       # the host at each call would make the host wait for the card.
       self.register_buffer('binvals', torch.from_numpy(
           dists.symexp_bins(bins)), persistent=False)
-    elif output == 'bounded_normal':
+    elif output in ('bounded_normal', 'normal_logstd'):
       self.mean = Linear(din, shape or 1, 'mean', **kw)
       self.stddev = Linear(din, shape or 1, 'stddev', **kw)
     else:
-      raise NotImplementedError(f'Head output {output!r} is not ported yet')
+      raise NotImplementedError(output)
 
   def forward(self, x):
     output = getattr(self, '_' + self.impl)(x)
@@ -120,6 +121,9 @@ class Head(core.Module):
   def _mse(self, x):
     return dists.MSE(self._squeeze(self.pred(x)))
 
+  def _huber(self, x):
+    return dists.Huber(self._squeeze(self.pred(x)))
+
   def _symlog_mse(self, x):
     return dists.MSE(self._squeeze(self.pred(x)), core.symlog)
 
@@ -137,3 +141,8 @@ class Head(core.Module):
     output.minent = entropy(lo)
     output.maxent = entropy(hi)
     return output
+
+  def _normal_logstd(self, x):
+    mean = self._squeeze(self.mean(x)).float()
+    stddev = self._squeeze(self.stddev(x)).float()
+    return dists.Normal(mean, stddev.exp())

@@ -1,4 +1,5 @@
-"""Layers of the port: Linear, BlockLinear, Norm, Conv2D, DictConcat, MLP.
+"""Layers of the port: Linear, BlockLinear, Embed, Norm, Conv2D, DictConcat,
+DictEmbed, MLP, GRU.
 
 Counterparts of embodied_tpu/nn/layers.py with the same parameter names,
 shapes and layouts: Linear kernels (in, out), BlockLinear kernels
@@ -71,6 +72,20 @@ class BlockLinear(Module):
     if self.use_bias:
       y = y + self.cast(self.bias)
     return y
+
+
+class Embed(Module):
+  """Lookup table of `classes` rows of width `units` (path `embed`)."""
+
+  def __init__(self, classes, units, name, winit='trunc_normal_in',
+               outscale=1.0, cdtype=core.COMPUTE_DTYPE):
+    super().__init__(name, cdtype)
+    self.classes = classes
+    self.units = units
+    self.param('embed', (classes, units), _winit(winit, outscale))
+
+  def forward(self, x):
+    return self.cast(self.embed)[x.long()]
 
 
 def parse_norm(impl):
@@ -152,6 +167,12 @@ class Conv2D(Module):
     return y
 
 
+def _flat_width(space):
+  """The width of a space's entry flattened, one-hot where discrete."""
+  size = int(np.prod(space.shape))
+  return size * space.classes if space.discrete else size
+
+
 class DictConcat(Module):
   """Concatenates dict values (sorted by key) into one flat feature axis;
   discrete entries are one-hot encoded, continuous optionally squished."""
@@ -164,11 +185,7 @@ class DictConcat(Module):
 
   @property
   def width(self):
-    total = 0
-    for space in self.spaces.values():
-      size = int(np.prod(space.shape))
-      total += size * space.classes if space.discrete else size
-    return total
+    return sum(_flat_width(space) for space in self.spaces.values())
 
   def forward(self, xs):
     outs = []
@@ -184,6 +201,36 @@ class DictConcat(Module):
       x = x.reshape((*x.shape[:bdims], -1))
       outs.append(self.cast(x))
     return torch.cat(outs, -1)
+
+
+class DictEmbed(Module):
+  """Embeds each dict entry (sorted by key) with its own Linear
+  (`embed_<key>`) and sums the embeddings; discrete entries are one-hot
+  encoded, continuous ones optionally squished first."""
+
+  def __init__(self, spaces, units, name, squish=None,
+               cdtype=core.COMPUTE_DTYPE, **kw):
+    super().__init__(name, cdtype)
+    self.spaces = spaces
+    self.units = units
+    self.squish = squish or (lambda x: x)
+    self.heads = {
+        key: self.child(Linear(
+            _flat_width(spaces[key]), units, f'embed_{key}', cdtype=cdtype,
+            **kw))
+        for key in sorted(spaces.keys())}
+
+  def forward(self, xs, bshape):
+    total = 0
+    for key, head in self.heads.items():
+      space = self.spaces[key]
+      x = xs[key]
+      if space.discrete:
+        x = F.one_hot(x.long(), space.classes).float()
+      else:
+        x = self.cast(self.squish(x.float()))
+      total = total + head(self.cast(x.reshape((*bshape, -1))))
+    return total
 
 
 class MLP(Module):
@@ -204,3 +251,43 @@ class MLP(Module):
     for linear, norm in self.layers:
       x = self.act(norm(linear(x)))
     return x
+
+
+class GRU(Module):
+  """GRU over time with carry resets, as the JAX GRU: the carry is zeroed
+  where `resets`, then one Linear (`core`) on [carry, x] and the norm
+  give the reset, candidate and update gates; the update gate is
+  sigmoid(u - 1). A window of T steps runs as a loop of single steps."""
+
+  def __init__(self, din, units, name, norm='rms', cdtype=core.COMPUTE_DTYPE,
+               **kw):
+    super().__init__(name, cdtype)
+    self.units = units
+    self.core = Linear(units + din, 3 * units, 'core', cdtype=cdtype, **kw)
+    self.norm = Norm(norm, 'norm', 3 * units, cdtype=cdtype)
+
+  def initial(self, batch_size, device=None):
+    return torch.zeros((batch_size, self.units), dtype=self.cdtype,
+                       device=device)
+
+  def forward(self, carry, inputs, resets, single=False):
+    """(B, units), (B, din), (B,) -> (carry, carry) if `single`, else
+    (B, units), (B, T, din), (B, T) -> (carry, (B, T, units))."""
+    if single:
+      carry = self._step(carry, inputs, resets)
+      return carry, carry
+    outs = []
+    for t in range(inputs.shape[1]):
+      carry = self._step(carry, inputs[:, t], resets[:, t])
+      outs.append(carry)
+    return carry, torch.stack(outs, 1)
+
+  def _step(self, carry, x, reset):
+    carry = core.mask(carry, ~reset)
+    x = torch.cat([self.cast(carry), self.cast(x)], -1)
+    x = self.norm(self.core(x))
+    reset_gate, cand, update = torch.chunk(x, 3, -1)
+    reset_gate = torch.sigmoid(reset_gate)
+    cand = torch.tanh(reset_gate * cand)
+    update = torch.sigmoid(update - 1)
+    return update * cand + (1 - update) * carry

@@ -21,6 +21,19 @@ import torch
 from . import core
 
 
+def scope_params(root, scopes):
+  """The trained parameters of `root` under the store scopes `scopes`
+  (paths such as 'worker/actor'), as {path: parameter}: what the JAX
+  Optimizer's scope list selects."""
+  out = {}
+  for name, param in root.named_parameters():
+    path = name.replace('.', '/')
+    if param.requires_grad and any(
+        path == s or path.startswith(s + '/') for s in scopes):
+      out[path] = param
+  return out
+
+
 class Optimizer(core.Module):
 
   def __init__(

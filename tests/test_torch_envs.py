@@ -22,13 +22,19 @@
   tests/test_torch_policy.py (tolerance 1e-4). Then `main.main` trains on
   the debug preset on pinpad_three, dmc_walker_walk, gym_CartPole-v1 and
   dmc_proprio with two envs and logs episode scores.
+- The tests that make a MuJoCo env run in a child interpreter each
+  (`own_process`): dm_control's EGL renderer and TensorFlow cannot share
+  a process.
 """
 
+import functools
 import importlib
 import importlib.util
 import json
+import os
 import pathlib
 import pickle
+import re
 import subprocess
 import sys
 
@@ -58,6 +64,40 @@ PACKAGES = {  # each package's wrappers, Dummy and Space
     'jax': (jwrappers, JDummy, jutils.Space),
     'port': (wrappers, Dummy, utils.Space),
 }
+
+
+# dm_control with MuJoCo's EGL renderer (which the DMC and LocoNav
+# adapters select, and which importing dm_control loads) and TensorFlow
+# crash one process together (a segmentation fault in TensorFlow's
+# import, whichever comes first), and tests/test_viewer.py imports
+# TensorFlow: a test worker that ran a MuJoCo env here would crash there.
+# So each test that makes one runs in a child interpreter of its own and
+# passes, skips or fails as the child does.
+CHILD = 'EMBODIED_TPU_TORCH_RENDER_CHILD'
+
+
+def own_process(renders=lambda **kwargs: True):
+  """Runs the test in a child pytest where `renders(**its arguments)`
+  (it makes a MuJoCo env)."""
+  def decorate(test):
+    @functools.wraps(test)
+    def run(*args, **kwargs):
+      if os.environ.get(CHILD) or not renders(**kwargs):
+        return test(*args, **kwargs)
+      nodeid = os.environ['PYTEST_CURRENT_TEST'].rsplit(' (', 1)[0]
+      out = subprocess.run(
+          [sys.executable, '-m', 'pytest', '-q', '-rs', '-p', 'no:xdist',
+           '-p', 'no:cacheprovider', '-p', 'no:randomly', nodeid],
+          cwd=ROOT, env=dict(os.environ, **{CHILD: '1'}),
+          capture_output=True, text=True)
+      lines = out.stdout.strip().splitlines()
+      summary = lines[-1] if lines else ''
+      if out.returncode == 0 and re.search(r'\b1 skipped\b', summary):
+        pytest.skip(f'in the child: {out.stdout[-500:]}')
+      assert out.returncode == 0 and re.search(r'\b1 passed\b', summary), (
+          out.stdout[-6000:] + out.stderr[-3000:])
+    return run
+  return decorate
 
 
 def obs_equal(got, want, where=''):
@@ -345,6 +385,7 @@ def test_pinpad_matches_jax(task):
 
 @pytest.mark.skipif(not has('dm_control'), reason='no dm_control')
 @pytest.mark.parametrize('twin', ['jax', 'port'])
+@own_process()
 def test_dmc_walker_matches_jax(twin):
   """The JAX adapter against itself (the two renders agree to the bit),
   then the port's against it."""
@@ -382,6 +423,7 @@ def test_gym_cartpole_matches_jax():
 
 
 @pytest.mark.skipif(not has('dm_control'), reason='no dm_control')
+@own_process()
 def test_loconav_ant_maze_matches_jax():
   from embodied_tpu.envs.loconav import LocoNav as JLocoNav
   from embodied_tpu_torch.envs.loconav import LocoNav
@@ -529,6 +571,7 @@ def step_all(envs, acts, reset=False):
 
 
 @pytest.mark.parametrize('task', sorted(SLICE_TASKS))
+@own_process(lambda task: task.startswith('dmc'))
 def test_slice_make_env_matches_jax(task):
   config, jconfig = slice_configs(task)
   jenvs, envs = slice_envs(config, jconfig)
@@ -574,6 +617,7 @@ def close(got, want, name):
 
 
 @pytest.mark.parametrize('task', sorted(SLICE_TASKS))
+@own_process(lambda task, **_: task.startswith('dmc'))
 def test_slice_policy_matches_jax(task, jax_f32):
   """The port's Agent.policy and its model's stages on the observations of
   the port's envs, against the JAX Model, which steps the envs with its
@@ -655,6 +699,7 @@ def one_thread():
 
 
 @pytest.mark.parametrize('run', sorted(MAIN_RUNS))
+@own_process(lambda run, **_: run.startswith('dmc'))
 def test_main_trains_on_the_suite(run, tmp_path, one_thread):
   if run.startswith('dmc') and not has('dm_control'):
     pytest.skip('no dm_control')
