@@ -60,11 +60,22 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            policy calls on dummy_disc and on PinPad (pinpad_three, 16
            envs), Agent.train steps with the losses against kernel: off
            and a profile, and main.main with the process driver, script
-           train and script train_eval on dummy_disc, and train_eval on
-           PinPad with its episodes cut to 300 steps, each to a budget of
-           35-50 s (train steps, reports, train and eval episodes with
-           their scores, and a save); env steps/s of the two train_eval
-           runs side by side.
+           train_eval on dummy_disc and on PinPad with its episodes cut
+           to 300 steps, to budgets of 35 and 50 s (train steps, reports,
+           train and eval episodes with their scores, and a save); env
+           steps/s of the two runs side by side.
+  parallel script=parallel at the default configuration on PinPad
+           (300-step episodes) in-process, to a budget of 40 s from its
+           first train step: 16 train and 4 eval env processes, a replay
+           and a logger process, the actor (8 envs a policy call, kernel
+           3, held against its plain version on the actor's last
+           request) and the learner (kernels 5, 6 and 8 each train step,
+           5 and 8 in its reports) in this process, which alone may hold
+           the card; the native codec, env steps/s beside the PinPad
+           train_eval run's, train frames/s, the replayed-to-env ratio,
+           the actor's ms per call and lock wait, the RPC servers' stats,
+           a logged report and finite train losses, no failed actor call
+           or role, and no child process or thread left when it returns.
   latents  the device-resident latent table at the default configuration
            and at size12m: the table's slots, bytes and regions; policy
            calls on the table path and on the host path (latents in the
@@ -104,7 +115,7 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
 The phases slice, train, modes, default, ppo and director run the host
 path (HOST_PATH: torch.latent_slots 0, fetch_depth 0), on which each
 train call returns its own step and can be held against the plain path;
-the latents phase and the scripts run the defaults.
+the latents phase, the scripts and the parallel phase run the defaults.
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
@@ -1079,17 +1090,22 @@ def drive(argv, calls, modes):
 
 def check_against_plain(torch, agent, last, dyn_carry=1, prevact=3):
   """One observe step on the card through the kernel path and through the
-  plain path (kernel: off), with the same carry, inputs and Gumbel noise.
+  plain path (kernel: off), with the same carry, inputs and Gumbel noise,
+  at the batch of `last` (its observations, and the policy carry they
+  were acted on with).
   `dyn_carry` and `prevact` index the RSSM's carry and the previous
   action in the policy's carry (DreamerV3's by default)."""
+  from embodied_tpu_torch import nn
   from embodied_tpu_torch.nn import dists
   model = agent.model
   carry, obs = last['carry'], {
       k: agent._to_device(v) for k, v in last['obs'].items()}
-  carry = {1: carry[dyn_carry], 3: carry[prevact]}
+  carry = nn.core.tree_map(
+      agent._to_device, {1: carry[dyn_carry], 3: carry[prevact]})
   dyn = model.dyn
   gen = torch.Generator(agent.device).manual_seed(SEED + 1)
-  noise = dists.gumbel((ENVS, dyn.stoch, dyn.classes), gen, agent.device)
+  noise = dists.gumbel((len(obs['is_first']), dyn.stoch, dyn.classes), gen,
+                       agent.device)
   outs = {}
   with torch.inference_mode():
     _, _, tokens = model.enc({}, obs, obs['is_first'], single=True)
@@ -1536,16 +1552,20 @@ SCRIPTS = (
     # size12m, then again on the same logdir: the second run resumes.
     # Then train_eval the same way, with its 4 eval envs and eval replay;
     # an evaluation (an eval episode and two reports) takes some 2 s, so
-    # it comes every 6 s.
-    ('size12m', SIZE12M, (15, 10), 2, 2),
-    ('size12m train_eval', SIZE12M + ['--script', 'train_eval'], (15, 10),
+    # it comes every 6 s. Each pair's budgets were (15, 10) until the
+    # parallel phase came: the smoke keeps the sum of its script runs'
+    # budgets at the 220 s it had.
+    ('size12m', SIZE12M, (12, 8), 2, 2),
+    ('size12m train_eval', SIZE12M + ['--script', 'train_eval'], (12, 8),
      6, 2),
 )
 # The default configuration (no preset), once each: train steps begin
-# after some 2,100 env steps fill the replay. A save writes its 2.4 GB of
-# parameters and optimizer slots (5-9 s), and the next save's interval
-# starts when one starts, so an interval near a save's time saves again
-# at almost every poll (10 s took 114 s for 4,500 steps); at 20 s one
+# after some 2,100 env steps fill the replay. Its `train` script run (35 s
+# and a 2.4 GB save) went for the parallel phase's budget: train_eval at
+# this width, and size12m's `train`, still run that script's loop. A
+# save writes its 2.4 GB of parameters and optimizer slots (5-9 s), and
+# the next save's interval starts when one starts, so an interval near a
+# save's time saves again at almost every poll (10 s took 114 s for 4,500 steps); at 20 s one
 # save fires in a run's loop and rarely a second. Reports (some 2 s each)
 # and evaluations come at the same interval. Each budget leaves room
 # after the 20 s mark for an evaluation (PinPad's: 300 policy calls and
@@ -1558,8 +1578,7 @@ SCRIPTS = (
 # evaluations and two saves.
 PINPAD = ['--task', 'pinpad_three', '--env.pinpad.length', '300']
 DEFAULT_SCRIPTS = (
-    ('default', [], (35,), 20, 20),
-    ('default train_eval', ['--script', 'train_eval'], (40,), 20, 20),
+    ('default train_eval', ['--script', 'train_eval'], (35,), 20, 20),
     ('default pinpad train_eval', PINPAD + ['--script', 'train_eval'],
      (50,), 20, 20),
 )
@@ -1603,8 +1622,10 @@ def read_log(logdir, losses=is_loss):
   """A script's metrics log: its lines, the scores and lengths of its
   train and eval episodes as (score, length) lists and as a row's
   summary, and the last logged value of each train loss."""
-  with open(os.path.join(logdir, 'metrics.jsonl')) as f:
-    lines = [json.loads(line) for line in f]
+  lines = []
+  if os.path.exists(os.path.join(logdir, 'metrics.jsonl')):
+    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+      lines = [json.loads(line) for line in f]
   episodes = {prefix: [(l[f'{prefix}/score'], l[f'{prefix}/length'])
                        for l in lines if f'{prefix}/score' in l]
               for prefix in ('episode', 'eval_episode')}
@@ -1779,7 +1800,7 @@ def phase_script(torch, scripts=SCRIPTS):
     emit(phase='script', ok=True, env_steps_per_s={
         k: speeds[k] for k in ('default train_eval',
                                'default pinpad train_eval')})
-  return launches
+  return launches, speeds
 
 
 def phase_eval_only(torch, checkpoint, runs=EVAL_ONLY):
@@ -2096,8 +2117,351 @@ def phase_default(torch):
   launches = phase_slice(torch, DEFAULT_SLICE)
   trained = phase_train(torch, DEFAULT_TRAIN)[DEFAULT_TRAIN[0][0]]
   launches.update({k: trained[k] for k in TRAIN_KERNELS})
-  phase_script(torch, DEFAULT_SCRIPTS)
+  _, speeds = phase_script(torch, DEFAULT_SCRIPTS)
   emit(phase='default', ok=True, launches=launches)
+  return launches, speeds['default pinpad train_eval']
+
+
+# The actor-learner script at the default configuration on PinPad: 16
+# train and 4 eval envs in their own processes, the actor batching
+# actor_batch = 16 // 2 = 8 of them per policy call, the replay and the
+# logger in their own processes. The smoke runs main.main in its own
+# process, which alone may hold the card. The budget counts from the
+# first train step, as the train scripts' budgets count after their
+# set-up: the agent's set-up and its first 2.4 GB save came before the
+# first train step, at 30-36 s on one host, and a budget of 50 s from the
+# start of the roles (run.duration) held no report, no save and no line
+# of the metrics log. The smoke ends the run as a user does, with an
+# interrupt; run.duration stays as a cap that it never reaches. Reports
+# and saves come every 20 s (for the reasons given at DEFAULT_SCRIPTS),
+# logs every 10 s: the logger writes on its own clock, and a log every
+# 10 s puts a write of the first report's results and of the train
+# losses inside the budget.
+PARALLEL = PINPAD + ['--script', 'parallel']
+PARALLEL_BUDGET = 40
+PARALLEL_SETUP = 75  # seconds within which the first train step must come
+PARALLEL_EVERY = 20
+PARALLEL_LOG_EVERY = 10
+PARALLEL_KERNELS = ('obs_step',) + TRAIN_KERNELS
+PARALLEL_FILES = ('agent.pkl', 'replay.pkl', 'logger.pkl')
+
+
+def child_pids():
+  """This process's live children, without multiprocessing's resource
+  tracker (a helper that lives as long as the process)."""
+  pids = set()
+  for pid in filter(str.isdigit, os.listdir('/proc')):
+    try:
+      with open(f'/proc/{pid}/stat') as f:
+        ppid = int(f.read().rsplit(')', 1)[1].split()[1])
+      with open(f'/proc/{pid}/cmdline') as f:
+        tracker = 'resource_tracker' in f.read()
+    except OSError:
+      continue
+    if ppid == os.getpid() and not tracker:
+      pids.add(int(pid))
+  return pids
+
+
+def holds_card(pid):
+  """Whether process `pid` has a device node of a card open (a CUDA
+  context opens /dev/nvidia<N>; cuInit alone opens only nvidiactl)."""
+  try:
+    fds = os.listdir(f'/proc/{pid}/fd')
+  except OSError:
+    return False
+  for fd in fds:
+    try:
+      target = os.readlink(f'/proc/{pid}/fd/{fd}')
+    except OSError:
+      continue
+    if target.startswith('/dev/nvidia') and target[11:].isdigit():
+      return True
+  return False
+
+
+def card_pids():
+  query = subprocess.run(
+      ['nvidia-smi', '--query-compute-apps=pid', '--format=csv,noheader'],
+      capture_output=True, text=True, timeout=30)
+  return {int(line) for line in query.stdout.split() if line.isdigit()}
+
+
+def phase_parallel(torch, pinpad_speed):
+  """script=parallel in-process at the default configuration on PinPad
+  (PARALLEL), with the launch counts set to 0 before the run and read
+  after; the run ends PARALLEL_BUDGET seconds after its first train step.
+  While it runs, a watcher reads every 2 s which processes hold the card
+  (nvidia-smi's compute apps) and whether a child of this process has a
+  card's device node open. The run must launch kernels 3, 5, 6 and 8,
+  train (each Agent.train call one launch of kernels 5, 6 and 8, its
+  losses finite), report and log finite train losses into its metrics
+  log, write its three checkpoints, send RPC frames through the native
+  codec, and leave no child process and no thread behind; no child may
+  touch the card, no role may fail (a role that fails while the run goes
+  on raises out of main.main; the smoke also records every worker crash)
+  and no actor call may raise. Kernel 3 is then held against its plain
+  version on the actor's last request (batch actor_batch, the carry it
+  was acted on with). Prints env steps and env steps/s (train and eval
+  envs), train steps and train frames/s, the replayed-to-env step ratio
+  against run.train_ratio, the actor's calls with their ms (median, p90)
+  and its lock wait per call (timer section policy_lock_wait), the
+  episodes the actor saw end and those logged, the RPC servers' stats,
+  the peak memory, and `pinpad_speed`, the default PinPad train_eval
+  run's env steps/s in this call."""
+  import _thread
+  import shutil
+  import threading
+  from embodied_tpu_torch import native, parallel
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  from embodied_tpu_torch.remote import proc
+  from embodied_tpu_torch.run import parallel_impl
+  from embodied_tpu_torch.utils import timer
+  wrappers = train_wrappers()
+  logdir = os.path.join(ROOT, 'build', 'chip_smoke_parallel')
+  shutil.rmtree(logdir, ignore_errors=True)
+  policy_ms, policy_span, train_calls, actors = [], [], [], []
+  steps = {'train': 0, 'eval': 0}
+  running, episodes = {}, {'train': [], 'eval': []}
+  timed, train_span, nonfinite = [], [], []
+  last, failures, crashes = {}, [], []
+  agent_policy, agent_train = parallel.Agent.policy, parallel.Agent.train
+  infer, forward = parallel_impl._Actor._infer, parallel_impl._Actor._forward
+  stats, record_error = timer.stats, proc._record_error
+  first_train, interrupted, done = (
+      threading.Event(), threading.Event(), threading.Event())
+
+  def policy(self, *args, **kwargs):
+    begin = time.perf_counter()
+    result = agent_policy(self, *args, **kwargs)
+    policy_ms.append((time.perf_counter() - begin) * 1e3)
+    policy_span.append(begin)
+    return result
+
+  def train(self, *args):
+    counts = {k: wrappers[k].launches for k in TRAIN_KERNELS}
+    begin = time.perf_counter()
+    result = agent_train(self, *args)
+    train_span.append((begin, time.perf_counter()))
+    train_calls.append(
+        {k: wrappers[k].launches - counts[k] for k in TRAIN_KERNELS})
+    first_train.set()
+    nonfinite.extend(k for k, v in result[2].items()
+                     if is_loss(k) and not math.isfinite(v))
+    return result
+
+  def actor_infer(self, request):
+    # The actor's view of each env's episodes and steps, and its last
+    # request with the carry it is acted on with.
+    if not actors:
+      actors.append(self)
+    last.update(carry=self.cache.gather(request['envid']), obs={
+        k: v for k, v in request.items()
+        if k not in ('envid', 'is_eval') and not k.startswith('log/')})
+    for i, envid in enumerate(request['envid']):
+      kind = 'eval' if request['is_eval'][i] else 'train'
+      steps[kind] += 1
+      if request['is_first'][i]:
+        running[int(envid)] = [0.0, 0]
+      score = running.setdefault(int(envid), [0.0, 0])
+      score[0] += float(request['reward'][i])
+      score[1] += 1
+      if request['is_last'][i]:
+        episodes[kind].append(tuple(running.pop(int(envid))))
+    return recorded(infer, self, request)
+
+  def actor_forward(self, tran):
+    return recorded(forward, self, tran)
+
+  def recorded(fn, actor, *args):
+    try:
+      return fn(actor, *args)
+    except Exception as e:
+      failures.append(dict(call=fn.__name__, error=repr(e),
+                           after_stop=actor.stop.is_set()))
+      raise
+
+  def crashed(name, exc):
+    crashes.append(f'{name}: {exc!r}')
+    record_error(name, exc)
+
+  def tee(reset=True, log=False):
+    result = stats(reset, log)
+    if reset:
+      timed.append(result)
+    return result
+
+  seen = {'card_pids': set(), 'children': set(), 'touched': set()}
+
+  def watch():
+    while not done.wait(2.0):
+      seen['card_pids'] |= card_pids()
+      children = child_pids() - before_children
+      seen['children'] |= children
+      seen['touched'] |= {pid for pid in children if holds_card(pid)}
+
+  def end_run():
+    # As a user ends a run: an interrupt, which main.main's supervisor
+    # answers by stopping every role.
+    if first_train.wait(PARALLEL_SETUP) and not done.wait(PARALLEL_BUDGET):
+      interrupted.set()
+      _thread.interrupt_main()
+
+  for wrapper in wrappers.values():
+    wrapper.launches = 0
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  before_threads = {t.ident for t in threading.enumerate()}
+  before_children = child_pids()
+  stats(reset=True)
+  parallel.Agent.policy, parallel.Agent.train = policy, train
+  parallel_impl._Actor._infer = actor_infer
+  parallel_impl._Actor._forward = actor_forward
+  timer.stats, proc._record_error = tee, crashed
+  helpers = [threading.Thread(target=watch, name='card-watcher'),
+             threading.Thread(target=end_run, name='run-ender')]
+  for helper in helpers:
+    helper.start()
+  cap = PARALLEL_SETUP + PARALLEL_BUDGET + 30
+  argv = [*PARALLEL, '--logdir', logdir, '--run.steps', str(STEP_CAP),
+          '--run.duration', str(cap),
+          '--run.log_every', str(PARALLEL_LOG_EVERY),
+          '--run.report_every', str(PARALLEL_EVERY),
+          '--run.save_every', str(PARALLEL_EVERY)]
+  start = time.perf_counter()
+  try:
+    try:
+      dmain.main(argv)
+    except KeyboardInterrupt:
+      if not interrupted.is_set():
+        raise
+  finally:
+    wall = time.perf_counter() - start
+    parallel.Agent.policy, parallel.Agent.train = agent_policy, agent_train
+    parallel_impl._Actor._infer, parallel_impl._Actor._forward = (
+        infer, forward)
+    timer.stats, proc._record_error = stats, record_error
+    done.set()
+    for helper in helpers:
+      helper.join()
+  tee()
+  launches = {k: wrappers[k].launches for k in PARALLEL_KERNELS}
+  left_threads = [t.name for t in threading.enumerate()
+                  if t.ident not in before_threads and t.is_alive()]
+  left_children = sorted(child_pids() - before_children)
+  waited = sum(t.get('policy_lock_wait/total', 0) for t in timed)
+  waits = sum(t['policy_lock_wait/total'] / t['policy_lock_wait/avg']
+              for t in timed if t.get('policy_lock_wait/avg'))
+  lines, _, logged_episodes, losses = read_log(logdir)
+  reports = sum(any(k.startswith('report/') for k in l) for l in lines)
+  actor = actors[0] if actors else None
+  servers = {k: v for l in lines for k, v in l.items()
+             if k.startswith(('server/', 'replay/', 'replay_eval/'))}
+  plain_errs, same = None, None
+  if actor is not None:
+    for name, stats_of in (('actor', actor.server), ('actor_replay',
+                                                      actor.replay),
+                           ('actor_logger', actor.logger)):
+      servers.update({f'{name}/{k}': v
+                      for k, v in stats_of.stats().items()})
+    # After the launches were read: this call is no launch of the run's.
+    plain_errs, same = check_against_plain(torch, actor.agent, last)
+  config = dmain.common.assemble_config(dmain.CONFIGS, argv)
+  batch_steps = config.batch_size * config.batch_length
+  ntrain = len(train_calls)
+  span = train_span[-1][1] - train_span[0][0] if train_span else 0.0
+  policy_sorted = sorted(policy_ms)
+  row = dict(
+      phase='parallel', argv=argv, wall_s=wall, budget_s=PARALLEL_BUDGET,
+      budget_from='the first train step', codec=native.codec_status(),
+      envs=config.run.envs, eval_envs=config.run.eval_envs,
+      actor_batch=len(last['obs']['is_first']) if last else None,
+      env_steps=steps, env_steps_per_s=sum(steps.values()) / wall,
+      train_env_steps_per_s=steps['train'] / wall,
+      pinpad_train_eval_env_steps_per_s=pinpad_speed,
+      first_policy_s=policy_span[0] - start if policy_span else None,
+      first_train_s=train_span[0][0] - start if train_span else None,
+      last_train_s=train_span[-1][1] - start if train_span else None,
+      train_steps=ntrain,
+      train_frames_per_s=ntrain * batch_steps / span if span else 0.0,
+      train_call_launches=sorted({tuple(c.values()) for c in train_calls}),
+      replay_ratio=ntrain * batch_steps / max(steps['train'], 1),
+      train_ratio=config.run.train_ratio,
+      actor_calls=len(policy_ms),
+      policy_ms_median=statistics.median(policy_ms) if policy_ms else None,
+      policy_ms_p90=(policy_sorted[int(0.9 * (len(policy_sorted) - 1))]
+                     if policy_ms else None),
+      lock_wait_ms_per_call=waited / waits * 1e3 if waits else None,
+      lock_waits=round(waits),
+      launches=launches,
+      obs_step_plain_max_abs_err=(
+          {k: e for k, (e, _) in plain_errs.items()} if plain_errs else None),
+      obs_step_sample_agreement=same,
+      episodes={k: dict(count=len(v), scores=sorted({s for s, _ in v}),
+                        lengths=sorted({n for _, n in v}))
+                for k, v in episodes.items()},
+      logged_episodes=logged_episodes, log_lines=len(lines),
+      logged_reports=reports, logged_losses=losses,
+      nonfinite_train_losses=sorted(set(nonfinite)),
+      actor_failures=failures, crashes=crashes, rpc=servers,
+      files={f: os.path.exists(os.path.join(logdir, f))
+             for f in PARALLEL_FILES},
+      peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+      card_pids=sorted(seen['card_pids']), own_pid=os.getpid(),
+      children_seen=len(seen['children']),
+      children_on_card=sorted(seen['touched']),
+      left_threads=left_threads, left_children=left_children)
+  del actor
+  actors.clear()
+  last.clear()
+  problems = []
+  if row['codec'] != 'native':
+    problems.append(f'the codec did not build: {row["codec"]}')
+  if not interrupted.is_set():
+    problems.append(f'no train step within {PARALLEL_SETUP} s')
+  if not all(launches.values()):
+    problems.append(f'kernels not launched: {launches}')
+  if min(launches['observe_seq'], launches['imagine_seq']) <= ntrain:
+    problems.append(f'no report launched kernels 5 and 8: {launches} in '
+                    f'{ntrain} train steps')
+  if not ntrain or any(c[k] != 1 for c in train_calls for k in c):
+    problems.append(f'{ntrain} train steps, launches per call '
+                    f'{row["train_call_launches"]}')
+  if nonfinite:
+    problems.append(f'non-finite train losses {row["nonfinite_train_losses"]}')
+  if not reports or not losses or not all(
+      math.isfinite(v) for v in losses.values()):
+    problems.append(f'{reports} reports logged, train losses logged '
+                    f'{losses}')
+  if plain_errs is None or not all(ok for _, ok in plain_errs.values()):
+    problems.append(f'kernel 3 at the actor batch disagrees with the plain '
+                    f'path: {plain_errs}')
+  if not all(row['files'].values()):
+    problems.append(f'checkpoints {row["files"]}')
+  # nvidia-smi's PIDs are not this container's (it listed PID 1 for this
+  # process): the child check rests on holds_card; nvidia-smi must list
+  # one process.
+  if seen['touched'] or len(seen['card_pids']) > 1:
+    problems.append(f'a child touched the card: nvidia-smi listed '
+                    f'{sorted(seen["card_pids"])}, children holding a '
+                    f'device node {sorted(seen["touched"])}')
+  if len(seen['children']) < config.run.envs + config.run.eval_envs + 2:
+    problems.append(f'{len(seen["children"])} child processes ran')
+  if left_threads or left_children:
+    problems.append(f'left behind: threads {left_threads}, processes '
+                    f'{left_children}')
+  if not policy_ms or failures or crashes or servers.get('actor/errors'):
+    problems.append(f'the actor did not serve, or a call or a role failed: '
+                    f'{failures} {crashes}')
+  if not steps['train'] or not steps['eval']:
+    problems.append(f'env steps {steps}')
+  emit(**row, ok=not problems)
+  if problems:
+    fail('parallel', '; '.join(problems))
+  shutil.rmtree(logdir, ignore_errors=True)
+  gc.collect()
+  torch.cuda.empty_cache()
   return launches
 
 
@@ -2439,8 +2803,12 @@ def main():
   # train steps on the latent table (their launches, in place of those of
   # the default phase's host path).
   table_launches = phase_latents(torch)
-  launches.update(phase_default(torch))
+  default_launches, pinpad_speed = phase_default(torch)
+  launches.update(default_launches)
   launches.update(table_launches)
+  # The actor-learner script: kernel 3 in the actor's policy calls,
+  # kernels 5, 6 and 8 in the learner's train steps.
+  parallel_launches = phase_parallel(torch, pinpad_speed)
   phase_script(torch)
   phase_ppo(torch)
   director = phase_director(torch)
@@ -2467,6 +2835,8 @@ def main():
     if name in director:
       kernels[-1]['director_launches'], kernels[-1]['director_shape'] = (
           director[name])
+    if name in parallel_launches:
+      kernels[-1]['parallel_launches'] = parallel_launches[name]
   if sorted(k['name'] for k in kernels) != sorted(SOURCES):
     fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
   emit(phase='total', ok=True, seconds=time.perf_counter() - start)

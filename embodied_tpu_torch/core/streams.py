@@ -1,6 +1,7 @@
 """Resumable data pipelines feeding the learner.
 
-A copy of embodied_tpu/core/streams.py.
+A copy of embodied_tpu/core/streams.py, with `Prefetch.close` and `close`
+added: a finished run stops its prefetch threads.
 
 Capability match for the reference's embodied/core/streams.py (Stateless,
 Prefetch, Consec, Zip, Map, Mixer), rebuilt on a shared combinator base:
@@ -100,7 +101,9 @@ class Prefetch(base.Stream):
   batch carries the source state at production time, so `save()` after
   consuming batch N resumes exactly after batch N — in-flight batches are
   re-produced, not lost. `load()` bumps an epoch counter; batches
-  produced under an older epoch are discarded on arrival."""
+  produced under an older epoch are discarded on arrival. `close()`
+  stops the producer (unlike the JAX package's, which waits on its full
+  queue for as long as the process lives)."""
 
   def __init__(self, source, transform=None, amount=1):
     self.source = iter(source) if hasattr(source, '__iter__') else source()
@@ -110,6 +113,8 @@ class Prefetch(base.Stream):
     self.state = _state_of(self.source)
     self.lock = threading.Lock()  # Guards source access + epoch reads.
     self.thread = None
+    self.stopped = threading.Event()
+    self.sourcing = False  # The producer is inside next(source).
 
   def _ensure_started(self):
     if self.thread is None:
@@ -150,16 +155,50 @@ class Prefetch(base.Stream):
       _restore(self.source, state)
       self.state = state
 
+  def close(self):
+    """Stop the producer. One that is making a batch ends once it has
+    (its put rechecks the flag); one that waits inside its source, such
+    as an empty replay, is not waited for: it is a daemon, holds nothing
+    of the run's (agent.stream holds the agent weakly), and ends when its
+    source returns."""
+    self.stopped.set()
+    while self.thread is not None and self.thread.is_alive():
+      if self.sourcing:
+        return
+      self.thread.join(0.05)
+
+  def _put(self, item):
+    # A bounded put that rechecks the stop flag: a consumer that is gone
+    # never takes from the full queue.
+    while not self.stopped.is_set():
+      try:
+        self.buffer.put(item, timeout=0.1)
+        return
+      except queue.Full:
+        pass
+
   def _produce(self):
     try:
-      while True:
+      while not self.stopped.is_set():
         with self.lock:
           epoch = self.epoch
-          data = next(self.source)
+          self.sourcing = True
+          try:
+            data = next(self.source)
+          finally:
+            self.sourcing = False
           state = _state_of(self.source)
-        self.buffer.put((epoch, self.transform(data), state))
+        self._put((epoch, self.transform(data), state))
     except BaseException as e:
-      self.buffer.put(e)
+      self._put(e)
+
+
+def close(*streams):
+  """Stop the producer threads of the streams that have one (Prefetch);
+  other streams have nothing to stop."""
+  for stream in streams:
+    if hasattr(stream, 'close'):
+      stream.close()
 
 
 class Consec(Combinator):

@@ -5,9 +5,10 @@ config view, the replay, stream and logger factories, and script
 dispatch.
 
 A copy of embodied_tpu/models/common.py with the scripts and outputs the
-port has: the single-host scripts `train`, `train_eval` and `eval_only`
-(the `parallel` scripts and `pretrain` raise), and every env suite of the
-JAX package.
+port has: `train`, `train_eval`, `eval_only`, the actor-learner script
+`parallel` and its role scripts `parallel_env`, `parallel_envs` and
+`parallel_replay` (`pretrain` raises), and every env suite of the JAX
+package.
 """
 
 import importlib
@@ -55,21 +56,11 @@ def assemble_config(configs_path, argv=None):
   return config
 
 
-# The JAX package's scripts that wait for later slices of the port.
-LATER_SCRIPTS = ('parallel', 'parallel_env', 'parallel_envs',
-                 'parallel_replay')
-
-
 def run_script(config, make_agent_fn):
   print('Replica:', config.replica, '/', config.replicas)
   logdir = Path(config.logdir)
   print('Logdir:', logdir)
   print('Run script:', config.script)
-  if config.script in LATER_SCRIPTS:
-    raise NotImplementedError(
-        f'Script {config.script!r} is not ported yet; it comes in a later '
-        'slice of the port. The port runs the scripts train, train_eval '
-        'and eval_only.')
   if config.script == 'pretrain':
     # The JAX package hands run.pretrain make_stream, which needs a replay
     # that pretrain never gives it; the source of offline batches is the
@@ -78,10 +69,9 @@ def run_script(config, make_agent_fn):
     raise NotImplementedError(
         'Script pretrain needs the dataset reader (data/bag.py), which is '
         'not ported yet; call run.pretrain with a stream of batches.')
-  if config.script not in ('train', 'train_eval', 'eval_only'):
-    raise NotImplementedError(config.script)
-  logdir.mkdir()
-  config.save(logdir / 'config.yaml')
+  if not config.script.endswith(('_env', '_replay')):
+    logdir.mkdir()
+    config.save(logdir / 'config.yaml')
   timer.enable(config.logger.timer)
 
   args = Config(
@@ -114,12 +104,37 @@ def run_script(config, make_agent_fn):
         bind(make_stream, config),
         bind(make_logger, config),
         args)
-  else:
+  elif config.script == 'eval_only':
     run.eval_only(
         bind(make_agent_fn, config),
         bind(make_env, config),
         bind(make_logger, config),
         args)
+  elif config.script == 'parallel':
+    run.parallel.combined(
+        bind(make_agent_fn, config),
+        bind(make_replay, config, 'replay'),
+        bind(make_replay, config, 'replay_eval', 'eval'),
+        bind(make_env, config),
+        bind(make_env, config),
+        bind(make_stream, config),
+        bind(make_logger, config),
+        args)
+  elif config.script == 'parallel_env':
+    is_eval = config.replica >= args.envs
+    run.parallel.parallel_env(
+        bind(make_env, config), config.replica, args, is_eval)
+  elif config.script == 'parallel_envs':
+    run.parallel.parallel_envs(
+        bind(make_env, config), bind(make_env, config), args)
+  elif config.script == 'parallel_replay':
+    run.parallel.parallel_replay(
+        bind(make_replay, config, 'replay'),
+        bind(make_replay, config, 'replay_eval', 'eval'),
+        bind(make_stream, config),
+        args)
+  else:
+    raise NotImplementedError(config.script)
 
 
 def make_agent(config, model_cls, device=None):

@@ -27,8 +27,12 @@ As in the JAX agent:
   JAX agent lacks, returns each step's own results);
 - `stream` prefetches batches to the device on a side CUDA stream.
 
+`policy` and `train` may run on two threads that share the agent (the
+actor and the learner of the parallel script): one lock serialises them,
+and `policy` times its wait for it (timer section `policy_lock_wait`).
+
 Meshes, the policy/train device split, shard_map mode and the grouped
-multi-host save come with the distribution slice.
+multi-host save come with the multi-device part of distribution.
 """
 
 import collections
@@ -42,7 +46,7 @@ import torch
 from .. import core as corelib
 from .. import nn
 from ..core import streams as streamlib
-from ..utils import Space
+from ..utils import Space, timer
 from . import latents as latentslib
 
 
@@ -113,7 +117,8 @@ class Agent(corelib.Agent):
     # Batches of `stream` are copied on this stream, beside the compute.
     self._copy_stream = (torch.cuda.Stream(self.device)
                          if self.device.type == 'cuda' else None)
-    # Serializes device use across actor and learner threads.
+    # Serializes device use across the actor and learner threads of the
+    # parallel script: train updates in place the weights policy reads.
     self._device_lock = threading.Lock()
 
   @property
@@ -143,7 +148,11 @@ class Agent(corelib.Agent):
   def policy(self, carry, obs, mode='train'):
     obs = {k: self._to_device(v) for k, v in obs.items()
            if not k.startswith('log/')}
-    with self._device_lock:
+    # The lock covers a whole train step of another thread (its host
+    # time, not only its dispatch): the actor's wait is timed per call.
+    with timer.section('policy_lock_wait'):
+      self._device_lock.acquire()
+    try:
       carry = nn.core.tree_map(self._to_device, carry)
       self._counters['policy'] += 1
       gen = torch.Generator(self.device).manual_seed(
@@ -165,6 +174,8 @@ class Agent(corelib.Agent):
         out = {k: v.cpu().numpy() for k, v in out.items()}
       if self._latents is not None:
         out['slot'], out['slotgen'] = slots, gens
+    finally:
+      self._device_lock.release()
     return carry, act, out
 
   def train(self, carry, data):
@@ -251,9 +262,9 @@ class Agent(corelib.Agent):
 
   def stream(self, source):
     """Prefetches up to two batches of `source` to the device (see
-    `_device_batch`). The prefetch thread outlives the run that made it
-    (it waits on its full queue), so it holds the agent weakly: the
-    agent's device memory goes when the run lets go of the agent."""
+    `_device_batch`). The run that made the stream closes it when it
+    ends; the prefetch thread holds the agent weakly, so a stream left
+    open does not keep the agent's device memory."""
     agent = weakref.ref(self)
 
     def transform(data):

@@ -1,8 +1,8 @@
-"""Run protocols: the single-host scripts `train`, `train_eval`,
-`eval_only` and `pretrain`. The distributed `parallel` scripts come with
-the distribution slice."""
-
 from .train import train
 from .train_eval import train_eval
 from .eval_only import eval_only
 from .pretrain import pretrain
+
+# The distributed actor-learner protocol imports lazily because it pulls in
+# the remote RPC layer.
+from . import lazy_parallel as parallel

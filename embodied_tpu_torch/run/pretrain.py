@@ -1,18 +1,20 @@
 """Offline model training from streams only; multi-replica aware.
 
-A copy of embodied_tpu/run/pretrain.py.
+A copy of embodied_tpu/run/pretrain.py; the run stops the prefetch threads
+of its streams when it ends.
 
 Capability match for the reference's embodied/run/pretrain.py on the
 run/loop.py harness: no envs or replay service; report/log/save cadence
 comes from GlobalClock so every replica makes identical decisions, and
-only replica 0 writes checkpoints. The port's GlobalClock has one replica
-so far (core/clock.py).
+only replica 0 writes checkpoints (core.clock.setup connects the replicas'
+clocks to replica 0's decision server).
 """
 
 import pickle
 import time
 
 from .. import core
+from ..core import streams
 from ..utils import Agg, Checkpoint, FPS, Path, Usage, timer
 from . import loop
 
@@ -76,15 +78,18 @@ def pretrain(make_model, make_stream, make_logger, args):
   out_of_time = loop.Deadline(args.duration)
 
   print('Starting training')
-  while step < args.steps and not out_of_time():
-    with timer.section('stream'):
-      batch = next(dataset)
-    with timer.section('train'):
-      began = time.time()
-      carry, outs, mets = model.train(carry, batch)
-      logger.add({'dur/train': time.time() - began})
-    train_agg.add(mets)
-    step.increment()
-    fps.step(args.batch_size * args.batch_length)
-    tasks.poll(step)
+  try:
+    while step < args.steps and not out_of_time():
+      with timer.section('stream'):
+        batch = next(dataset)
+      with timer.section('train'):
+        began = time.time()
+        carry, outs, mets = model.train(carry, batch)
+        logger.add({'dur/train': time.time() - began})
+      train_agg.add(mets)
+      step.increment()
+      fps.step(args.batch_size * args.batch_length)
+      tasks.poll(step)
+  finally:
+    streams.close(dataset, report.stream, evaluate.stream)
   logger.close()

@@ -1,6 +1,7 @@
 """Single-process training protocol.
 
-A copy of embodied_tpu/run/train.py.
+A copy of embodied_tpu/run/train.py; the run stops the prefetch threads of
+its streams when it ends.
 
 Capability match for the reference's embodied/run/train.py, composed from
 the shared harness in run/loop.py: env driver feeding replay and episode
@@ -11,6 +12,7 @@ wall-clock budget.
 
 import pickle
 
+from ..core import streams
 from ..utils import Agg, Checkpoint, FPS, Path, Usage, timer
 from . import loop
 
@@ -81,4 +83,5 @@ def train(make_agent, make_replay, make_env, make_stream, make_logger, args):
       tasks.poll(step)
   finally:
     driver.close()
+    streams.close(learner.stream, reporter.stream)
     logger.close()

@@ -1,6 +1,8 @@
 """Training protocol with a separate eval env fleet and eval replay.
 
-A copy of embodied_tpu/run/train_eval.py.
+A copy of embodied_tpu/run/train_eval.py; the run stops the prefetch
+threads of its streams when it ends, and makes the eval replay's stream
+at the first evaluation that has eval data.
 
 Capability match for the reference's embodied/run/train_eval.py on the
 run/loop.py harness: adds to train() a second driver running eval-mode
@@ -9,6 +11,7 @@ policy episodes on report cadence, an eval replay, and eval reports.
 
 import pickle
 
+from ..core import streams
 from ..utils import Checkpoint, FPS, Path, Usage, timer
 from . import loop
 
@@ -32,9 +35,9 @@ def train_eval(
   report_train = loop.Reporter(
       agent, agent.stream(make_stream(replay_train, 'report')), args,
       batches=args.report_batches)
-  report_eval = loop.Reporter(
-      agent, agent.stream(make_stream(replay_eval, 'eval')), args,
-      batches=args.report_batches)
+  # The eval replay's reporter is made at the first evaluation that has
+  # eval data: its stream's producer would wait in the empty replay.
+  report_eval = None
 
   driver = loop.make_driver(make_env_train, args.envs, args)
   driver.on_step(lambda tran, _: step.increment())
@@ -61,6 +64,7 @@ def train_eval(
   eval_policy = lambda *a: agent.policy(*a, mode='eval')
 
   def evaluate():
+    nonlocal report_eval
     print('Evaluation')
     evaler.reset(agent.init_policy)
     evaler(eval_policy, episodes=args.eval_eps)
@@ -68,6 +72,10 @@ def train_eval(
     if len(replay_train):
       logger.add(report_train(), prefix='report')
     if len(replay_eval):
+      if report_eval is None:
+        report_eval = loop.Reporter(
+            agent, agent.stream(make_stream(replay_eval, 'eval')), args,
+            batches=args.report_batches)
       logger.add(report_eval(), prefix='eval')
 
   def log():
@@ -96,4 +104,6 @@ def train_eval(
   finally:
     driver.close()
     evaler.close()
+    streams.close(learner.stream, report_train.stream,
+                  *([report_eval.stream] if report_eval else []))
     logger.close()

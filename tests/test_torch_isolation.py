@@ -1,8 +1,9 @@
 """The port stands alone, runs on the card by default, and reads no TPU knob.
 
 - Importing every module of `embodied_tpu_torch` in a fresh interpreter
-  loads neither `jax` nor `embodied_tpu`; an AST scan of the package and
-  of `chip_smoke.py` finds no import of either.
+  loads neither `jax` nor `embodied_tpu` nor `cloudpickle` (the card's
+  machine has none; workers get the standard pickle); an AST scan of the
+  package and of `chip_smoke.py` finds no import of any of them.
 - No module of the port reads a TPU-specific condition: no `on_tpu`, no
   VMEM budget, no 128-lane alignment. The RSSM takes the kernel path at
   block widths and weight sizes the TPU gates refused.
@@ -29,7 +30,7 @@ from embodied_tpu_torch.utils import Space
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / 'embodied_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'embodied_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'embodied_tpu', 'cloudpickle')
 SMALL = ['--task', 'dummy_disc',
          '--agent.dyn.rssm.deter', '64', '--agent.dyn.rssm.hidden', '32',
          '--agent.dyn.rssm.blocks', '4', '--agent.dyn.rssm.stoch', '4',

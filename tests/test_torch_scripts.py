@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from embodied_tpu_torch import core, run
+from embodied_tpu_torch import core, remote, run
 from embodied_tpu_torch.core import clock, streams
 from embodied_tpu_torch.envs import Dummy
 from embodied_tpu_torch.models import common
@@ -192,13 +192,25 @@ def test_pretrain_trains_and_resumes(tmp_path):
   assert agents[-1].stats()['loads'] == 1
 
 
-def test_global_clock_is_local_for_one_replica():
+def test_global_clock_is_local_for_one_replica(monkeypatch):
   clock.setup(True, 0, 1, 0, '')
   tick = clock.GlobalClock(-1)
   assert tick() and tick(skip=True) is False
   assert clock.GlobalClock(0)() is False
-  with pytest.raises(NotImplementedError, match='item 9'):
-    clock.setup(True, 0, 2, 0, 'localhost:0')
+  # Two replicas: replica 0 serves the decisions and every clock polls it.
+  monkeypatch.setattr(clock, '_CLIENT', None)
+  monkeypatch.setattr(clock, '_REPLICA', None)
+  monkeypatch.setattr(clock.GlobalClock, '_created', [0])
+  port = remote.free_port()
+  server = clock.setup(True, 0, 2, port, f'localhost:{port}')
+  try:
+    tick = clock.GlobalClock(-1)
+    assert tick.local is None and tick.clockid == 0
+    assert [tick(), tick(), tick(skip=True)] == [False, True, False]
+    assert clock.GlobalClock(0)() is False
+  finally:
+    clock._CLIENT.close()
+    server.close()
 
 
 DEBUG = ['--configs', 'debug', '--task', 'dummy_disc', '--batch_size', '2',
