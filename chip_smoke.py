@@ -111,11 +111,27 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            hierarchy's 16-step rollout, the first step's losses against
            kernel: off, and a profile; main.main `train_eval` on a 25 s
            budget.
+  distributed
+           the default configuration on a process group: parallel.setup
+           starts one NCCL rank at a localhost coordinator, with the
+           policy/train split (torch.policy_mesh '1,1,1'). 20 policy
+           calls on the split's copy (kernel 3 once each), its observe
+           step against the trained model's; one train step from one
+           store, batch and noise with and without the group (losses at
+           LOSS_RTOL, every trained tensor's update at GRAD_RTOL) with the
+           collectives it makes and their bytes; 1 + 3 timed steps in
+           turns with, without, without and with the group (kernels 5, 6
+           and 8 once a step); the copy stale after a
+           train step until the next policy call refreshes it (its bytes,
+           the refresh's ms). On a machine with two cards, two NCCL ranks
+           of 8 rows against the one-rank step; else "ranks_2": "not run:
+           1 card".
 
-The phases slice, train, modes, default, ppo and director run the host
-path (HOST_PATH: torch.latent_slots 0, fetch_depth 0), on which each
-train call returns its own step and can be held against the plain path;
-the latents phase, the scripts and the parallel phase run the defaults.
+The phases slice, train, modes, default, ppo, director and distributed
+run the host path (HOST_PATH: torch.latent_slots 0, fetch_depth 0), on
+which each train call returns its own step and can be held against the
+plain path; the latents phase, the scripts and the parallel phase run
+the defaults.
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
@@ -2764,6 +2780,377 @@ def phase_director(torch):
                  f'B={config.batch_size * config.batch_length}, {size}'))
 
 
+# The distributed phase: the default configuration on a process group of
+# one NCCL rank (localhost coordinator), with the policy/train split.
+DIST_ARGV = DEFAULT_ARGV + HOST_PATH + ['--torch.policy_mesh', '1,1,1']
+DIST_STEPS = (1, 3)  # warm-up and timed train steps, with and without
+DIST_CALLS = 20  # policy calls of ENVS envs on the split's copy
+DIST_SEED = SEED + 5  # the noise of the steps held against each other
+COLLECTIVES = ('all_reduce', 'all_gather', 'broadcast')
+
+
+def free_port():
+  import socket
+  with socket.socket() as sock:
+    sock.bind(('localhost', 0))
+    return sock.getsockname()[1]
+
+
+def counted_collectives(dist):
+  """Replaces the collectives of torch.distributed with counting ones;
+  returns the counts {name: [calls, bytes]} and a function that puts the
+  originals back."""
+  counts = {name: [0, 0] for name in COLLECTIVES}
+  originals = {name: getattr(dist, name) for name in COLLECTIVES}
+
+  def counting(name):
+    def fn(tensor, *args, **kw):
+      target = tensor if name != 'all_gather' else args[0]
+      counts[name][0] += 1
+      counts[name][1] += target.numel() * target.element_size()
+      return originals[name](tensor, *args, **kw)
+    return fn
+  for name in COLLECTIVES:
+    setattr(dist, name, counting(name))
+
+  def restore():
+    for name, fn in originals.items():
+      setattr(dist, name, fn)
+  return counts, restore
+
+
+def fixed_draws(torch, agent, record=None):
+  """Every train call of `agent` draws its noise from one generator seeded
+  with DIST_SEED (recorded into `record`, a list, where given)."""
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.tools.dryrun_multidevice import RecordDraws
+
+  def draws(kind, salt):
+    gen = torch.Generator(agent.device).manual_seed(DIST_SEED)
+    inner = nn.dists.Draws(gen, agent.device)
+    if record is None:
+      return inner
+    recorder = RecordDraws(inner)
+    recorder.recorded = record
+    return recorder
+  agent._draws = draws
+
+
+def dist_step(torch, agent, data, state, group, record=None):
+  """One train step from `state` on `data` with the fixed noise, on the
+  data group `group` (None: without a process group). Returns the
+  metrics, the trained parameters and the square moments (`opt/rms_flat`)
+  after it on the card, and the collectives it made."""
+  import torch.distributed as dist
+  from embodied_tpu_torch import nn
+  agent.load(state)
+  agent.data_group = group
+  fixed_draws(torch, agent, record)
+  counts, restore = counted_collectives(dist)
+  try:
+    _, _, mets = agent.train(agent.init_train(len(data['is_first'])), data)
+  finally:
+    restore()
+  params = {k: v.detach().clone() for k, v in nn.store(agent.model).items()
+            if k.split('/')[0] in TRAINED or k == 'opt/rms_flat'}
+  return mets, params, counts
+
+
+def update_errors(torch, before, got, want):
+  """Per trained tensor, the relative error in norm of the update (after
+  - before) of `got` against `want`."""
+  return {k: relerr(got[k] - before[k], want[k] - before[k])
+          for k in before if bool((want[k] != before[k]).any())}
+
+
+# Another summation order (two ranks' halves, the kernels at 8 rows): the
+# first step past the warm-up from zero moments moves each entry by
+# 2.5 lr times the sign of its gradient, so an entry whose gradient sits
+# near zero may take the other sign, as tests/test_torch_slice.py finds
+# between JAX and the port. Each tensor's updates must agree within 1% in
+# this share of its entries, and the gradients' magnitudes, read from the
+# square moments ((1 - beta2) g^2 after that step), within GRAD_RTOL.
+UPDATE_AGREEMENT = 0.99
+
+
+def two_rank_errors(torch, agent, before, got, want):
+  """(per trained tensor: the share of entries whose update agrees, the
+  relative error of |gradient|) of `got` against `want`."""
+  agree, grads, offset = {}, {}, 0
+  for path, param in agent.model.opt.params.items():
+    n = param.numel()
+    if path in before:
+      mine, theirs = got[path] - before[path], want[path] - before[path]
+      agree[path] = float(((mine - theirs).abs() <= 1e-2 * theirs.abs())
+                          .float().mean())
+    grads[path] = relerr(got['opt/rms_flat'][offset:offset + n].sqrt(),
+                         want['opt/rms_flat'][offset:offset + n].sqrt())
+    offset += n
+  return agree, grads
+
+
+def split_check(torch, agent, last):
+  """The split's copy and the trained model, each through kernel 3, on
+  one observe step with the same carry, inputs and noise: the copy's
+  launches and each of deter and logit against the model's."""
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.nn import dists
+  from embodied_tpu_torch.ops import observe
+  carry = nn.core.tree_map(agent._to_device, last['carry'])
+  obs = {k: agent._to_device(v) for k, v in last['obs'].items()}
+  dyn = agent.model.dyn
+  gen = torch.Generator(agent.device).manual_seed(SEED + 1)
+  noise = dists.gumbel((len(obs['is_first']), dyn.stoch, dyn.classes), gen,
+                       agent.device)
+  outs, launches = {}, {}
+  with torch.inference_mode():
+    for label, model in (('copy', agent._policy_model()),
+                         ('model', agent.model)):
+      start = observe.obs_step.launches
+      _, _, tokens = model.enc({}, obs, obs['is_first'], single=True)
+      _, _, outs[label] = model.dyn.observe(
+          carry[1], tokens, carry[3], obs['is_first'], noise=noise)
+      launches[label] = observe.obs_step.launches - start
+  errs = {k: compare(torch, outs['copy'][k], outs['model'][k])
+          for k in ('deter', 'logit')}
+  return errs, launches
+
+
+def ranks_2(torch, agent, data, record, reference, mets, before_path):
+  """Two NCCL ranks on two cards, each on half of the batch's rows with its
+  rows of the recorded noise, against the one-rank step (`reference`:
+  its trained parameters and square moments; `mets`: its metrics): the
+  losses at LOSS_RTOL, two_rank_errors, and the two ranks' stores equal.
+  Returns (row, problems)."""
+  import multiprocessing
+  import pickle
+  import shutil
+  import tempfile
+  folder = tempfile.mkdtemp(prefix='smoke_ranks2_')
+  rows = len(data['is_first']) // 2
+  with open(os.path.join(folder, 'inputs.pkl'), 'wb') as f:
+    pickle.dump(dict(argv=DIST_ARGV, rows=rows, data=data, record=record,
+                     before=before_path), f)
+  port = free_port()
+  context = multiprocessing.get_context('spawn')
+  procs = [context.Process(target=rank_2_main, args=(r, port, folder))
+           for r in range(2)]
+  for proc in procs:
+    proc.start()
+  for proc in procs:
+    proc.join(600)
+  failed = [p.exitcode for p in procs if p.exitcode]
+  for proc in procs:
+    if proc.is_alive():
+      proc.kill()
+      proc.join()
+  if failed or any(p.exitcode is None for p in procs):
+    return None, [f'ranks exited with {[p.exitcode for p in procs]}']
+  before = torch.load(before_path)
+  got = [torch.load(os.path.join(folder, f'rank{r}.pt')) for r in range(2)]
+  shutil.rmtree(folder, ignore_errors=True)
+  shutil.rmtree(os.path.dirname(before_path), ignore_errors=True)
+  agree, grads = two_rank_errors(
+      torch, agent, before, got[0]['params'],
+      {k: v.cpu() for k, v in reference.items()})
+  losses, bad = check_losses(got[0]['mets'], mets)
+  row = dict(losses=losses, update_agreement_min=min(agree.values()),
+             grad_relerr_max=max(grads.values()),
+             same_store=got[0]['sums'] == got[1]['sums'])
+  problems = [f'two ranks\' losses off one\'s: {bad}'] if bad else []
+  low = sorted(k for k, a in agree.items() if not a >= UPDATE_AGREEMENT)
+  off = sorted(k for k, e in grads.items() if not e <= GRAD_RTOL)
+  if low or off:
+    problems.append(f'two ranks off one: updates {low[:5]}, grads {off[:5]}')
+  if not row['same_store']:
+    problems.append('the two ranks hold different stores')
+  return row, problems
+
+
+def rank_2_main(rank, port, folder):
+  """One of ranks_2's two ranks (a spawned process)."""
+  import importlib
+  import pickle
+  import torch
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  from embodied_tpu_torch.tools.dryrun_multidevice import RankDraws, rows
+  os.environ.update(RANK=str(rank), WORLD_SIZE='2', LOCAL_RANK=str(rank))
+  with open(os.path.join(folder, 'inputs.pkl'), 'rb') as f:
+    inputs = pickle.load(f)
+  count = inputs['rows']
+  config = common.assemble_config(dmain.CONFIGS, inputs['argv'] + [
+      '--batch_size', str(count),
+      '--torch.coordinator_address', f'localhost:{port}'])
+  agent = dmain.make_agent(config)
+  # (a)'s store: the same seed's, past the warm-up.
+  agent.model.opt.step.fill_(int(config.agent.opt.warmup))
+  before = torch.load(inputs['before'])
+  index = agent.mesh.data_index
+  draws = RankDraws(inputs['record'], index, 2, agent.device)
+  agent._draws = lambda kind, salt: draws
+  _, _, mets = agent.train(
+      agent.init_train(count), rows(inputs['data'], index, count))
+  store = nn.store(agent.model)
+  out = {'mets': mets, 'sums': [float(store[k].double().sum())
+                                for k in sorted(store)]}
+  if rank == 0:
+    out['params'] = {k: store[k].detach().cpu() for k in before}
+    out['params']['opt/rms_flat'] = store['opt/rms_flat'].detach().cpu()
+  torch.save(out, os.path.join(folder, f'rank{rank}.pt'))
+  importlib.import_module('embodied_tpu_torch.parallel.setup').shutdown()
+
+
+def phase_distributed(torch):
+  """The default configuration (202,982,304 parameters) on a process
+  group: parallel.setup starts one NCCL rank at a localhost coordinator
+  (torch.mesh '-1,1,1'), with the policy/train split (torch.policy_mesh
+  '1,1,1') on the card.
+  (a) one step from one store (past the warm-up, so that it moves the
+      parameters), batch and noise with and without the group: losses at
+      LOSS_RTOL, every trained tensor's update at GRAD_RTOL; the
+      collectives of a step and the bytes they move; then 1 + 3 train
+      steps in each of four turns, with the group, without, without, with
+      (each step launching kernels 5, 6 and 8 once): ms per step, the
+      mean of each side's two turns' medians.
+  (b) policy calls on the split's copy (kernel 3 once each); the copy's
+      deter and logit against the trained model's on one observe step;
+      after a train step the copy is stale until the next policy call,
+      which refreshes it to the trained weights: its bytes and the
+      refresh's ms.
+  (c) where the machine has two cards, two NCCL ranks of 8 rows each
+      against (a)'s one-rank step (losses at LOSS_RTOL, updates and
+      gradients as two_rank_errors says, the ranks' stores equal); else
+      "not run: 1 card".
+  Returns the launches of kernels 3, 5, 6 and 8."""
+  import importlib
+  import numpy as np
+  import torch.distributed as dist
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  from embodied_tpu_torch.ops import observe
+  setuplib = importlib.import_module('embodied_tpu_torch.parallel.setup')
+  # The phases before ran parallel.setup without a group.
+  setuplib._DONE[0] = False
+  os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0')
+  argv = DIST_ARGV + ['--torch.coordinator_address',
+                      f'localhost:{free_port()}']
+  config = common.assemble_config(dmain.CONFIGS, argv)
+  start = time.perf_counter()
+  agent = dmain.make_agent(config)
+  row = dict(phase='distributed', argv=argv, setup_s=time.perf_counter() -
+             start, backend=dist.get_backend(), world=dist.get_world_size(),
+             mesh=agent.mesh.sizes, parameters=sum(
+                 p.numel() for p in agent.model.parameters()))
+  problems = []
+  if row['backend'] != 'nccl' or row['world'] != 1 or (
+      agent.data_group is None):
+    fail('distributed', f'no one-rank NCCL data group: {row}')
+  group = agent.data_group
+  wrappers = train_wrappers()
+  for wrapper in wrappers.values():
+    wrapper.launches = 0
+  times, last, bad = act_timed(agent, config, DIST_CALLS)
+  split_launches = observe.obs_step.launches
+  if split_launches != len(times) or bad:
+    problems.append(f'{len(times)} policy calls on the copy launched '
+                    f'{split_launches} of kernel 3, {bad} bad actions')
+  data, _ = collect_batch(agent, config)
+  state = agent.save()
+  state['store']['opt/step'] = np.int32(config.agent.opt.warmup)
+  before = {k: torch.tensor(v, device=agent.device)
+            for k, v in state['store'].items()
+            if k.split('/')[0] in TRAINED}
+  # The one-rank step's noise, for the two-rank check.
+  record = [] if torch.cuda.device_count() >= 2 else None
+  mets_g, params_g, counts = dist_step(torch, agent, data, state, group,
+                                       record)
+  mets_n, params_n, none_counts = dist_step(torch, agent, data, state, None)
+  row['losses_group_vs_none'], bad = check_losses(mets_g, mets_n)
+  if bad:
+    problems.append(f'losses with the group off those without: {bad}')
+  upd = update_errors(torch, before, params_g, params_n)
+  row['update_relerr_max'] = max(upd.values())
+  row['updated_tensors'] = len(upd)
+  off = sorted(k for k, e in upd.items() if not e <= GRAD_RTOL)
+  if off or len(upd) < len(before) // 2:
+    problems.append(f'updates with the group off: {off[:5]}, '
+                    f'{len(upd)} of {len(before)} tensors moved')
+  row['collectives_per_step'] = {k: v[0] for k, v in counts.items()}
+  row['collective_bytes_per_step'] = {k: v[1] for k, v in counts.items()}
+  if any(v[0] for v in none_counts.values()):
+    problems.append(f'collectives without the group: {none_counts}')
+  if not counts['all_reduce'][0]:
+    problems.append('the step with the group made no all-reduce')
+  # Timed steps through Agent.train in turns (group, none, none, group),
+  # each turn with the launch counts set to 0 before it and read after.
+  del agent._draws  # The agent's own noise again.
+  per_step = {k: 1 for k in TRAIN_KERNELS}
+  turns = []
+  for label in ('group', 'none', 'none', 'group'):
+    agent.load(state)
+    agent.data_group = group if label == 'group' else None
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    _, timed, more = train_steps(
+        torch, agent, data, wrappers, *DIST_STEPS, per_step)
+    problems += [f'{label}: {m}' for m in more]
+    turns.append((label, timed['ms_per_train_step']))
+    if label == 'group':
+      dp_launches = {k: w.launches for k, w in wrappers.items()}
+      row['peak_mem_mb_group'] = timed['peak_mem_mb']
+  ms = lambda side: statistics.mean(t for l, t in turns if l == side)
+  row.update(
+      ms_per_train_step_group=ms('group'), ms_per_train_step_none=ms('none'),
+      ms_per_train_step_turns=turns, dp_launches=dp_launches,
+      launches_per_step=per_step)
+  # (b) The split: stale after a train step, refreshed by the next call.
+  agent.data_group = group
+  if not agent._policy_dirty:
+    problems.append('a train step left the policy copy clean')
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  agent._policy_model()
+  torch.cuda.synchronize()
+  row['policy_copy_refresh_ms'] = (time.perf_counter() - start) * 1e3
+  row['policy_copy_bytes'] = agent.policy_copy_bytes
+  stale = [k for k, (src, dst) in enumerate(agent._policy_pairs)
+           if not torch.equal(src, dst)]
+  if stale:
+    problems.append(f'{len(stale)} copied tensors differ after a refresh')
+  errs, launches = split_check(torch, agent, last)
+  row.update(split_vs_model_max_abs_err={k: e for k, (e, _) in
+                                         errs.items()},
+             split_check_launches=launches,
+             split_policy_calls=len(times),
+             ms_per_split_policy_call=statistics.median(
+                 sorted(times[len(times) // 2:])))
+  if not all(ok for _, ok in errs.values()) or launches != dict(
+      copy=1, model=1):
+    problems.append(f'the copy off the model: {errs}, launches {launches}')
+  # (c) Two ranks, on a machine with two cards.
+  if torch.cuda.device_count() >= 2:
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix='smoke_before_'), 'b.pt')
+    torch.save({k: v.cpu() for k, v in before.items()}, path)
+    row['ranks_2'], more = ranks_2(torch, agent, data, record, params_g,
+                                   mets_g, path)
+    problems += more
+  else:
+    row['ranks_2'] = 'not run: 1 card'
+  setuplib.shutdown()
+  row['ok'] = not problems
+  emit(**row)
+  if problems:
+    fail('distributed', '; '.join(problems))
+  del agent
+  gc.collect()
+  torch.cuda.empty_cache()
+  return dict(obs_step=split_launches, **{
+      k: dp_launches[k] for k in TRAIN_KERNELS})
+
+
 def main():
   try:
     import torch
@@ -2812,6 +3199,9 @@ def main():
   phase_script(torch)
   phase_ppo(torch)
   director = phase_director(torch)
+  # The default configuration on a one-rank NCCL group: kernels 5, 6 and 8
+  # in its data-parallel steps, kernel 3 on the policy/train split's copy.
+  distributed = phase_distributed(torch)
   kernels = []
   for row in rows:
     # The list holds each kernel once: at the default configuration's dims
@@ -2837,6 +3227,8 @@ def main():
           director[name])
     if name in parallel_launches:
       kernels[-1]['parallel_launches'] = parallel_launches[name]
+    if name in distributed:
+      kernels[-1]['distributed_launches'] = distributed[name]
   if sorted(k['name'] for k in kernels) != sorted(SOURCES):
     fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
   emit(phase='total', ok=True, seconds=time.perf_counter() - start)

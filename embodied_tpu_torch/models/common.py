@@ -9,15 +9,28 @@ port has: `train`, `train_eval`, `eval_only`, the actor-learner script
 `parallel` and its role scripts `parallel_env`, `parallel_envs` and
 `parallel_replay` (`pretrain` raises), and every env suite of the JAX
 package.
+
+On a process group (`torch.coordinator_address`, see parallel/setup.py)
+every rank runs the script: `train`, `train_eval` and `eval_only` run
+there. Rank 0 writes to the logdir and rank k (RANK) to its subdirectory
+`rank<k>`, so no file has two writers. Under `torch.mock_devices: N` (N
+> 1) with no coordinator, `run_script` starts N gloo ranks on this host,
+each with batch_size / (d f) rows on a 'd,f,t' mesh, so the global batch
+stays batch_size, as in the JAX package's one process with N virtual
+devices.
 """
 
 import importlib
+import multiprocessing
 import os
+import socket
 from functools import partial as bind
 
 import yaml
 
 from .. import core, nn, parallel, run
+from ..parallel import meshes
+from ..parallel.setup import rank_device, share_cores, shutdown
 from ..core import selectors as selectorlib
 from ..core import streams as streamlib
 from ..utils import (
@@ -56,7 +69,23 @@ def assemble_config(configs_path, argv=None):
   return config
 
 
+# The scripts that run on a process group: no other script's collectives
+# would line up across ranks (their train calls follow wall clocks).
+GROUP_SCRIPTS = ('train', 'train_eval', 'eval_only')
+
+
 def run_script(config, make_agent_fn):
+  ranks = int(config.torch.mock_devices)
+  if ranks > 1 and not config.torch.coordinator_address:
+    return spawn_ranks(config, make_agent_fn, ranks)
+  if config.torch.coordinator_address:
+    if config.script not in GROUP_SCRIPTS:
+      raise NotImplementedError(
+          f'Script {config.script} on a process group: the port runs '
+          f'{", ".join(GROUP_SCRIPTS)} there')
+    rank = int(os.environ.get('RANK', 0))
+    if rank:  # Rank 0 writes the logdir, rank k its subdirectory.
+      config = config.update(logdir=str(Path(config.logdir) / f'rank{rank}'))
   print('Replica:', config.replica, '/', config.replicas)
   logdir = Path(config.logdir)
   print('Logdir:', logdir)
@@ -135,17 +164,70 @@ def run_script(config, make_agent_fn):
         args)
   else:
     raise NotImplementedError(config.script)
+  if config.torch.coordinator_address:
+    shutdown()
+
+
+def spawn_ranks(config, make_agent_fn, ranks):
+  """Run the script on `ranks` gloo ranks on this host, each a spawned
+  process with batch_size / nbatch rows (nbatch: the mesh's ('d','f')
+  size; ranks along 't' are replicas); returns when all have ended, and
+  raises (ending the rest) when one fails."""
+  d, f, _ = meshes.mesh_sizes(config.torch.mesh, ranks)
+  if config.batch_size % (d * f):
+    raise ValueError(f'batch_size {config.batch_size} does not divide over '
+                     f'the {d} x {f} data ranks of torch.mesh')
+  with socket.socket() as sock:
+    sock.bind(('localhost', 0))
+    port = sock.getsockname()[1]
+  context = multiprocessing.get_context('spawn')
+  procs = [context.Process(target=_run_rank, args=(
+      config, make_agent_fn, rank, ranks, d * f, port))
+      for rank in range(ranks)]
+  for proc in procs:
+    proc.start()
+  try:
+    while any(proc.is_alive() for proc in procs):
+      if any(proc.exitcode for proc in procs):
+        break
+      procs[0].join(1)
+  finally:
+    for proc in procs:
+      if proc.is_alive():
+        proc.terminate()
+      proc.join()
+  failed = {rank: p.exitcode for rank, p in enumerate(procs) if p.exitcode}
+  if failed:
+    raise RuntimeError(f'Ranks failed with exit codes {failed}')
+
+
+def _run_rank(config, make_agent_fn, rank, ranks, nbatch, port):
+  os.environ.update(RANK=str(rank), WORLD_SIZE=str(ranks),
+                    LOCAL_RANK=str(rank))
+  share_cores(ranks)
+  config = config.update({
+      'batch_size': config.batch_size // nbatch,
+      'torch.coordinator_address': f'localhost:{port}'})
+  run_script(config, make_agent_fn)
 
 
 def make_agent(config, model_cls, device=None):
   """The torch Agent of `model_cls` for `config`, on `device` (default:
   the config's torch.device, 'cuda'), or under `random_agent` the agent
   that acts at random. Raises without a card unless the device is the
-  CPU."""
+  CPU. `parallel.setup` comes first: on a process group the agent is the
+  rank's, on cuda:{LOCAL_RANK}."""
+  tcfg = config.torch
+  device = device or tcfg.device
+  parallel.setup(
+      device=device, compute_dtype=tcfg.compute_dtype,
+      mock_devices=int(tcfg.mock_devices),
+      expect_devices=int(tcfg.expect_devices),
+      coordinator_address=tcfg.coordinator_address)
   obs_space, act_space = env_spaces(config)
   if config.random_agent:
     return core.RandomAgent(obs_space, act_space)
-  device = parallel.agent.resolve_device(device or config.torch.device)
+  device = parallel.agent.resolve_device(rank_device(device))
   acfg = agent_config(config)
   model = model_cls(obs_space, act_space, acfg,
                     cdtype=nn.DTYPES[config.torch.compute_dtype])

@@ -253,6 +253,15 @@ class Model(nn.Module):
     return r'^(enc|dyn|goal_dec|manager|worker|expl)/'
 
   @property
+  def partition_rules(self):
+    """Placements of the store over the mesh (parallel/meshes.py), as in
+    the JAX model."""
+    return [
+        (r'dyn/.*(dyngru|dynhid\d*)/kernel$', (None, None, ('f', 't'))),
+        (r'/(kernel|embed)$', (None, ('f', 't'))),
+    ]
+
+  @property
   def ext_space(self):
     spaces = {'consec': Space(np.int32), 'stepid': Space(np.uint8, 20)}
     if self.config.replay_context:

@@ -10,6 +10,8 @@ the same affine recurrence, summed in another order.
 import torch
 import torch.nn.functional as F
 
+from ...nn import opt as optlib
+
 
 def lambda_return(last, term, rew, val, boot, disc, lam):
   """TD(lambda) returns R_t = a_t + b_t R_{t+1} with
@@ -110,10 +112,14 @@ def _diagnostics(adv, rew, con, weight, ret, val, slowval, tar):
       for key, value in dict(
           adv=adv, rew=rew, con=con, weight=weight, ret=ret, val=val,
           slowval=slowval, tar=tar).items()}
-  metrics['adv_std'] = adv.std(correction=0)
+  # Not means: taken over the data group's rows, so that the Agent's mean
+  # of its ranks' metrics leaves them as they are.
+  adv_mean = optlib.group_mean(adv.mean())
+  metrics['adv_std'] = torch.sqrt(optlib.group_mean(
+      (adv - adv_mean).square().mean()))
   metrics['adv_mag'] = adv.abs().mean()
-  metrics['ret_min'] = ret.min()
-  metrics['ret_max'] = ret.max()
+  metrics['ret_min'] = optlib.group_min(ret.min())
+  metrics['ret_max'] = optlib.group_max(ret.max())
   metrics['ret_rate'] = (ret.abs() >= 1.0).float().mean()
   return metrics
 

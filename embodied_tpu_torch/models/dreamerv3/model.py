@@ -112,6 +112,16 @@ class Model(nn.Module):
     return r'^(enc|dyn|dec|pol)/'
 
   @property
+  def partition_rules(self):
+    """Placements of the store over the mesh (parallel/meshes.py), as in
+    the JAX model: FSDP over 'f' on the output dim of big kernels;
+    BlockLinear kernels (g, din, dout) shard the block-local output dim."""
+    return [
+        (r'dyn/.*(dyngru|dynhid\d*)/kernel$', (None, None, ('f', 't'))),
+        (r'/(kernel|embed)$', (None, ('f', 't'))),
+    ]
+
+  @property
   def latent_keys(self):
     """Replay keys the device-resident latent table holds (the packed
     replay-context latents; see parallel/latents.py)."""

@@ -173,6 +173,14 @@ class Model(nn.Module):
     return r'^(enc|actemb|rnn|policy)/'
 
   @property
+  def partition_rules(self):
+    """Placements of the store over the mesh (parallel/meshes.py), as in
+    the JAX model."""
+    return [
+        (r'/(kernel|embed)$', (None, ('f', 't'))),
+    ]
+
+  @property
   def ext_space(self):
     spaces = {'consec': Space(np.int32), 'stepid': Space(np.uint8, 20)}
     for key in self.act_space:

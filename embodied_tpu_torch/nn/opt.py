@@ -11,14 +11,72 @@ the compute dtype is float16, dynamic loss scaling that skips steps whose
 gradients overflow. Parameters are updated in place under no_grad, after
 the loss's own state updates (normalizers), which happen in place during
 the loss.
+
+Under a data group (`reduce_over`, which the Agent sets around a train
+step on a mesh; JAX's `DATA_AXES` under shard_map), each rank's gradients
+are averaged over the group as one flat float32 buffer, before the loss
+scale's finite check and AGC's per-parameter norms, as in JAX.
+`group_mean`, `group_min`, `group_max` and `group_cat` reduce other
+values over the same group (the normalizers, the batch diagnostics).
 """
 
+import contextlib
 import math
 import re
 
 import torch
+import torch.distributed as dist
 
 from . import core
+
+# The process group that a train step's batch rows are split over, or
+# None: parallel.meshes.data_group, set by the Agent through reduce_over.
+DATA_GROUP = [None]
+
+
+@contextlib.contextmanager
+def reduce_over(group):
+  """Reduce gradients, normalizer statistics and batch diagnostics over
+  `group` (None: no reduction) within the block."""
+  previous, DATA_GROUP[0] = DATA_GROUP[0], group
+  try:
+    yield
+  finally:
+    DATA_GROUP[0] = previous
+
+
+def _reduce(x, op):
+  x = x.detach().clone()
+  dist.all_reduce(x, op, group=DATA_GROUP[0])
+  return x
+
+
+def group_mean(x):
+  """The mean of `x` over the data group's ranks (`x` itself without
+  one); ranks hold equal numbers of rows."""
+  if DATA_GROUP[0] is None:
+    return x
+  return _reduce(x, dist.ReduceOp.SUM) / dist.get_world_size(DATA_GROUP[0])
+
+
+def group_min(x):
+  return x if DATA_GROUP[0] is None else _reduce(x, dist.ReduceOp.MIN)
+
+
+def group_max(x):
+  return x if DATA_GROUP[0] is None else _reduce(x, dist.ReduceOp.MAX)
+
+
+def group_cat(x):
+  """Every rank's `x` (equal shapes) concatenated on the first axis in
+  rank order (`x` itself without a data group)."""
+  group = DATA_GROUP[0]
+  if group is None:
+    return x
+  x = x.detach().contiguous()
+  parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+  dist.all_gather(parts, x, group=group)
+  return torch.cat(parts, 0)
 
 
 def scope_params(root, scopes):
@@ -81,41 +139,50 @@ class Optimizer(core.Module):
     params = [self.params[k] for k in paths]
     scaled = loss * self.grad_scale if self.scaling else loss
     grads = torch.autograd.grad(scaled, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g.float()
-             for p, g in zip(params, grads)]
-    metrics = self._update(paths, params, grads, loss.detach())
+    # One flat float32 buffer: the data group's all-reduce, the loss
+    # scale's check and AGC work on it in place.
+    vec = torch.cat([
+        torch.zeros(p.numel(), device=p.device) if g is None
+        else g.reshape(-1).float() for p, g in zip(params, grads)])
+    del grads
+    group = DATA_GROUP[0]
+    if group is not None:
+      dist.all_reduce(vec, group=group)
+      vec.div_(dist.get_world_size(group))
+    metrics = self._update(paths, params, vec, loss.detach())
     return {f'{self.name}/{k}': v for k, v in metrics.items()}, aux
 
   @torch.no_grad()
-  def _update(self, paths, params, grads, loss):
+  def _update(self, paths, params, vec, loss):
+    """Update `params` from their flat gradient `vec` (changed in place)."""
     metrics = {}
     finite = torch.ones((), dtype=torch.bool, device=loss.device)
     if self.scaling:
       scale = self.grad_scale.clone()
       loss = loss / scale
-      grads = [g / scale for g in grads]
-      finite = torch.isfinite(sum(g.square().sum() for g in grads))
+      vec.div_(scale)
+      finite = torch.isfinite(vec.square().sum())
       good = self.good_steps
       keep = finite & (good < 1000)
       incr = finite & (good >= 1000)
       self.good_steps.copy_(torch.where(finite, good + 1, 0))
       self.grad_scale.copy_(torch.clamp(torch.where(
           incr, scale * 2, torch.where(keep, scale, scale / 2)), 1e-4, 1e5))
-      grads = [torch.where(finite, g, torch.zeros_like(g)) for g in grads]
+      vec = torch.where(finite, vec, torch.zeros_like(vec))
       metrics['grad_scale'] = scale
       metrics['grad_overflow'] = (~finite).float()
     step = self.step.float()
     lr = self._lr(step)
-    pieces = []
-    for grad, param in zip(grads, params):
-      update = grad
-      if self.agc:
+    gsq = vec.square().sum()
+    if self.agc:
+      offset = 0
+      for param in params:
+        update = vec[offset:offset + param.numel()]
+        offset += param.numel()
         unorm = torch.linalg.vector_norm(update)
         pnorm = torch.linalg.vector_norm(param)
         upper = self.agc * torch.clamp(pnorm, min=self.pmin)
-        update = update * (1 / torch.clamp(unorm / upper, min=1.0))
-      pieces.append(update.reshape(-1))
-    vec = torch.cat(pieces)
+        update.mul_(1 / torch.clamp(unorm / upper, min=1.0))
     pvec = torch.cat([p.reshape(-1) for p in params])
     # A fill, not a copy from the host, which would wait for the card.
     f32 = lambda x: torch.full((), x, dtype=torch.float32, device=vec.device)
@@ -141,7 +208,6 @@ class Optimizer(core.Module):
       param.copy_(new[offset:offset + param.numel()].reshape(param.shape))
       offset += param.numel()
     self.step.add_(finite.int())
-    gsq = sum(g.square().sum() for g in grads)
     count = pvec.numel()
     metrics.update(
         loss=loss, updates=step + 1, grad_norm=torch.sqrt(gsq),

@@ -4,12 +4,16 @@ Counterparts of embodied_tpu/nn/train_utils.py. The statistics are buffers
 under the JAX paths (`retnorm/lo`, `slowval_ema/count`, ...) and are
 updated in place under `torch.no_grad()`: JAX records the new values and
 writes them after the step, and reads its own pending writes, so reading
-the updated buffer within the step is the same function.
+the updated buffer within the step is the same function. Under a data
+group (nn.opt.reduce_over) the `meanstd` means are averaged over its ranks
+and the percentiles taken over every rank's values, as JAX does over its
+data axes.
 """
 
 import torch
 
 from . import core
+from . import opt
 
 
 class Normalize(core.Module):
@@ -43,8 +47,8 @@ class Normalize(core.Module):
       return
     x = x.detach().float()
     if self.impl == 'meanstd':
-      self._ema('mean', x.mean())
-      self._ema('sqrs', x.square().mean())
+      self._ema('mean', opt.group_mean(x.mean()))
+      self._ema('sqrs', opt.group_mean(x.square().mean()))
     else:
       self._ema('lo', self._perc(x, self.perclo))
       self._ema('hi', self._perc(x, self.perchi))
@@ -69,7 +73,7 @@ class Normalize(core.Module):
     buf.copy_((1 - self.rate) * buf + self.rate * value)
 
   def _perc(self, x, q):
-    return torch.quantile(x.reshape(-1), q / 100.0)
+    return torch.quantile(opt.group_cat(x.reshape(-1)), q / 100.0)
 
 
 class SlowModel(core.Module):

@@ -1,10 +1,10 @@
 """Device layer: wraps a model (an nn.Module tree) into the Agent API.
 
-The one-device part of embodied_tpu/parallel/agent.py: `init_policy`,
+The counterpart of embodied_tpu/parallel/agent.py: `init_policy`,
 `policy`, `init_train`, `train`, `init_report`, `report`, `stream`, `save`
-and `load`. Parameters live on one device, chosen at construction: 'cuda'
-unless the caller asks for 'cpu', and construction raises when CUDA is
-asked for and there is no card. `policy`, `train` and `report` take host
+and `load`. Parameters live on the rank's device, chosen at construction:
+'cuda' unless the caller asks for 'cpu', and construction raises when
+CUDA is asked for and there is no card. `policy`, `train` and `report` take host
 numpy arrays (or tensors, or the device batches of `stream`) and return
 host numpy arrays and, for metrics, host floats (arrays, such as the
 report's videos, as numpy); carries stay on the device. Each call samples
@@ -31,23 +31,51 @@ As in the JAX agent:
 actor and the learner of the parallel script): one lock serialises them,
 and `policy` times its wait for it (timer section `policy_lock_wait`).
 
-Meshes, the policy/train device split, shard_map mode and the grouped
-multi-host save come with the multi-device part of distribution.
+On a process group (parallel.setup) every rank is one process with its
+own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
+(parallel/meshes.py):
+- each rank feeds its own rows; the global batch `batch_size` is the
+  config's times the number of data indices, ('d','f'): as in the JAX
+  agent, whose processes each hold their 't' replicas. The agent splits
+  no batch: where JAX replicates a batch that does not divide over the
+  data axes (the policy's env rows), each rank here acts on its own;
+- a train step averages the gradients (one flat all-reduce in the
+  optimizer), the normalizers' statistics and the scalar metrics over the
+  data group, and folds the rank's data index into its draws; ranks along
+  't' train on the rows of their data index's first rank, which the step
+  broadcasts to them;
+- every rank holds the whole store, starts from rank 0's and keeps it in
+  step through the reduced gradients; `shardings` holds the placements
+  that the model's `partition_rules` give on the mesh. `torch.shardmap`
+  makes every placement replicated (`use_shardmap`, as the JAX shard_map
+  mode); with a replicated store the two modes run the same reduction,
+  and they differ only once the store is sharded;
+- policy and report calls take the rank's rows alone, with no collective,
+  so that the run loop may call them on each rank's own clock;
+- `torch.policy_mesh` (the policy/train split) gives the policy its own
+  copy of the `policy_keys` parameters on the rank's device: each train
+  step marks it dirty and the next policy call refreshes it; the device
+  lock stays. The latent table is off under the split and under shardmap,
+  as in the JAX agent; on a mesh each process's table holds the slot
+  range that it allocates from.
 """
 
 import collections
+import copy
 import re
 import threading
 import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import core as corelib
 from .. import nn
 from ..core import streams as streamlib
 from ..utils import Space, timer
 from . import latents as latentslib
+from . import meshes
 
 
 def resolve_device(device):
@@ -58,8 +86,13 @@ def resolve_device(device):
   return device
 
 
-def call_seed(seed, counter, salt=1_000_003):
-  state = np.random.SeedSequence([int(seed), int(counter), salt])
+def call_seed(seed, counter, salt=1_000_003, index=None):
+  """A generator seed from (seed, call counter, salt) and, where given, a
+  rank's index."""
+  entropy = [int(seed), int(counter), salt]
+  if index is not None:
+    entropy.append(int(index))
+  state = np.random.SeedSequence(entropy)
   return int(state.generate_state(1, np.uint64)[0] & ((1 << 63) - 1))
 
 
@@ -85,12 +118,45 @@ class Agent(corelib.Agent):
     self.replay_context = config.replay_context
     self.seed = int(config.seed)
     self._counters = {'policy': 0, 'train': 0, 'report': 0}
+
+    # Multi-process: every rank feeds config.batch_size rows, and the
+    # global batch holds those of each data index (agent.py:55-68 of the
+    # JAX package, whose processes hold the 't' replicas' devices).
+    self.nprocs = meshes.world_size()
+    self.rank = dist.get_rank() if dist.is_initialized() else 0
+    self.mesh = meshes.make_mesh(tcfg.get('mesh', '-1,1,1'))
+    self.data_group = meshes.data_group(self.mesh)
+    if dist.is_initialized() and self.data_group is None:
+      raise ValueError(f'Rank {self.rank} lies outside the mesh '
+                       f'{self.mesh.sizes} of torch.mesh')
+    self.nbatch = self.mesh.nbatch
+    if self.nprocs > 1:
+      self.batch_size = self.batch_size * self.nbatch
+      print(f'Global batch size: {self.batch_size} ({self.nprocs} ranks, '
+            f'mesh {self.mesh.sizes})')
+    if self.batch_size % self.nbatch:
+      raise ValueError(f'Batch size {self.batch_size} does not divide over '
+                       f"the mesh {self.mesh.sizes}'s ('d','f') axes")
+    policy_mesh = str(tcfg.get('policy_mesh', '') or '')
+    # The split's sizes; the policy runs on each rank's own device.
+    self.policy_mesh = meshes.mesh_sizes(policy_mesh) if policy_mesh else None
+    self.use_shardmap = bool(tcfg.get('shardmap', False)) and (
+        self.mesh.size > 1)
+
     nn.init_params(model, self.seed)
     model.to(self.device)
     model.eval()
     total = sum(p.numel() for p in model.parameters())
     print(f'Initialized agent store: {len(nn.store(model))} entries, '
           f'{total:,} parameters on {self.device}')
+    rules = [] if self.use_shardmap else getattr(
+        model, 'partition_rules', [])
+    self.shardings = meshes.resolve_rules(
+        {k: v.shape for k, v in nn.store(model).items()}, rules, self.mesh)
+    self._sync_store()
+    self._policy_copy = None
+    if self.policy_mesh is not None:
+      self._make_policy_copy()
 
     # Device-resident replay-latent table (see parallel/latents.py):
     # torch.latent_slots 0 = off (the latents ride the replay), -1 = cover
@@ -99,14 +165,16 @@ class Agent(corelib.Agent):
     self._latent_keys = tuple(getattr(model, 'latent_keys', ()) or ())
     self._latents_in_replay = bool(tcfg.get('latents_in_replay', False))
     slots = int(float(tcfg.get('latent_slots', 0)))
-    if self._latent_keys and slots != 0:
+    if (self._latent_keys and slots != 0 and self.policy_mesh is None
+        and not self.use_shardmap):
       spaces = {k: model.ext_space[k] for k in self._latent_keys}
       capacity, eval_slots = latentslib.plan(
           spaces, slots, tcfg.get('latent_budget_gb', 4.0),
           float(getattr(config, 'replay_size', 1e6)),
           4 * self.batch_size * (self.batch_length + self.replay_context))
       self._latents = latentslib.LatentTable(
-          spaces, capacity, self.device, eval_slots=eval_slots)
+          spaces, capacity, self.device, self.nprocs, self.rank,
+          eval_slots=eval_slots, nshard=self.nbatch)
       print(f'Latent table: {self._latents.capacity:,} device-resident '
             f'slots ({self._latents.nbytes / (1 << 20):.0f} MB HBM)')
 
@@ -140,10 +208,49 @@ class Agent(corelib.Agent):
     return self.model.init_policy(batch_size)
 
   def init_train(self, batch_size):
+    """The carry of `batch_size` rows, the per-process batch that the
+    caller feeds: the rank's rows (JAX's carry spans the global batch as
+    one sharded array)."""
     return self.model.init_train(batch_size)
 
   def init_report(self, batch_size):
+    """As init_train: the rank's rows."""
     return self.model.init_report(batch_size)
+
+  # --- The policy/train split ---------------------------------------------
+
+  def _make_policy_copy(self):
+    """A copy of the model that owns copies of the `policy_keys`
+    parameters and buffers and shares every other tensor."""
+    pattern = re.compile(self.model.policy_keys)
+    tensors = dict(self.model.named_parameters())
+    tensors.update(self.model.named_buffers())
+    copied = {k for k in tensors if pattern.search(k.replace('.', '/'))}
+    memo = {id(v): v for k, v in tensors.items() if k not in copied}
+    self._policy_copy = copy.deepcopy(self.model, memo)
+    mine = dict(self._policy_copy.named_parameters())
+    mine.update(self._policy_copy.named_buffers())
+    self._policy_pairs = [(tensors[k], mine[k]) for k in sorted(copied)]
+    self._policy_dirty = False
+
+  @property
+  def policy_copy_bytes(self):
+    """Bytes of the split's policy parameters (0 without the split)."""
+    if self._policy_copy is None:
+      return 0
+    return sum(d.numel() * d.element_size() for _, d in self._policy_pairs)
+
+  @torch.no_grad()
+  def _policy_model(self):
+    """The model the policy runs: the split's copy, refreshed from the
+    trained parameters if a train step changed them since."""
+    if self._policy_copy is None:
+      return self.model
+    if self._policy_dirty:
+      for src, dst in self._policy_pairs:
+        dst.copy_(src)
+      self._policy_dirty = False
+    return self._policy_copy
 
   def policy(self, carry, obs, mode='train'):
     obs = {k: self._to_device(v) for k, v in obs.items()
@@ -155,10 +262,13 @@ class Agent(corelib.Agent):
     try:
       carry = nn.core.tree_map(self._to_device, carry)
       self._counters['policy'] += 1
-      gen = torch.Generator(self.device).manual_seed(
-          call_seed(self.seed, self._counters['policy']))
+      # Each process acts on its own envs with its own noise.
+      gen = torch.Generator(self.device).manual_seed(call_seed(
+          self.seed, self._counters['policy'],
+          index=self.rank if self.nprocs > 1 else None))
+      model = self._policy_model()
       with torch.inference_mode():
-        carry, act, out = self.model.policy(carry, obs, mode, gen)
+        carry, act, out = model.policy(carry, obs, mode, gen)
         out = dict(out)
         if self._latents is not None:
           # Slots are allocated on the host; the packed latents go into
@@ -190,7 +300,12 @@ class Agent(corelib.Agent):
     queues steps while the card runs. During warm-up the first step's
     results repeat (replay updates are keyed by stepid and idempotent).
     Depth 0 waits for each step's own results (the JAX agent's depths
-    start at 1)."""
+    start at 1).
+
+    On a mesh, `data` holds the rank's rows and the step reduces over the
+    data group (see the module's docstring); a rank along 't' trains on
+    the rows of its data index's first rank and returns no replay
+    updates, since its own replay did not give them."""
     with self._device_lock:
       data = self._take_batch(data)
       carry = nn.core.tree_map(self._to_device, carry)
@@ -198,11 +313,21 @@ class Agent(corelib.Agent):
       use_table = self._latents is not None and 'slot' in data
       if use_table:
         data, slots, gens, valid = self.inject_latents(data)
-      carry, outs, mets = self.model.train_step(
-          carry, data, self._draws('train', 2_000_003))
-      carry = nn.core.tree_map(lambda x: x.detach(), carry)
-      outs, mets = dict(outs), dict(mets)
+        data['latents/valid'] = valid
+      replica = self._replicate(data)
       if use_table:
+        valid = data.pop('latents/valid')
+      with nn.opt.reduce_over(self.data_group):
+        carry, outs, mets = self.model.train_step(
+            carry, data, self._draws('train', 2_000_003))
+        carry = nn.core.tree_map(lambda x: x.detach(), carry)
+        outs, mets = dict(outs), dict(mets)
+        if use_table:
+          mets['latents/valid'] = valid.float().mean()
+        mets = self._group_mean_scalars(mets)
+      if replica:
+        outs.pop('replay', None)
+      elif use_table:
         K = self.replay_context
         if self._latents_in_replay:
           upd = outs.get('replay')
@@ -210,7 +335,8 @@ class Agent(corelib.Agent):
           upd = outs.pop('replay', None)
         if upd is not None:
           self._latents.scatter(slots[:, K:], gens[:, K:], upd)
-        mets['latents/valid'] = valid.float().mean()
+      if self._policy_copy is not None:
+        self._policy_dirty = True
       queue = self._pending_train
       queue.append(self._start_fetch(outs, mets))
       if len(queue) > self._fetch_depth:
@@ -246,9 +372,35 @@ class Agent(corelib.Agent):
         data['is_first'] = isf
     return data, slots, gens, valid
 
+  def _replicate(self, data):
+    """Where t > 1: the tensors of `data` replaced in place by those of
+    the first rank along 't' that shares this rank's data index. Returns
+    whether this rank is such a replica (not the first)."""
+    group = self.mesh.replica_group
+    if group is None:
+      return False
+    members = dist.get_process_group_ranks(group)
+    for key in sorted(data):
+      value = data[key].contiguous()
+      dist.broadcast(value, members[0], group=group)
+      data[key] = value
+    return self.rank != members[0]
+
+  def _group_mean_scalars(self, mets):
+    """The scalar tensor metrics averaged over the data group in one
+    all-reduce (agent.py:322-327 of the JAX package)."""
+    keys = sorted(k for k, v in mets.items()
+                  if isinstance(v, torch.Tensor) and v.ndim == 0)
+    if self.data_group is None or not keys:
+      return mets
+    values = nn.opt.group_mean(torch.stack(
+        [mets[k].detach().float() for k in keys]))
+    return {**mets, **dict(zip(keys, values.unbind(0)))}
+
   def report(self, carry, data):
     """Metrics of a (B, T + replay_context) batch without updates (see
-    Model.report): scalars as host floats, videos as uint8 numpy arrays."""
+    Model.report): scalars as host floats, videos as uint8 numpy arrays.
+    On a mesh, the rank's own rows' metrics."""
     with self._device_lock:
       data = self._take_batch(data)
       carry = nn.core.tree_map(self._to_device, carry)
@@ -351,8 +503,12 @@ class Agent(corelib.Agent):
     return outs, mets
 
   def _draws(self, kind, salt):
+    """The call's noise; on a mesh of more than one data index, the
+    rank's data index folds into the seed, so each rank draws its own
+    (the JAX shard_map step's fold_in of the axis index)."""
+    index = self.mesh.data_index if self.nbatch > 1 else None
     gen = torch.Generator(self.device).manual_seed(
-        call_seed(self.seed, self._counters[kind], salt=salt))
+        call_seed(self.seed, self._counters[kind], salt, index))
     return nn.dists.Draws(gen, self.device)
 
   def _fetch(self, mets):
@@ -379,8 +535,10 @@ class Agent(corelib.Agent):
         continue
       shape = (batch_size, length, *space.shape)
       if key == 'slot' and self._latents is not None:
+        # Slots of this process's range (all of them on one process).
+        table = self._latents
         idx = np.arange(batch_size * length, dtype=np.int64)
-        data[key] = (idx % self._latents.capacity).astype(
+        data[key] = (table.offset + idx % len(table.tables['_gen'])).astype(
             np.int32).reshape(shape)
       else:
         data[key] = np.zeros(shape, space.dtype)
@@ -403,12 +561,26 @@ class Agent(corelib.Agent):
   def _to_device(self, value):
     return self._host_tensor(value).to(self.device)
 
-  def save(self):
-    with self._device_lock:
-      # Copies: on the CPU, .numpy() would share memory with live tensors.
-      store = {k: v.detach().cpu().numpy().copy() for k, v in nn.store(
-          self.model).items()}
-      state = {'store': store, 'counters': dict(self._counters)}
+  def save(self, chunk_bytes=1 << 30):
+    """The state {'store', 'counters'[, 'latents']} on the host. The store
+    comes to the host in groups of at most `chunk_bytes` (or one larger
+    entry), each packed into one device buffer and copied in one transfer,
+    so a save never needs much more device memory than the model (JAX's
+    grouped gather, agent.py:724-755). Every rank holds the same store,
+    so every rank returns the same state."""
+    with timer.section('agent_save'), self._device_lock:
+      store = nn.store(self.model)
+      result, group, size = {}, [], 0
+      for key in sorted(store) + [None]:
+        nbytes = 0 if key is None else (
+            store[key].numel() * store[key].element_size())
+        if group and (key is None or size + nbytes > chunk_bytes):
+          result.update(_to_host({k: store[k] for k in group}))
+          group, size = [], 0
+        if key is not None:
+          group.append(key)
+          size += nbytes
+      state = {'store': result, 'counters': dict(self._counters)}
       if self._latents is not None:
         # Only the slot allocator persists; the table's contents heal
         # themselves (invalid generations reset the carry until the first
@@ -424,7 +596,9 @@ class Agent(corelib.Agent):
     it load and the rest keep their values. Entries the port lacks are
     reported and ignored. A checkpoint without the latent allocator's
     state (made without the table) moves the allocator one generation up,
-    so no restored (slot, slotgen) pair validates against a new one."""
+    so no restored (slot, slotgen) pair validates against a new one. On
+    a process group every rank calls `load`, and every rank ends with
+    rank 0's store."""
     store = data['store']
     if regex:
       pattern = re.compile(regex)
@@ -434,6 +608,9 @@ class Agent(corelib.Agent):
       raise KeyError(f'Checkpoint missing entries: {missing[:5]}')
     with self._device_lock:
       unused = nn.load_store(self.model, store, strict=False)
+      self._sync_store()
+      if self._policy_copy is not None:
+        self._policy_dirty = True
     if unused:
       print(f'Ignoring {len(unused)} unexpected checkpoint entries: '
             f'{unused[:5]}')
@@ -443,3 +620,27 @@ class Agent(corelib.Agent):
         self._latents.load(data['latents'])
       else:
         self._latents.bump_generations()
+
+  @torch.no_grad()
+  def _sync_store(self):
+    """Every rank takes rank 0's store (on more than one process)."""
+    if self.nprocs > 1:
+      for _, value in sorted(nn.store(self.model).items()):
+        dist.broadcast(value, 0)
+
+
+def _to_host(tensors):
+  """{key: numpy array} of device tensors, through one packed buffer: the
+  tensors' bytes concatenated on the device and copied to the host at
+  once."""
+  tensors = {k: v.detach().contiguous() for k, v in tensors.items()}
+  packed = torch.cat([v.reshape(-1).view(torch.uint8)
+                      for v in tensors.values()]).cpu().numpy()
+  out, offset = {}, 0
+  for key, value in tensors.items():
+    nbytes = value.numel() * value.element_size()
+    dtype = torch.empty(0, dtype=value.dtype).numpy().dtype
+    out[key] = packed[offset:offset + nbytes].view(dtype).reshape(
+        tuple(value.shape))
+    offset += nbytes
+  return out

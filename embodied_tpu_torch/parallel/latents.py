@@ -1,6 +1,6 @@
 """Device-resident replay-latent table.
 
-The one-device part of embodied_tpu/parallel/latents.py. The packed
+The counterpart of embodied_tpu/parallel/latents.py. The packed
 replay-context latents stay on the device in a ring table keyed by a
 4-byte slot id; the replay stores only (slot, slotgen) per step. The
 policy writes fresh latents into the table, and the train step gathers
@@ -55,20 +55,24 @@ def plan(spaces, slots, budget_gb, replay_size, minimum):
 
 class LatentTable:
   """One device tensor per latent key plus `_gen`, and a host-side slot
-  allocator. Slot ids are allocated round-robin per region; with
-  `nprocs` > 1 every process owns a disjoint range (the distribution slice
-  fills these; one process here)."""
+  allocator. Slot ids are allocated round-robin per region. With `nprocs`
+  > 1 processes every process owns a disjoint range of the `capacity`
+  slot ids, as in the JAX table, whose capacity is a multiple of `nshard`
+  (the mesh's ('d','f') size) times `nprocs`; a process's table holds its
+  own range only (`offset` is its first slot id), since its replay holds
+  only the slots that it allocated."""
 
   def __init__(self, spaces, capacity, device, nprocs=1, proc=0,
-               eval_slots=0):
+               eval_slots=0, nshard=1):
     assert spaces, 'LatentTable needs at least one latent key'
     self.spaces = dict(spaces)
     self.keys = tuple(self.spaces)
     self.device = torch.device(device)
-    quantum = max(1, nprocs)
+    quantum = max(1, nshard * nprocs)
     capacity = int(-(-(int(capacity) + int(eval_slots)) // quantum) * quantum)
     self.capacity = capacity
     per = capacity // nprocs
+    self.offset = proc * per
     # Eval-mode policy calls and eval-replay steps allocate from their own
     # region so they never churn the train ring.
     eval_span = min(per // 2, -(-int(eval_slots) // nprocs)) if eval_slots \
@@ -80,11 +84,11 @@ class LatentTable:
       self.bases['eval'] = proc * per + (per - eval_span)
     self.counters = {k: 0 for k in self.spans}
     self.tables = {
-        k: torch.zeros((capacity, *s.shape), dtype=torch_dtype(s.dtype),
+        k: torch.zeros((per, *s.shape), dtype=torch_dtype(s.dtype),
                        device=self.device)
         for k, s in self.spaces.items()}
     self.tables['_gen'] = torch.full(
-        (capacity,), -1, dtype=torch.int32, device=self.device)
+        (per,), -1, dtype=torch.int32, device=self.device)
 
   def reset(self):
     """Every generation tag back to the sentinel, the latents to zero and
@@ -148,15 +152,18 @@ class LatentTable:
 
   # --- Tensor helpers on the table ----------------------------------------
 
+  def _rows(self, slots):
+    return slots.reshape(-1).long() - self.offset
+
   def gather(self, slots):
     """The latents at integer slots of any batch shape."""
-    flat = slots.reshape(-1).long()
+    flat = self._rows(slots)
     return {k: self.tables[k].index_select(0, flat).reshape(
         (*slots.shape, *self.tables[k].shape[1:])) for k in self.keys}
 
   def valid(self, slots, gens):
     """Whether each slot still holds the generation `gens` (int32 bits)."""
-    flat = slots.reshape(-1).long()
+    flat = self._rows(slots)
     return (self.tables['_gen'].index_select(0, flat) ==
             gens.reshape(-1)).reshape(slots.shape)
 
@@ -164,7 +171,7 @@ class LatentTable:
   def scatter(self, slots, gens, values):
     """Write latents and generations in place. Where two positions share a
     slot, either written value may land (as in the JAX table)."""
-    flat = slots.reshape(-1).long()
+    flat = self._rows(slots)
     for k in self.keys:
       v = values[k].reshape((-1, *self.tables[k].shape[1:]))
       self.tables[k].index_copy_(0, flat, v.to(self.tables[k].dtype))

@@ -20,6 +20,7 @@ from functools import partial as bind
 import numpy as np
 
 from .. import core
+from ..parallel.setup import agree
 from ..utils import Agg, FPS, timer, when
 
 
@@ -146,7 +147,9 @@ class Schedule:
 
 
 class Deadline:
-  """True once the wall-clock budget (seconds; 0 = unlimited) is spent."""
+  """True once the wall-clock budget (seconds; 0 = unlimited) is spent.
+  On a process group every rank takes rank 0's answer, so that no rank
+  stops while another waits for it in a train step."""
 
   def __init__(self, seconds):
     import time
@@ -154,7 +157,9 @@ class Deadline:
     self.until = time.time() + seconds if seconds else None
 
   def __call__(self):
-    return self.until is not None and self._time.time() >= self.until
+    if self.until is None:
+      return False
+    return agree(self._time.time() >= self.until)
 
 
 def make_driver(make_env, n, args):

@@ -1,0 +1,125 @@
+"""One gloo rank of tests/test_torch_distributed.py.
+
+    python tests/torch_distributed_worker.py CASE RANK WORLD PORT DIR
+
+Reads DIR/inputs.pkl, joins a gloo group of WORLD ranks at localhost:PORT
+through the port's make_agent (RANK and WORLD_SIZE in the environment,
+as a multi-host launcher sets them) and writes DIR/rank<RANK>.pkl. Imports
+no JAX. Cases:
+
+  step       for each of `runs`, a family's agent (family, argv, local
+             rows, initial store, global batch, the one-rank step's
+             recorded noise): one Agent.train step on the rank's rows with
+             its rows of the noise; the metrics, the store after the step,
+             a save in groups of `chunk_bytes`, the placements; with
+             `shardmap`, the same step on an agent under torch.shardmap;
+             with `values`, a perc and a meanstd Normalize updated on the
+             rank's share of them.
+  multihost  DreamerV3 at the debug size with the defaults (the latent
+             table, the fetch pipeline), batch_size 4 per process: the
+             global batch size and the loss of two train steps; and
+             whether an agent under torch.shardmap has a latent table.
+"""
+
+import importlib
+import os
+import pickle
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+
+def make(family, argv):
+  from embodied_tpu_torch.models import common
+  main = importlib.import_module(f'embodied_tpu_torch.models.{family}.main')
+  config = common.assemble_config(main.CONFIGS, argv)
+  return main.make_agent(config, device='cpu'), config
+
+
+def step(agent, inputs):
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.tools.dryrun_multidevice import RankDraws, rows
+  agent.load({'store': inputs['store']})
+  local = inputs['local']
+  index = agent.mesh.data_index
+  draws = RankDraws(inputs['recorded'], index, agent.nbatch)
+  agent._draws = lambda kind, salt: draws
+  _, outs, mets = agent.train(
+      agent.init_train(local), rows(inputs['batch'], index, local))
+  assert draws.used_all(), (draws.calls, len(draws.recorded))
+  store = {k: v.detach().numpy().copy()
+           for k, v in nn.store(agent.model).items()}
+  return dict(mets=mets, outs=outs, store=store)
+
+
+def case_step(inputs, port):
+  return [run_step(run, port) for run in inputs['runs']]
+
+
+def run_step(inputs, port):
+  from embodied_tpu_torch import nn
+  argv = inputs['argv'] + [
+      '--batch_size', str(inputs['local']),
+      '--torch.coordinator_address', f'localhost:{port}']
+  agent, _ = make(inputs['family'], argv)
+  out = step(agent, inputs)
+  out.update(
+      batch_size=agent.batch_size, data_index=agent.mesh.data_index,
+      use_shardmap=agent.use_shardmap, shardings=agent.shardings,
+      save=agent.save(chunk_bytes=inputs['chunk_bytes'])['store'])
+  if inputs.get('shardmap'):
+    other, _ = make(inputs['family'], argv + ['--torch.shardmap', 'True'])
+    out['shardmap'] = step(other, inputs)
+    out['shardmap'].update(use_shardmap=other.use_shardmap,
+                           shardings=other.shardings)
+  if 'values' in inputs:
+    half = np.split(inputs['values'], agent.nbatch)[agent.mesh.data_index]
+    stats = {}
+    for impl in ('perc', 'meanstd'):
+      norm = nn.Normalize(impl, rate=0.5, name=impl)
+      with nn.opt.reduce_over(agent.data_group):
+        norm.update(torch.tensor(half))
+      stats[impl] = {k: v.numpy().copy()
+                     for k, v in norm.state_dict().items()}
+    out['normalize'] = stats
+  return out
+
+
+def case_multihost(inputs, port):
+  agent, config = make('dreamerv3', [
+      '--configs', 'debug', '--task', 'dummy_disc', '--batch_size', '4',
+      '--batch_length', '8', '--logdir', inputs['logdir'],
+      '--torch.coordinator_address', f'localhost:{port}'])
+  local = config.batch_size
+  data = agent._example_batch(local, config.batch_length + 1)
+  data['is_first'][:, 0] = True
+  carry = agent.init_train(local)
+  for _ in range(2):
+    carry, _, mets = agent.train(carry, data)
+  shardmap, _ = make('dreamerv3', [
+      '--configs', 'debug', '--task', 'dummy_disc',
+      '--logdir', inputs['logdir'], '--torch.shardmap', 'True'])
+  return dict(batch_size=agent.batch_size, loss=mets['opt/loss'],
+              table=agent._latents is not None,
+              shardmap_table=shardmap._latents is not None)
+
+
+def main():
+  case, rank, world, port, folder = sys.argv[1:]
+  os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
+  from embodied_tpu_torch.parallel.setup import share_cores, shutdown
+  share_cores(int(world))
+  with open(os.path.join(folder, 'inputs.pkl'), 'rb') as f:
+    inputs = pickle.load(f)
+  out = {'step': case_step, 'multihost': case_multihost}[case](inputs, port)
+  with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
+    pickle.dump(out, f)
+  shutdown()
+
+
+if __name__ == '__main__':
+  main()
