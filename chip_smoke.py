@@ -126,12 +126,29 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            the refresh's ms). On a machine with two cards, two NCCL ranks
            of 8 rows against the one-rank step; else "ranks_2": "not run:
            1 card".
+  diagnostics
+           the default configuration's diagnostics on dummy_disc, with the
+           defaults (the latent table, fetch_depth 3, the sync guard,
+           precompile): the train step's FLOPs (train_cost, printed at
+           construction) equal under kernel: auto and off and above the
+           products of kernels 5, 6 and 8 alone, the first step after the
+           count equal bit for bit to an agent's that never counted; 120
+           train steps on a batch the policy collected, the profiler
+           window tracing updates 100-119, ms per train step (CUDA events,
+           updates 20-99), TFLOP/s and MFU beside the card's name and
+           power limit, the trace read by the port's viewer (device
+           events, the largest ops, 20 launches each of kernels 5, 6 and
+           8); a planted .item() that the sync guard must refuse; and in a
+           child interpreter (this script with --deterministic),
+           torch.deterministic at size12m: two train steps from one store
+           and batch equal bit for bit, and a step on the latent table.
 
 The phases slice, train, modes, default, ppo, director and distributed
 run the host path (HOST_PATH: torch.latent_slots 0, fetch_depth 0), on
 which each train call returns its own step and can be held against the
-plain path; the latents phase, the scripts and the parallel phase run
-the defaults.
+plain path; the latents phase, the scripts, the parallel phase and the
+diagnostics phase run the defaults. Every phase runs under the sync
+guard (torch.transfer_guard, on by default).
 
 The line before the last lists every kernel; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
@@ -187,6 +204,10 @@ LOSS_RTOL = 5e-3
 # against the plain path on the same batch. Phase latents and the
 # script runs take the defaults (the table, fetch_depth 3, prefetching).
 HOST_PATH = ['--torch.latent_slots', '0', '--torch.fetch_depth', '0']
+# Every phase but diagnostics builds its DreamerV3 agents without the FLOP
+# count at construction (torch.precompile, on by default), which takes
+# some 3 s of host time a default agent; phase diagnostics holds it.
+NO_COUNT = ['--torch.precompile', 'False']
 
 
 def emit(**fields):
@@ -198,13 +219,18 @@ def fail(phase, message):
   sys.exit(1)
 
 
-def phase_device(torch):
+def card_line(phase='device'):
+  """nvidia-smi's name and power limit of the card."""
   query = subprocess.run(
       ['nvidia-smi', '--query-gpu=name,power.limit',
        '--format=csv,noheader'], capture_output=True, text=True, timeout=60)
   if query.returncode:
-    fail('device', f'nvidia-smi failed: {query.stderr.strip()}')
-  card = query.stdout.strip().splitlines()[0]
+    fail(phase, f'nvidia-smi failed: {query.stderr.strip()}')
+  return query.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch):
+  card = card_line()
   print(card, flush=True)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -1070,7 +1096,7 @@ def drive(argv, calls, modes):
   from embodied_tpu_torch import core
   from embodied_tpu_torch.models import common
   from embodied_tpu_torch.models.dreamerv3 import main
-  config = common.assemble_config(main.CONFIGS, argv + HOST_PATH)
+  config = common.assemble_config(main.CONFIGS, argv + HOST_PATH + NO_COUNT)
   agent = main.make_agent(config)
   driver = core.Driver(
       [lambda i=i: common.make_env(config, i) for i in range(ENVS)],
@@ -1409,7 +1435,7 @@ def phase_train(torch, paths=TRAIN_PATHS):
   wrappers = train_wrappers()
   launches = {}
   for label, argv, warmup, steps, against_plain in paths:
-    argv = argv + HOST_PATH
+    argv = argv + HOST_PATH + NO_COUNT
     config = common.assemble_config(dmain.CONFIGS, argv)
     agent = dmain.make_agent(config)
     data, _ = collect_batch(agent, config)
@@ -1473,7 +1499,7 @@ def phase_modes(torch, modes=MODES):
   launches = {}
   for label, flags, per_step, per_report in modes:
     argv = ['--configs', 'size12m', '--task', 'dummy_disc'] + flags + (
-        HOST_PATH)
+        HOST_PATH + NO_COUNT)
     config = common.assemble_config(dmain.CONFIGS, argv)
     agent = dmain.make_agent(config)
     data, _ = collect_batch(agent, config)
@@ -1569,8 +1595,8 @@ SCRIPTS = (
     # Then train_eval the same way, with its 4 eval envs and eval replay;
     # an evaluation (an eval episode and two reports) takes some 2 s, so
     # it comes every 6 s. Each pair's budgets were (15, 10) until the
-    # parallel phase came: the smoke keeps the sum of its script runs'
-    # budgets at the 220 s it had.
+    # parallel phase came; the script runs' budgets sum to 210 s (these,
+    # DEFAULT_SCRIPTS, PARALLEL_BUDGET and the PPO and Director runs).
     ('size12m', SIZE12M, (12, 8), 2, 2),
     ('size12m train_eval', SIZE12M + ['--script', 'train_eval'], (12, 8),
      6, 2),
@@ -1713,7 +1739,7 @@ def phase_script(torch, scripts=SCRIPTS):
       gc.collect()  # the agents of earlier runs
       torch.cuda.empty_cache()
       task = [] if '--task' in flags else ['--task', 'dummy_disc']
-      argv = [*task, *flags, '--logdir', logdir,
+      argv = [*task, *flags, *NO_COUNT, '--logdir', logdir,
               '--run.steps', str(STEP_CAP), '--run.duration', str(budget),
               '--run.log_every', str(every), '--run.report_every',
               str(every), '--run.save_every', str(save_every)]
@@ -1834,9 +1860,10 @@ def phase_eval_only(torch, checkpoint, runs=EVAL_ONLY):
     shutil.rmtree(logdir, ignore_errors=True)
     for wrapper in wrappers.values():
       wrapper.launches = 0
-    argv = ['--task', 'dummy_disc', *flags, '--script', 'eval_only',
-            '--run.from_checkpoint', checkpoint, '--logdir', logdir,
-            '--run.steps', str(EVAL_ONLY_STEPS), '--run.log_every', '2']
+    argv = ['--task', 'dummy_disc', *flags, *NO_COUNT, '--script',
+            'eval_only', '--run.from_checkpoint', checkpoint, '--logdir',
+            logdir, '--run.steps', str(EVAL_ONLY_STEPS), '--run.log_every',
+            '2']
     out = io.StringIO()
     start = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1951,10 +1978,10 @@ def phase_latents(torch, paths=LATENT_PATHS):
     problems = []
     began = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    config = common.assemble_config(dmain.CONFIGS, argv)
+    config = common.assemble_config(dmain.CONFIGS, argv + NO_COUNT)
     table = dmain.make_agent(config)
     host = dmain.make_agent(
-        common.assemble_config(dmain.CONFIGS, argv + HOST_PATH))
+        common.assemble_config(dmain.CONFIGS, argv + HOST_PATH + NO_COUNT))
     host.load(table.save())
     depth = int(config.torch.fetch_depth)
     set_fetch_depth(table, 0)
@@ -2340,7 +2367,8 @@ def phase_parallel(torch, pinpad_speed):
   for helper in helpers:
     helper.start()
   cap = PARALLEL_SETUP + PARALLEL_BUDGET + 30
-  argv = [*PARALLEL, '--logdir', logdir, '--run.steps', str(STEP_CAP),
+  argv = [*PARALLEL, *NO_COUNT, '--logdir', logdir,
+          '--run.steps', str(STEP_CAP),
           '--run.duration', str(cap),
           '--run.log_every', str(PARALLEL_LOG_EVERY),
           '--run.report_every', str(PARALLEL_EVERY),
@@ -2782,7 +2810,8 @@ def phase_director(torch):
 
 # The distributed phase: the default configuration on a process group of
 # one NCCL rank (localhost coordinator), with the policy/train split.
-DIST_ARGV = DEFAULT_ARGV + HOST_PATH + ['--torch.policy_mesh', '1,1,1']
+DIST_ARGV = DEFAULT_ARGV + HOST_PATH + NO_COUNT + [
+    '--torch.policy_mesh', '1,1,1']
 DIST_STEPS = (1, 3)  # warm-up and timed train steps, with and without
 DIST_CALLS = 20  # policy calls of ENVS envs on the split's copy
 DIST_SEED = SEED + 5  # the noise of the steps held against each other
@@ -3151,6 +3180,277 @@ def phase_distributed(torch):
       k: dp_launches[k] for k in TRAIN_KERNELS})
 
 
+# The diagnostics phase: the default configuration as it runs by default
+# (the latent table, fetch_depth 3, the sync guard, precompile) with the
+# profiler window on. DIAG_STEPS train calls: the first on a host-path
+# batch, held against an agent that never counted its FLOPs; the window
+# traces updates 100-119 and the 120th call ends it.
+DIAG_STEPS = 120
+DIAG_TIMED = (20, 100)  # train updates whose CUDA-event times are read
+DIAG_WINDOW = 20  # updates the profiler window traces
+# The products of kernels 5, 6 and 8 alone, from their bounds in the
+# kernel table at 989 TFLOP/s: 1.83e11 + 3.65e11 (the backward, without
+# its recompute) + 2.87e12.
+FLOPS_FLOOR = 3.4e12
+DET_ARGV = ['--configs', 'size12m', '--task', 'dummy_disc',
+            '--torch.fetch_depth', '0', '--torch.deterministic', 'True',
+            '--torch.precompile', 'False']
+DET_TIMEOUT = 600
+
+
+def diag_batch(agent, seed):
+  """A host-path batch (the latents ride it, no slots) of the agent's
+  keys, its observations drawn from `seed`."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  data = agent._example_batch(
+      agent.config.batch_size, agent.batch_length + agent.replay_context,
+      spaces=agent.model.ext_space)
+  for key, value in data.items():
+    if key in agent.obs_space and value.dtype == np.uint8:
+      data[key] = rng.integers(0, 256, value.shape, np.uint8)
+    elif key in agent.obs_space and value.dtype == np.float32:
+      data[key] = rng.normal(size=value.shape).astype(np.float32)
+  return data
+
+
+def same_stores(torch, got, want):
+  """Keys of the two {key: tensor} stores whose values differ in a bit."""
+  return sorted(k for k in want if k not in got or not torch.equal(
+      got[k], want[k]))
+
+
+def planted_sync(torch, agent):
+  """A `.item()` inside the Agent's guard scope on the card must raise,
+  and inside its explicit crossing must not."""
+  value = torch.ones((), device=agent.device)
+  raised = None
+  with agent._checked():
+    try:
+      value.item()
+    except RuntimeError as e:
+      raised = str(e).splitlines()[0][:120]
+    with agent._allowed():
+      allowed = value.item()
+  return dict(guard_raised=raised, allowed_value=allowed,
+              guard_on=agent._syncs is not None)
+
+
+def deterministic_main():
+  """The child of phase diagnostics (`chip_smoke.py --deterministic`):
+  size12m under torch.deterministic, two train steps from one store and
+  one batch, and a step on the latent table; prints one JSON line."""
+  import torch
+  sys.path.insert(0, ROOT)
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  import tempfile
+  config = common.assemble_config(dmain.CONFIGS, DET_ARGV + [
+      '--logdir', tempfile.mkdtemp(prefix='smoke_det_')])
+  agent = dmain.make_agent(config)
+  row = dict(enabled=torch.are_deterministic_algorithms_enabled(),
+             cublas=os.environ.get('CUBLAS_WORKSPACE_CONFIG'))
+  data = diag_batch(agent, SEED + 7)
+  state = agent.save()
+  stores, metrics = [], []
+  for _ in range(2):
+    agent.load(state)
+    _, _, mets = agent.train(agent.init_train(agent.config.batch_size), data)
+    stores.append({k: v.clone() for k, v in nn.store(agent.model).items()})
+    metrics.append(mets)
+  row['store_entries'] = len(stores[0])
+  row['differing_entries'] = same_stores(torch, stores[1], stores[0])
+  row['differing_metrics'] = sorted(
+      k for k in metrics[0] if not metrics[0][k] == metrics[1][k])
+  table, _ = collect_batch(agent, config)
+  _, _, mets = agent.train(agent.init_train(agent.config.batch_size), table)
+  row['table_step_finite'] = all(math.isfinite(v) for v in mets.values())
+  print(json.dumps(row), flush=True)
+
+
+def phase_diagnostics(torch):
+  """The Agent's diagnostics at the default configuration (202,982,304
+  parameters) on dummy_disc, through make_agent with the defaults:
+  (a) the FLOP count: an agent built with precompile on prints its
+      train step's FLOPs; train_cost under kernel: auto equals it under
+      kernel: off and exceeds FLOPS_FLOOR; the first train step after it
+      equals that of an agent that never counted, bit for bit;
+  (b) the profiler window: DIAG_STEPS train calls on a batch collected by
+      the policy (kernel 3), each launching kernels 5, 6 and 8 once, with
+      the launch counts set to 0 before and read after; ms_per_train_step
+      is the median CUDA-event time of updates DIAG_TIMED, untraced, and
+      with train_cost's FLOPs gives TFLOP/s and MFU against the card's
+      dense bf16 peak; the port's viewer reads the window's trace, which
+      must hold DIAG_WINDOW launches of each of kernels 5, 6 and 8;
+  (c) transfer_guard, on by default under every phase: a planted .item()
+      in the Agent's guard scope raises, in its explicit crossing not;
+  (d) deterministic, in a child interpreter (CUBLAS_WORKSPACE_CONFIG must
+      precede the process's first cuBLAS handle) that runs beside the end
+      of (b): two size12m train steps from one store and batch give the
+      same store bit for bit.
+  Returns the launches of kernels 3, 5, 6 and 8."""
+  import atexit
+  import contextlib
+  import io
+  import tempfile
+  from embodied_tpu_torch import nn, viewer
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  from embodied_tpu_torch.utils import Config
+  card = card_line('diagnostics')
+  problems = []
+  folder = tempfile.mkdtemp(prefix='smoke_diag_')
+  row = dict(phase='diagnostics', card=card)
+  # (a) An agent that never counts, one step on the host-path batch.
+  config = common.assemble_config(dmain.CONFIGS, DEFAULT_ARGV + [
+      '--torch.precompile', 'False', '--logdir', f'{folder}/plain'])
+  agent = dmain.make_agent(config)
+  data = diag_batch(agent, SEED + 6)
+  rows = config.batch_size
+  _, _, want_mets = agent.train(agent.init_train(rows), data)
+  want = {k: v.clone() for k, v in nn.store(agent.model).items()}
+  del agent
+  gc.collect()
+  torch.cuda.empty_cache()
+  config = common.assemble_config(dmain.CONFIGS, DEFAULT_ARGV + [
+      '--logdir', f'{folder}/window'])
+  config = Config({**config, 'torch': {**config.torch, 'profiler': True}})
+  printed = io.StringIO()
+  start = time.perf_counter()
+  with contextlib.redirect_stdout(printed):
+    agent = dmain.make_agent(config)
+  row['setup_s'] = time.perf_counter() - start
+  print(printed.getvalue(), end='', flush=True)
+  start = time.perf_counter()
+  flops = agent.train_cost()['flops']
+  row['train_cost_s'] = time.perf_counter() - start
+  agent.model.dyn.kernel = 'off'
+  row['train_flops_kernel_off'] = agent.train_cost()['flops']
+  agent.model.dyn.kernel = 'auto'
+  row.update(train_flops=flops, precompile_line=[
+      line for line in printed.getvalue().splitlines()
+      if line.startswith('Train step FLOPs')])
+  if row['precompile_line'] != [f'Train step FLOPs: {flops:.3e}']:
+    problems.append(f'precompile printed {row["precompile_line"]}')
+  if row['train_flops_kernel_off'] != flops:
+    problems.append('train_cost differs between kernel: auto and off')
+  if not flops > FLOPS_FLOOR:
+    problems.append(f'train_cost {flops:.4e} <= {FLOPS_FLOOR:.1e}')
+  # The main path: launch counts from 0 before its first train call.
+  wrappers = train_wrappers()
+  for wrapper in wrappers.values():
+    wrapper.launches = 0
+  carry, _, mets = agent.train(agent.init_train(rows), data)
+  got = {k: v for k, v in nn.store(agent.model).items()}
+  row['first_step_differing_entries'] = same_stores(torch, got, want)
+  row['first_step_differing_metrics'] = sorted(
+      k for k in want_mets if not mets.get(k) == want_mets[k])
+  if row['first_step_differing_entries'] or row[
+      'first_step_differing_metrics']:
+    problems.append('the first step after train_cost differs from that of '
+                    'an agent that never called it')
+  del got, want
+  # (b) The window.
+  batch, _ = collect_batch(agent, config)
+  events = []
+  child = None
+  for _ in range(DIAG_STEPS - 1):
+    if agent._counters['train'] == DIAG_STEPS - 1:
+      # (d) starts in a child interpreter beside the call that ends the
+      # window (its export) and the trace's reading; no timed update runs
+      # beside it.
+      child_start = time.perf_counter()
+      child = subprocess.Popen(
+          [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+           '--deterministic'], stdout=subprocess.PIPE,
+          stderr=subprocess.PIPE, text=True)
+      # A phase that fails before reading it still ends it.
+      atexit.register(lambda: child.poll() is None and (
+          child.kill(), child.wait()))
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    carry, _, mets = agent.train(carry, batch)
+    end.record()
+    events.append((agent._counters['train'], begin, end))
+  torch.cuda.synchronize()
+  launches = {k: w.launches for k, w in wrappers.items()}
+  row['launches'] = launches
+  for name in TRAIN_KERNELS:
+    if launches[name] != DIAG_STEPS:
+      problems.append(f'{launches[name]} launches of {name} in '
+                      f'{DIAG_STEPS} train calls')
+  if not launches['obs_step']:
+    problems.append('the policy calls launched no kernel 3')
+  times = [b.elapsed_time(e) for n, b, e in events
+           if DIAG_TIMED[0] <= n < DIAG_TIMED[1]]
+  ms = statistics.median(times)
+  row.update(
+      timed_updates=list(DIAG_TIMED), ms_per_train_step=ms,
+      ms_per_train_step_p90=sorted(times)[int(0.9 * len(times))],
+      window_call_ms=[b.elapsed_time(e) for n, b, e in events
+                      if n >= DIAG_TIMED[1]],
+      tflops=flops / ms / 1e9, mfu=flops / (ms / 1e3) / PEAK_BF16,
+      peak_flops=PEAK_BF16,
+      bad_metrics=sorted(k for k, v in mets.items()
+                         if not math.isfinite(v)))
+  paths = viewer.find_trace_files(config.logdir)
+  if len(paths) != 1:
+    fail('diagnostics', f'the window wrote {paths}')
+  start = time.perf_counter()
+  trace = viewer.load_trace(paths[0])
+  annotations = dict(trace['annotations'])
+  row.update(
+      trace_file=os.path.relpath(paths[0], folder),
+      trace_mb=os.path.getsize(paths[0]) / 2 ** 20,
+      trace_load_s=time.perf_counter() - start,
+      device_events=sum(len(evs) for _, evs in trace['lanes']),
+      lanes=[lane for lane, _ in trace['lanes']],
+      top_ops_us=[(k[:80], t, n) for k, t, n in trace['ops'][:10]],
+      trace_launches={k: annotations.get(k, 0)
+                      for k in TRAIN_KERNELS + ('train',)})
+  for name in TRAIN_KERNELS + ('train',):
+    if annotations.get(name) != DIAG_WINDOW:
+      problems.append(f'the trace holds {annotations.get(name)} of {name}, '
+                      f'not {DIAG_WINDOW}')
+  if not row['device_events']:
+    problems.append('the trace holds no device event')
+  if row['bad_metrics']:
+    problems.append(f'non-finite metrics {row["bad_metrics"][:5]}')
+  # (c) The sync guard.
+  row['transfer_guard'] = planted_sync(torch, agent)
+  if not (row['transfer_guard']['guard_on'] and
+          row['transfer_guard']['guard_raised']):
+    problems.append(f'no sync guard: {row["transfer_guard"]}')
+  del agent, carry, batch
+  gc.collect()
+  torch.cuda.empty_cache()
+  # (d) deterministic: the child's result.
+  try:
+    out, err = child.communicate(timeout=DET_TIMEOUT)
+  except subprocess.TimeoutExpired:
+    child.kill()
+    child.communicate()
+    fail('diagnostics', 'the deterministic child timed out')
+  lines = out.strip().splitlines()
+  if child.returncode or not lines:
+    fail('diagnostics', f'the deterministic child failed '
+                        f'({child.returncode}): {err[-2000:]}')
+  det = json.loads(lines[-1])
+  det['seconds'] = time.perf_counter() - child_start
+  row['deterministic'] = det
+  if not (det['enabled'] and det['cublas'] == ':4096:8' and
+          not det['differing_entries'] and not det['differing_metrics']
+          and det['table_step_finite']):
+    problems.append(f'deterministic: {det}')
+  row['ok'] = not problems
+  emit(**row)
+  if problems:
+    fail('diagnostics', '; '.join(problems))
+  return {k: launches[k] for k in ('obs_step',) + TRAIN_KERNELS}
+
+
 def main():
   try:
     import torch
@@ -3168,6 +3468,8 @@ def main():
     print(f'chip_smoke: run from a checkout of the repository ({e})',
           file=sys.stderr)
     sys.exit(2)
+  if sys.argv[1:] == ['--deterministic']:
+    return deterministic_main()
   start = time.perf_counter()
   phase_device(torch)
   phase_build()
@@ -3202,6 +3504,9 @@ def main():
   # The default configuration on a one-rank NCCL group: kernels 5, 6 and 8
   # in its data-parallel steps, kernel 3 on the policy/train split's copy.
   distributed = phase_distributed(torch)
+  # The default configuration's diagnostics: kernels 5, 6 and 8 in the
+  # train steps of the profiler window, kernel 3 in the policy calls.
+  diagnostics = phase_diagnostics(torch)
   kernels = []
   for row in rows:
     # The list holds each kernel once: at the default configuration's dims
@@ -3229,6 +3534,8 @@ def main():
       kernels[-1]['parallel_launches'] = parallel_launches[name]
     if name in distributed:
       kernels[-1]['distributed_launches'] = distributed[name]
+    if name in diagnostics:
+      kernels[-1]['diagnostics_launches'] = diagnostics[name]
   if sorted(k['name'] for k in kernels) != sorted(SOURCES):
     fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
   emit(phase='total', ok=True, seconds=time.perf_counter() - start)

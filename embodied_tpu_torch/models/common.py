@@ -223,7 +223,9 @@ def make_agent(config, model_cls, device=None):
       device=device, compute_dtype=tcfg.compute_dtype,
       mock_devices=int(tcfg.mock_devices),
       expect_devices=int(tcfg.expect_devices),
-      coordinator_address=tcfg.coordinator_address)
+      coordinator_address=tcfg.coordinator_address,
+      debug=bool(tcfg.debug), deterministic=bool(tcfg.deterministic),
+      transfer_guard=bool(tcfg.transfer_guard))
   obs_space, act_space = env_spaces(config)
   if config.random_agent:
     return core.RandomAgent(obs_space, act_space)

@@ -137,11 +137,12 @@ def openloop_video(true, obs_recon, img_recon, split):
   frames = panel.shape[1]
   panel = F.pad(panel, (0, 0, 2, 2, 2, 2))
   interior = torch.zeros(panel.shape, dtype=torch.bool, device=panel.device)
-  interior[:, :, 2:-2, 2:-2, :] = True
-  colors = lambda c: torch.tensor(c, dtype=torch.uint8, device=panel.device)
-  edge = torch.where(
-      (torch.arange(frames, device=panel.device) < split)[:, None],
-      colors([0, 255, 0]), colors([255, 0, 0]))
+  interior[:, :, 2:-2, 2:-2, :].fill_(True)
+  # Colors made on the device: a copy from host memory would wait for it.
+  green = torch.zeros(3, dtype=torch.uint8, device=panel.device)
+  green[1].fill_(255)
+  first = (torch.arange(frames, device=panel.device) < split)[:, None]
+  edge = torch.where(first, green, green.roll(-1))
   panel = torch.where(interior, panel, edge[None, :, None, None, :])
   B, T, H, W, C = panel.shape
   return panel.permute(1, 2, 0, 3, 4).reshape(T, H, B * W, C)

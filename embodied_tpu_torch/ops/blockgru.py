@@ -8,7 +8,7 @@ csrc/seq_common.cuh, shared with the observe window), whose notes give
 what bounds them on an H100 (weight bytes at acting batch) and what the
 design does about that.
 
-`core_step` is the wrapper: a CPU tensor takes the plain version
+`core_step` is the wrapper: a CPU or meta tensor takes the plain version
 `reference_step`, which autograd differentiates; a CUDA tensor launches
 the forward kernel or raises. Where autograd needs the step's gradient,
 the call runs a `torch.autograd.Function` that keeps the inputs and whose
@@ -16,7 +16,8 @@ backward calls `core_step_bwd`, which launches the backward kernel (plain
 version `reference_step_bwd`, autograd of `reference_step`). Without a
 gradient to take (under torch.no_grad, or on inputs that need none) the
 kernel runs alone and keeps nothing. Each wrapper counts its launches in
-`.launches`.
+`.launches`, and each launch runs in a profiler range named after its
+wrapper, by which a trace of the card counts them.
 
 Weight layout (as rssm.RSSM's parameters; FIELDS order):
   w0 (D, H),  b0 (H),  s0 (H)    dynin0 + rms scale     (deter proj)
@@ -81,6 +82,14 @@ def shapes(B, D, H, S, A, g):
       w0=(D, H), b0=(H,), s0=(H,), w1=(S, H), b1=(H,), s1=(H,),
       wblk=(g, dg, dg), bblk=(D,), win=(2 * H + A, D), sh=(D,),
       wg=(g, dg, 3 * dg), bg=(3 * D,))
+
+
+def takes_plain(x):
+  """Whether a wrapper called on `x` takes its plain version: `x` lies on
+  the CPU, or on the meta device, where tensors have shapes only and
+  `parallel.flops` counts the plain version's products. A CUDA tensor
+  launches the kernel."""
+  return x.device.type in ('cpu', 'meta')
 
 
 def needs_grad(*tensors):
@@ -237,9 +246,10 @@ def core_step_bwd(deter, stoch_flat, actfeat, params, dout, eps=1e-4):
   dtype and norm-scale gradients in float32. CPU tensors take
   `reference_step_bwd`; CUDA tensors launch the kernel and raise on what
   it does not take."""
-  if deter.device.type == 'cpu':
+  if takes_plain(deter):
     return reference_step_bwd(deter, stoch_flat, actfeat, params, dout, eps)
-  out = launch_bwd(deter, stoch_flat, actfeat, params, dout, eps)
+  with torch.profiler.record_function('core_step_bwd'):
+    out = launch_bwd(deter, stoch_flat, actfeat, params, dout, eps)
   core_step_bwd.launches += 1
   return out
 
@@ -268,12 +278,13 @@ def core_step(deter, stoch_flat, actfeat, params, eps=1e-4):
   """One core step. CPU tensors take `reference_step`; CUDA tensors launch
   the kernel (bf16 only), and the backward kernel when autograd asks for
   gradients, and raise on what the kernels do not take."""
-  if deter.device.type == 'cpu':
+  if takes_plain(deter):
     return reference_step(deter, stoch_flat, actfeat, params, eps)
-  if needs_grad(deter, stoch_flat, actfeat, *params):
-    out = _CoreStep.apply(deter, stoch_flat, actfeat, eps, *params)
-  else:
-    out = launch(deter, stoch_flat, actfeat, params, eps)
+  with torch.profiler.record_function('core_step'):
+    if needs_grad(deter, stoch_flat, actfeat, *params):
+      out = _CoreStep.apply(deter, stoch_flat, actfeat, eps, *params)
+    else:
+      out = launch(deter, stoch_flat, actfeat, params, eps)
   core_step.launches += 1
   return out
 
@@ -284,7 +295,9 @@ core_step.launches = 0
 def work(B, D, H, S, A, g, L=0, K=0):
   """Bytes the step must move (inputs read once, outputs written once) and
   its flops, for the bound on the card. L and K > 0 add the posterior
-  head of ops/observe.py."""
+  head of ops/observe.py.
+  This is the kernel's roofline count; `Agent.train_cost` counts the
+  plain version's products instead (parallel/flops.py)."""
   dg = D // g
   weights = D * H + S * H + g * dg * dg + (2 * H + A) * D + g * dg * 3 * dg
   vectors = 2 * H + D + 3 * D          # biases, bf16
@@ -305,7 +318,10 @@ def work_bwd(B, D, H, S, A, g, L=0, K=0):
   weights and the f32 upstream gradients, writes the input and weight
   gradients (norm scales in f32), and does three times the forward's
   products (the recompute, the input and the weight gradients). L and
-  K > 0 add the posterior head."""
+  K > 0 add the posterior head.
+  This is the kernel's roofline count, recompute included;
+  `Agent.train_cost` counts the plain version's products instead,
+  whose backward recomputes nothing (parallel/flops.py)."""
   nbytes, flops = work(B, D, H, S, A, g, L, K)
   outs = B * D + B * L                     # the forward's outputs, bf16
   weights = nbytes - 2 * (B * (D + S + A + K) + outs)

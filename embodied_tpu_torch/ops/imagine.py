@@ -16,7 +16,7 @@ blend (1 - unimix) softmax + unimix / C, with the Gumbel noise `gum`
 value is the one-hot; in the plain version its gradient flows into the
 blended probabilities (straight through).
 
-`imag_step` is the wrapper: a CPU tensor takes `reference_imag_step`; a
+`imag_step` is the wrapper: a CPU or meta tensor takes `reference_imag_step`; a
 CUDA tensor launches the kernel or raises. The rollout runs without a
 graph on the train step (DreamerV3 stops the gradient at the rolled-out
 features), so the kernel then runs alone and keeps nothing; where a
@@ -143,14 +143,15 @@ def imag_step(deter, stoch_flat, actfeat, gum, params, C, unimix=0.01,
   """One imagination step (see the module note): (new deter, sample,
   logits f32). CPU tensors take the plain version; CUDA tensors launch the
   kernel (bf16 only) and raise on what it does not take."""
-  if deter.device.type == 'cpu':
+  if blockgru.takes_plain(deter):
     return reference_imag_step(deter, stoch_flat, actfeat, gum, params, C,
                                unimix, eps)
-  if blockgru.needs_grad(deter, stoch_flat, actfeat, *params):
-    out = _ImagStep.apply(deter, stoch_flat, actfeat, gum, (C, unimix, eps),
-                          *params)
-  else:
-    out = launch(deter, stoch_flat, actfeat, gum, params, C, unimix, eps)
+  with torch.profiler.record_function('imag_step'):
+    if blockgru.needs_grad(deter, stoch_flat, actfeat, *params):
+      out = _ImagStep.apply(deter, stoch_flat, actfeat, gum,
+                            (C, unimix, eps), *params)
+    else:
+      out = launch(deter, stoch_flat, actfeat, gum, params, C, unimix, eps)
   imag_step.launches += 1
   return out
 
@@ -160,7 +161,9 @@ imag_step.launches = 0
 
 def work(B, D, H, L, A, g):
   """Bytes the step must move (inputs read once, outputs written once) and
-  its flops, for the bound on the card."""
+  its flops, for the bound on the card.
+  This is the kernel's roofline count; `Agent.train_cost` counts the
+  plain version's products instead (parallel/flops.py)."""
   dg = D // g
   core = D * H + L * H + g * dg * dg + (2 * H + A) * D + g * dg * 3 * dg
   weights = core + D * H + H * H + H * L

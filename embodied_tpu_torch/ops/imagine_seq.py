@@ -31,9 +31,9 @@ discrete actions enter as constants, and the stochastic samples carry
 straight-through gradients. The clip divides by max(1, |a|) with the
 gradient stopped, as the XLA path of rssm.py does.
 
-`imagine_seq` is the wrapper: a CPU tensor takes `reference_imagine_seq`;
-a CUDA tensor launches the kernel or raises. It counts its launches in
-`imagine_seq.launches`.
+`imagine_seq` is the wrapper: a CPU or meta tensor takes
+`reference_imagine_seq`; a CUDA tensor launches the kernel or raises. It
+counts its launches in `imagine_seq.launches`.
 """
 
 import ctypes
@@ -233,12 +233,13 @@ def imagine_seq(deter0, stoch0, gumbel, noise, params, npol, disc, C,
   """The rollout (see the module note). Returns time-major (deter, stoch,
   logits f32, actions f32 (H, B, A)). CPU tensors take the plain version;
   CUDA tensors launch the kernel and raise on what it does not take."""
-  if deter0.device.type == 'cpu':
+  if blockgru.takes_plain(deter0):
     return reference_imagine_seq(
         deter0, stoch0, params, npol, disc, C, unimix, minstd, maxstd, eps,
         gumbel=gumbel, noise=noise)
   spec = (npol, disc, C, unimix, minstd, maxstd, eps)
-  out = _ImagineSeq.apply(deter0, stoch0, gumbel, noise, spec, *params)
+  with torch.profiler.record_function('imagine_seq'):
+    out = _ImagineSeq.apply(deter0, stoch0, gumbel, noise, spec, *params)
   imagine_seq.launches += 1
   return out
 
@@ -273,7 +274,9 @@ def work(steps, B, D, H, L, A, U, adim, npol, g, disc):
   """Bytes the rollout must move (inputs read once, outputs written once)
   and its flops, for the bound on the card. A is the embedding width; the
   head has one (U, adim) matrix and f32 bias for a categorical policy, two
-  (mean and stddev) for a bounded normal."""
+  (mean and stddev) for a bounded normal.
+  This is the kernel's roofline count; `Agent.train_cost` counts the
+  plain version's products instead (parallel/flops.py)."""
   dg = D // g
   heads = 1 if disc else 2
   core = D * H + L * H + g * dg * dg + (2 * H + A) * D + g * dg * 3 * dg

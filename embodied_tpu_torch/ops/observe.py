@@ -10,7 +10,7 @@ and the window's step backward of csrc/seq_common.cuh at one step with no
 sample. Their notes say what bounds them on an H100 (weight bytes at
 acting batch) and what the design does about that.
 
-`obs_step` is the wrapper: a CPU tensor takes the plain version
+`obs_step` is the wrapper: a CPU or meta tensor takes the plain version
 `reference_obs_step`; a CUDA tensor launches the forward kernel or raises,
 inside a `torch.autograd.Function` whose backward calls `obs_step_bwd`
 (the backward kernel; plain version `reference_obs_step_bwd`) where
@@ -145,11 +145,12 @@ def obs_step_bwd(deter, stoch_flat, actfeat, tokens, params, dout, dlogit,
   weight dtype and norm-scale gradients in float32. CPU tensors take
   `reference_obs_step_bwd`; CUDA tensors launch the kernel and raise on
   what it does not take."""
-  if deter.device.type == 'cpu':
+  if blockgru.takes_plain(deter):
     return reference_obs_step_bwd(
         deter, stoch_flat, actfeat, tokens, params, dout, dlogit, eps)
-  out = launch_bwd(deter, stoch_flat, actfeat, tokens, params, dout, dlogit,
-                   eps)
+  with torch.profiler.record_function('obs_step_bwd'):
+    out = launch_bwd(deter, stoch_flat, actfeat, tokens, params, dout,
+                     dlogit, eps)
   obs_step_bwd.launches += 1
   return out
 
@@ -183,12 +184,13 @@ def obs_step(deter, stoch_flat, actfeat, tokens, params, eps=1e-4):
   take `reference_obs_step`; CUDA tensors launch the kernel (bf16 only),
   and the backward kernel when autograd asks for gradients, and raise on
   what the kernels do not take."""
-  if deter.device.type == 'cpu':
+  if blockgru.takes_plain(deter):
     return reference_obs_step(deter, stoch_flat, actfeat, tokens, params, eps)
-  if blockgru.needs_grad(deter, stoch_flat, actfeat, tokens, *params):
-    out = _ObsStep.apply(deter, stoch_flat, actfeat, tokens, eps, *params)
-  else:
-    out = launch(deter, stoch_flat, actfeat, tokens, params, eps)
+  with torch.profiler.record_function('obs_step'):
+    if blockgru.needs_grad(deter, stoch_flat, actfeat, tokens, *params):
+      out = _ObsStep.apply(deter, stoch_flat, actfeat, tokens, eps, *params)
+    else:
+      out = launch(deter, stoch_flat, actfeat, tokens, params, eps)
   obs_step.launches += 1
   return out
 
@@ -197,10 +199,15 @@ obs_step.launches = 0
 
 
 def work(B, D, H, S, A, g, K, L):
-  """Bytes and flops of one observe step, for the bound on the card."""
+  """Bytes and flops of one observe step, for the bound on the card.
+  This is the kernel's roofline count; `Agent.train_cost` counts the
+  plain version's products instead (parallel/flops.py)."""
   return blockgru.work(B, D, H, S, A, g, L=L, K=K)
 
 
 def work_bwd(B, D, H, S, A, g, K, L):
-  """Bytes and flops of the backward, for the bound on the card."""
+  """Bytes and flops of the backward, for the bound on the card.
+  This is the kernel's roofline count, recompute included;
+  `Agent.train_cost` counts the plain version's products instead,
+  whose backward recomputes nothing (parallel/flops.py)."""
   return blockgru.work_bwd(B, D, H, S, A, g, L=L, K=K)

@@ -18,7 +18,7 @@ Inputs are time-major: acts (T, B, A), toks (T, B, K), keep (T, B) f32,
 gumbel (T, B, L) f32. Outputs deter (T, B, D), stoch one-hots (T, B, L)
 and logits (T, B, L) f32.
 
-`observe_seq` is the wrapper: a CPU tensor takes the plain version
+`observe_seq` is the wrapper: a CPU or meta tensor takes the plain version
 `reference_observe_seq`, which autograd differentiates; a CUDA tensor runs
 the `torch.autograd.Function` whose forward launches the forward kernel and
 whose backward calls `observe_seq_bwd`, which launches the backward
@@ -210,12 +210,13 @@ def observe_seq_bwd(deter0, stoch0, deter_seq, stoch_seq, acts, toks, keep,
                     eps=1e-4):
   """The window's backward. CPU tensors take `reference_observe_seq_bwd`;
   CUDA tensors launch the kernel and raise on what it does not take."""
-  if deter0.device.type == 'cpu':
+  if blockgru.takes_plain(deter0):
     return reference_observe_seq_bwd(
         deter0, stoch0, stoch_seq, acts, toks, keep, params, ddeter, dstoch,
         dlogit, C, unimix, eps)
-  out = launch_bwd(deter0, stoch0, deter_seq, stoch_seq, acts, toks, keep,
-                   params, ddeter, dstoch, dlogit, C, unimix, eps)
+  with torch.profiler.record_function('observe_seq_bwd'):
+    out = launch_bwd(deter0, stoch0, deter_seq, stoch_seq, acts, toks, keep,
+                     params, ddeter, dstoch, dlogit, C, unimix, eps)
   observe_seq_bwd.launches += 1
   return out
 
@@ -252,11 +253,12 @@ def observe_seq(deter0, stoch0, acts, toks, keep, gumbel, params, C,
   """The window (see the module note). CPU tensors take the plain version;
   CUDA tensors launch the forward kernel, and the backward kernel when
   autograd asks for gradients. Raises on what the kernels do not take."""
-  if deter0.device.type == 'cpu':
+  if blockgru.takes_plain(deter0):
     return reference_observe_seq(deter0, stoch0, acts, toks, keep, params,
                                  C, unimix, eps, gumbel=gumbel)
-  out = _ObserveSeq.apply(deter0, stoch0, acts, toks, keep, gumbel, C,
-                          unimix, eps, *params)
+  with torch.profiler.record_function('observe_seq'):
+    out = _ObserveSeq.apply(deter0, stoch0, acts, toks, keep, gumbel, C,
+                            unimix, eps, *params)
   observe_seq.launches += 1
   return out
 
@@ -272,7 +274,9 @@ def weights(D, H, L, A, K, g):
 
 def work(T, B, D, H, L, A, K, g):
   """Bytes the forward must move (inputs read once, outputs written once)
-  and its flops, for the bound on the card."""
+  and its flops, for the bound on the card.
+  This is the kernel's roofline count; `Agent.train_cost` counts the
+  plain version's products instead (parallel/flops.py)."""
   w = weights(D, H, L, A, K, g)
   vectors = 2 * H + D + 3 * D + H + L    # biases, bf16
   scales = 2 * H + D + H                 # norm scales, f32
@@ -286,7 +290,10 @@ def work_bwd(T, B, D, H, L, A, K, g):
   """Bytes and flops of the backward: it reads the forward's inputs, the
   states entering each step and f32 upstream gradients, writes the input
   and weight gradients, and does three times the forward's products (the
-  recompute, the input gradients, the weight gradients)."""
+  recompute, the input gradients, the weight gradients).
+  This is the kernel's roofline count, recompute included;
+  `Agent.train_cost` counts the plain version's products instead,
+  whose backward recomputes nothing (parallel/flops.py)."""
   w = weights(D, H, L, A, K, g)
   vectors = 2 * H + D + 3 * D + H + L
   scales = 2 * H + D + H

@@ -26,7 +26,7 @@ memory; int8 halves those bytes. The `nch` argument, the TPU kernel's
 column chunks (a bound on a VMEM temporary), changes nothing here: the
 result is the same for every value.
 
-`qobs_window` is the wrapper: a CPU tensor takes the plain version
+`qobs_window` is the wrapper: a CPU or meta tensor takes the plain version
 `reference_qobs_window`; a CUDA tensor launches the kernel or raises on a
 wrong device, dtype, shape or contiguity, or on widths the 16-byte int8
 loads do not take (H, D / g and so 3 D / g multiples of 16, checked with
@@ -212,11 +212,12 @@ def qobs_window(deter0, stoch0, acts, toks, keep, gumbel, qparams, scales, C,
   """The int8 window (see the module note). CPU tensors take the plain
   version; CUDA tensors launch the kernel and raise on what it does not
   take. `nch` reaches only the plain version's column chunks."""
-  if deter0.device.type == 'cpu':
+  if blockgru.takes_plain(deter0):
     return reference_qobs_window(deter0, stoch0, acts, toks, keep, qparams,
                                  scales, C, unimix, eps, nch, gumbel=gumbel)
-  out = launch(deter0, stoch0, acts, toks, keep, gumbel, qparams, scales, C,
-               unimix, eps)
+  with torch.profiler.record_function('qobs_window'):
+    out = launch(deter0, stoch0, acts, toks, keep, gumbel, qparams, scales,
+                 C, unimix, eps)
   qobs_window.launches += 1
   return out
 
@@ -234,7 +235,9 @@ def weight_bytes(D, H, L, A, K, g):
 def work(T, B, D, H, L, A, K, g):
   """Bytes the forward must move (inputs read once, outputs written once)
   and its flops, for the bound on the card: observe_seq.work with each
-  weight one byte instead of two, plus the column scales."""
+  weight one byte instead of two, plus the column scales.
+  This is the kernel's roofline count; `Agent.train_cost` counts the
+  plain version's products instead (parallel/flops.py)."""
   nbytes, flops = observe_seq.work(T, B, D, H, L, A, K, g)
   w = observe_seq.weights(D, H, L, A, K, g)
   return nbytes - 2 * w + weight_bytes(D, H, L, A, K, g), flops

@@ -31,6 +31,20 @@ As in the JAX agent:
 actor and the learner of the parallel script): one lock serialises them,
 and `policy` times its wait for it (timer section `policy_lock_wait`).
 
+Diagnostics, as in the JAX agent:
+- the knobs of `parallel.setup` (parallel/guard.py): under
+  `transfer_guard` (the default) a host wait inside `train`, `policy` or
+  `report` on the card raises, except in the explicit crossings (the
+  policy's outputs, the fetch pipeline, `save`); under `debug` the first
+  op of those calls whose output is not finite raises;
+- `train_cost()` counts the products of one train step on a meta copy
+  (parallel/flops.py), and `torch.precompile` prints it at construction;
+- `torch.profiler` turns on the profiler window: train updates 100 to 119
+  are traced into `<logdir>/profile/*.pt.trace.json.gz` (read it with
+  `python -m embodied_tpu_torch.viewer <logdir> --serve PORT`, page
+  `/trace`); each train step runs in the profiler range `train#<step>`
+  and each kernel launch in one named after its wrapper.
+
 On a process group (parallel.setup) every rank is one process with its
 own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
 (parallel/meshes.py):
@@ -61,9 +75,16 @@ own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
 """
 
 import collections
+import contextlib
 import copy
+import gzip
+import os
 import re
+import shutil
+import socket
+import tempfile
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -73,7 +94,9 @@ import torch.distributed as dist
 from .. import core as corelib
 from .. import nn
 from ..core import streams as streamlib
-from ..utils import Space, timer
+from ..utils import Path, Space, timer
+from . import flops as flopslib
+from . import guard as guardlib
 from . import latents as latentslib
 from . import meshes
 
@@ -189,6 +212,21 @@ class Agent(corelib.Agent):
     # parallel script: train updates in place the weights policy reads.
     self._device_lock = threading.Lock()
 
+    # The knobs of parallel.setup: the sync guard on the card, the NaN
+    # check under debug (parallel/guard.py).
+    knobs = guardlib.KNOBS
+    self._syncs = guardlib.SYNCS if (
+        knobs['transfer_guard'] and self.device.type == 'cuda') else None
+    self._nan_check = knobs['debug']
+    # Built-in profiler window: traces train updates [start, stop) into
+    # logdir/profile (agent.py:131-136 of the JAX package).
+    self._profiler = dict(
+        enabled=bool(tcfg.get('profiler', False)), start=100, stop=120,
+        active=False, outdir=str(config.logdir) + '/profile')
+    self._trace = None
+    if tcfg.get('precompile', False):
+      self._precompile()
+
   @property
   def ext_space(self):
     """Replay keys as the host sees them: with the latent table the latent
@@ -216,6 +254,38 @@ class Agent(corelib.Agent):
   def init_report(self, batch_size):
     """As init_train: the rank's rows."""
     return self.model.init_report(batch_size)
+
+  def train_cost(self):
+    """{'flops': F}, the products of one train step, forward and backward,
+    at the rows this process feeds (config.batch_size: the whole batch on
+    one process) and batch_length + replay_context steps. They are counted
+    on a meta copy of the model (parallel/flops.py): the plain path's
+    products whatever runs the step (`kernel: auto` and `off` give one
+    number), alike on the CPU and on the card, and the agent is left as
+    it was (store, optimizer state, normalizers, counters and so the
+    draws, the latent table and the fetch queue). The batch carries its
+    latents (the host path): the table's gather and scatter do no
+    products. F counts products only (2 M N K a product), where XLA's
+    cost analysis of the JAX step also counts elementwise ops and, on the
+    TPU, counts a Pallas call as zero. JAX's 'bytes accessed' has no
+    counterpart here."""
+    rows = self.config.batch_size
+    length = self.batch_length + self.replay_context
+    data = self._example_batch(rows, length, spaces=self.model.ext_space)
+    data = {k: flopslib.to_meta(self._host_tensor(v))
+            for k, v in data.items()}
+    model = flopslib.meta_copy(self.model)
+    carry = model.init_train(rows)
+    with flopslib.FlopCounter() as counter:
+      model.train_step(carry, data, nn.dists.Draws(None, flopslib.META))
+    return {'flops': counter.flops}
+
+  def _precompile(self):
+    """Print the train step's FLOPs (torch.precompile; JAX's AOT compile
+    of the train step, which the eager port does not need)."""
+    with timer.section('precompile_train'):
+      flops = self.train_cost()['flops']
+    print(f'Train step FLOPs: {flops:.3e}')
 
   # --- The policy/train split ---------------------------------------------
 
@@ -260,30 +330,32 @@ class Agent(corelib.Agent):
     with timer.section('policy_lock_wait'):
       self._device_lock.acquire()
     try:
-      carry = nn.core.tree_map(self._to_device, carry)
-      self._counters['policy'] += 1
-      # Each process acts on its own envs with its own noise.
-      gen = torch.Generator(self.device).manual_seed(call_seed(
-          self.seed, self._counters['policy'],
-          index=self.rank if self.nprocs > 1 else None))
-      model = self._policy_model()
-      with torch.inference_mode():
-        carry, act, out = model.policy(carry, obs, mode, gen)
-        out = dict(out)
+      with self._checked():
+        carry = nn.core.tree_map(self._to_device, carry)
+        self._counters['policy'] += 1
+        # Each process acts on its own envs with its own noise.
+        gen = torch.Generator(self.device).manual_seed(call_seed(
+            self.seed, self._counters['policy'],
+            index=self.rank if self.nprocs > 1 else None))
+        model = self._policy_model()
+        with torch.inference_mode():
+          carry, act, out = model.policy(carry, obs, mode, gen)
+          out = dict(out)
+          if self._latents is not None:
+            # Slots are allocated on the host; the packed latents go into
+            # the table and only the slot ids come back.
+            slots, gens = self._latents.alloc(
+                len(obs['is_first']), 'eval' if mode == 'eval' else 'train')
+            values = {k: out[k] if self._latents_in_replay else out.pop(k)
+                      for k in self._latent_keys}
+            self._latents.scatter(
+                self._to_device(slots),
+                self._to_device(latentslib.device_gens(gens)), values)
+          with self._allowed():
+            act = {k: v.cpu().numpy() for k, v in act.items()}
+            out = {k: v.cpu().numpy() for k, v in out.items()}
         if self._latents is not None:
-          # Slots are allocated on the host; the packed latents go into
-          # the table and only the slot ids come back.
-          slots, gens = self._latents.alloc(
-              len(obs['is_first']), 'eval' if mode == 'eval' else 'train')
-          values = {k: out[k] if self._latents_in_replay else out.pop(k)
-                    for k in self._latent_keys}
-          self._latents.scatter(
-              self._to_device(slots),
-              self._to_device(latentslib.device_gens(gens)), values)
-        act = {k: v.cpu().numpy() for k, v in act.items()}
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-      if self._latents is not None:
-        out['slot'], out['slotgen'] = slots, gens
+          out['slot'], out['slotgen'] = slots, gens
     finally:
       self._device_lock.release()
     return carry, act, out
@@ -306,43 +378,47 @@ class Agent(corelib.Agent):
     data group (see the module's docstring); a rank along 't' trains on
     the rows of its data index's first rank and returns no replay
     updates, since its own replay did not give them."""
-    with self._device_lock:
+    with self._device_lock, self._checked():
       data = self._take_batch(data)
       carry = nn.core.tree_map(self._to_device, carry)
       self._counters['train'] += 1
+      step = self._counters['train']
+      self._maybe_profile(step)
       use_table = self._latents is not None and 'slot' in data
-      if use_table:
-        data, slots, gens, valid = self.inject_latents(data)
-        data['latents/valid'] = valid
-      replica = self._replicate(data)
-      if use_table:
-        valid = data.pop('latents/valid')
-      with nn.opt.reduce_over(self.data_group):
-        carry, outs, mets = self.model.train_step(
-            carry, data, self._draws('train', 2_000_003))
-        carry = nn.core.tree_map(lambda x: x.detach(), carry)
-        outs, mets = dict(outs), dict(mets)
+      with torch.profiler.record_function(f'train#{step}'):
         if use_table:
-          mets['latents/valid'] = valid.float().mean()
-        mets = self._group_mean_scalars(mets)
-      if replica:
-        outs.pop('replay', None)
-      elif use_table:
-        K = self.replay_context
-        if self._latents_in_replay:
-          upd = outs.get('replay')
-        else:
-          upd = outs.pop('replay', None)
-        if upd is not None:
-          self._latents.scatter(slots[:, K:], gens[:, K:], upd)
+          data, slots, gens, valid = self.inject_latents(data)
+          data['latents/valid'] = valid
+        replica = self._replicate(data)
+        if use_table:
+          valid = data.pop('latents/valid')
+        with nn.opt.reduce_over(self.data_group):
+          carry, outs, mets = self.model.train_step(
+              carry, data, self._draws('train', 2_000_003))
+          carry = nn.core.tree_map(lambda x: x.detach(), carry)
+          outs, mets = dict(outs), dict(mets)
+          if use_table:
+            mets['latents/valid'] = valid.float().mean()
+          mets = self._group_mean_scalars(mets)
+        if replica:
+          outs.pop('replay', None)
+        elif use_table:
+          K = self.replay_context
+          if self._latents_in_replay:
+            upd = outs.get('replay')
+          else:
+            upd = outs.pop('replay', None)
+          if upd is not None:
+            self._latents.scatter(slots[:, K:], gens[:, K:], upd)
       if self._policy_copy is not None:
         self._policy_dirty = True
       queue = self._pending_train
-      queue.append(self._start_fetch(outs, mets))
-      if len(queue) > self._fetch_depth:
-        self._fetched_train = self._finish_fetch(queue.popleft())
-      elif self._fetched_train is None:
-        self._fetched_train = self._finish_fetch(queue[0])
+      with self._allowed():
+        queue.append(self._start_fetch(outs, mets))
+        if len(queue) > self._fetch_depth:
+          self._fetched_train = self._finish_fetch(queue.popleft())
+        elif self._fetched_train is None:
+          self._fetched_train = self._finish_fetch(queue[0])
       outs, mets = self._fetched_train
     return carry, outs, mets
 
@@ -401,7 +477,7 @@ class Agent(corelib.Agent):
     """Metrics of a (B, T + replay_context) batch without updates (see
     Model.report): scalars as host floats, videos as uint8 numpy arrays.
     On a mesh, the rank's own rows' metrics."""
-    with self._device_lock:
+    with self._device_lock, self._checked():
       data = self._take_batch(data)
       carry = nn.core.tree_map(self._to_device, carry)
       self._counters['report'] += 1
@@ -410,7 +486,8 @@ class Agent(corelib.Agent):
       carry, mets = self.model.report(
           carry, data, self._draws('report', 3_000_003))
       carry = nn.core.tree_map(lambda x: x.detach(), carry)
-      return carry, self._fetch(mets)
+      with self._allowed():
+        return carry, self._fetch(mets)
 
   def stream(self, source):
     """Prefetches up to two batches of `source` to the device (see
@@ -559,7 +636,81 @@ class Agent(corelib.Agent):
     return torch.from_numpy(value)
 
   def _to_device(self, value):
-    return self._host_tensor(value).to(self.device)
+    """`value` on the agent's device. Host data goes to the card through
+    pinned memory without blocking: the copy makes no host wait, so none
+    that the sync guard of another thread's call would flag."""
+    value = self._host_tensor(value)
+    if self.device.type != 'cuda' or value.device.type != 'cpu':
+      return value.to(self.device)
+    return value.pin_memory().to(self.device, non_blocking=True)
+
+  @contextlib.contextmanager
+  def _checked(self):
+    """The body of a `train`, `policy` or `report` call: under the sync
+    guard and, under debug, the NaN check (see parallel/guard.py)."""
+    with contextlib.ExitStack() as stack:
+      if self._syncs is not None:
+        stack.enter_context(self._syncs.guarded())
+      if self._nan_check:
+        stack.enter_context(guardlib.NanCheck())
+      yield
+
+  def _allowed(self):
+    """An explicit crossing between host and card, where host waits run
+    under the mode from before the guard."""
+    if self._syncs is None:
+      return contextlib.nullcontext()
+    return self._syncs.allowed()
+
+  def _maybe_profile(self, update):
+    """The profiler window (agent.py:691-722 of the JAX package): at
+    train update `start` a torch.profiler trace begins (CPU and CUDA
+    activities on the card, the CPU's alone on the CPU), at `stop` it ends
+    and goes to `outdir` as a Chrome trace, `*.pt.trace.json.gz`. A
+    remote logdir gets the trace written to the temporary directory and
+    copied through Path."""
+    prof = self._profiler
+    if not prof['enabled']:
+      return
+    outdir, copyto = prof['outdir'], None
+    if str(outdir).startswith(('gs://', '/gcs/', '/cns/')):
+      copyto, outdir = outdir, os.path.join(tempfile.gettempdir(), 'profiler')
+    if update == prof['start'] and not prof['active']:
+      print(f'Writing profiler trace to {outdir}')
+      activities = [torch.profiler.ProfilerActivity.CPU]
+      if self.device.type == 'cuda':
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+      self._trace = torch.profiler.profile(activities=activities)
+      self._trace.start()
+      prof['active'] = True
+    elif update >= prof['stop'] and prof['active']:
+      if self.device.type == 'cuda':
+        with self._allowed():  # The traced steps' kernels end first.
+          torch.cuda.synchronize(self.device)
+      self._trace.stop()
+      prof['active'] = False
+      os.makedirs(outdir, exist_ok=True)
+      name = (f'{socket.gethostname()}_{os.getpid()}.'
+              f'{time.time_ns() // 1_000_000}.pt.trace.json.gz')
+      # Gzip at its fastest level: torch's own export compresses at the
+      # slowest, several times longer for some 30% fewer bytes.
+      with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, 'trace.json')
+        self._trace.export_chrome_trace(raw)
+        with open(raw, 'rb') as src, gzip.open(
+            os.path.join(outdir, name), 'wb', compresslevel=1) as dst:
+          shutil.copyfileobj(src, dst)
+      self._trace = None
+      if copyto:
+        for dirpath, _, files in os.walk(outdir):
+          for fname in files:
+            full = os.path.join(dirpath, fname)
+            target = Path(copyto)
+            for part in os.path.relpath(full, outdir).split(os.sep):
+              target = target / part
+            target.parent.mkdir()
+            target.write_bytes(Path(full).read_bytes())
+        print(f'Copied profiler trace {outdir} to {copyto}')
 
   def save(self, chunk_bytes=1 << 30):
     """The state {'store', 'counters'[, 'latents']} on the host. The store
@@ -568,7 +719,7 @@ class Agent(corelib.Agent):
     so a save never needs much more device memory than the model (JAX's
     grouped gather, agent.py:724-755). Every rank holds the same store,
     so every rank returns the same state."""
-    with timer.section('agent_save'), self._device_lock:
+    with timer.section('agent_save'), self._device_lock, self._allowed():
       store = nn.store(self.model)
       result, group, size = {}, [], 0
       for key in sorted(store) + [None]:

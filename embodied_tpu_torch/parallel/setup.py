@@ -16,8 +16,24 @@ devices in one process: N gloo ranks on this host, which
 coordinator it was given). A process that asks for N mock devices and is
 not one of N ranks raises.
 
-JAX's `debug`, `deterministic`, `transfer_guard`, `prealloc`, `jit`,
-`cache_dir` and `xla_flags` have no counterpart here yet.
+Three knobs of JAX's setup carry over; `KNOBS` holds what the first call
+set (parallel/guard.py), and the Agent reads it at construction:
+- `deterministic`: torch.use_deterministic_algorithms(True), cuDNN's
+  deterministic algorithms without benchmarking, and CUBLAS_WORKSPACE_CONFIG
+  `:4096:8`, which must be set before the process's first cuBLAS handle:
+  `setup` runs before any model is built, and a later call that asks for
+  it when the first did not raises (JAX's
+  `--xla_gpu_deterministic_ops=true`);
+- `debug`: autograd's anomaly detection for the backward, and the NaN
+  check (parallel/guard.py) inside the Agent's `train`, `policy` and
+  `report` (JAX's `jax_debug_nans`; `jax_disable_most_optimizations` has
+  no counterpart);
+- `transfer_guard` (the default): the sync guard (parallel/guard.py)
+  inside the same calls, on a CUDA device and not under `debug`, as JAX's
+  guard is on with `jit` and not `debug`.
+JAX's `jit`, `prealloc`, `cache_dir`, `xla_flags` and `platform` have no
+counterpart: the port runs eagerly, on PyTorch's caching allocator, with
+its kernels built once into `build/kernels/`, on the device it is given.
 """
 
 import datetime
@@ -25,6 +41,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from .guard import KNOBS
 
 _DONE = [False]
 _DEVICES = [None]  # What the first call returned.
@@ -34,14 +52,30 @@ TIMEOUT = 600
 
 def setup(device='cuda', compute_dtype='bfloat16', mock_devices=0,
           expect_devices=0, coordinator_address='', rank=None,
-          world_size=None, timeout=TIMEOUT):
+          world_size=None, timeout=TIMEOUT, debug=False,
+          deterministic=False, transfer_guard=True):
   """Start this process's rank (once) and return the world's devices, one
   torch.device per rank in rank order. `compute_dtype` must name a dtype
-  the port computes in; the models take it at construction."""
+  the port computes in; the models take it at construction. The knobs
+  `debug`, `deterministic` and `transfer_guard` are the module note's."""
   from .. import nn
   if _DONE[0]:
+    if deterministic and not KNOBS['deterministic']:
+      raise RuntimeError(
+          'setup(deterministic=True) after a setup without it: cuBLAS reads '
+          'CUBLAS_WORKSPACE_CONFIG at its first handle; ask for it in the '
+          "process's first setup")
     return _DEVICES[0]
   _DONE[0] = True
+  KNOBS.update(debug=bool(debug), deterministic=bool(deterministic),
+               transfer_guard=bool(transfer_guard) and not debug)
+  if deterministic:
+    os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+  if debug:
+    torch.autograd.set_detect_anomaly(True)
   if compute_dtype not in nn.DTYPES:
     raise ValueError(f'Unknown compute dtype {compute_dtype!r}')
   device = torch.device(device)

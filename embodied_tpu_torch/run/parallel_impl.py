@@ -40,6 +40,7 @@ import torch
 from .. import core, native, remote
 from ..core import limiters as limiterlib
 from ..core import streams as streamlib
+from ..parallel.guard import SYNCS
 from ..utils import Agg, Checkpoint, Counter, FPS, Path, Usage, timer, tree
 
 
@@ -61,9 +62,12 @@ def _split_logs(mapping):
 
 
 def _host(value):
-  """A carry leaf as a host tensor; the copy off the card is explicit."""
+  """A carry leaf as a host tensor. The copy off the card is an explicit
+  crossing (JAX's device_get): the actor makes it outside the Agent's
+  calls, while the learner's train step may hold the sync guard."""
   if isinstance(value, torch.Tensor):
-    return value.detach().cpu()
+    with SYNCS.allowed():
+      return value.detach().cpu()
   return torch.as_tensor(np.asarray(value))
 
 

@@ -1,9 +1,10 @@
 """The port stands alone, runs on the card by default, and reads no TPU knob.
 
 - Importing every module of `embodied_tpu_torch` in a fresh interpreter
-  loads neither `jax` nor `embodied_tpu` nor `cloudpickle` (the card's
-  machine has none; workers get the standard pickle); an AST scan of the
-  package and of `chip_smoke.py` finds no import of any of them.
+  loads neither `jax` nor `embodied_tpu` nor `cloudpickle` nor
+  `tensorflow` (the card's machine has none; workers get the standard
+  pickle; the viewer reads traces with json); an AST scan of the package
+  and of `chip_smoke.py` finds no import of any of them.
 - No module of the port reads a TPU-specific condition: no `on_tpu`, no
   VMEM budget, no 128-lane alignment. The RSSM takes the kernel path at
   block widths and weight sizes the TPU gates refused.
@@ -30,7 +31,7 @@ from embodied_tpu_torch.utils import Space
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / 'embodied_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'embodied_tpu', 'cloudpickle')
+FORBIDDEN = ('jax', 'jaxlib', 'embodied_tpu', 'cloudpickle', 'tensorflow')
 SMALL = ['--task', 'dummy_disc',
          '--agent.dyn.rssm.deter', '64', '--agent.dyn.rssm.hidden', '32',
          '--agent.dyn.rssm.blocks', '4', '--agent.dyn.rssm.stoch', '4',
