@@ -103,7 +103,9 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            losses and a profile, main.main `train` on a 20 s budget with
            the process driver (env steps/s, episodes), and the JAX
            package's bandit learning check (tests/test_learning.py) on
-           the card with its thresholds. PPO launches no kernel.
+           the card with its thresholds, run in a child interpreter
+           (this script with --bandit) beside phase script. PPO launches
+           no kernel.
   director Director's default configuration on PinPad: 20 policy calls
            of 16 envs, one launch of kernel 3 each, held against the plain
            path; 1 warm-up and 3 timed train steps, each one launch of
@@ -125,7 +127,16 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            train step until the next policy call refreshes it (its bytes,
            the refresh's ms). On a machine with two cards, two NCCL ranks
            of 8 rows against the one-rank step; else "ranks_2": "not run:
-           1 card".
+           1 card". Then the sharded store ("sharded"): two ranks of 8
+           rows at torch.mesh '1,2,1', each holding half of every kernel
+           and embedding, against the same two ranks at '2,1,1'
+           (replicated): NCCL on two cards, else gloo on one card with
+           torch.transfer_guard off (gloo waits on its copies of CUDA
+           tensors through the host); each rank's store bytes between
+           calls against the placements', the policy copy's bytes, the
+           collectives of a step and their bytes, ms per step, the
+           metrics of 3 steps and the saved store equal bit for bit, and
+           kernel 3 on the copy in policy calls that make no collective.
   diagnostics
            the default configuration's diagnostics on dummy_disc, with the
            defaults (the latent table, fetch_depth 3, the sync guard,
@@ -140,7 +151,7 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            events, the largest ops, 20 launches each of kernels 5, 6 and
            8); a planted .item() that the sync guard must refuse; and in a
            child interpreter (this script with --deterministic),
-           torch.deterministic at size12m: two train steps from one store
+           torch.deterministic at size1m: two train steps from one store
            and batch equal bit for bit, and a step on the latent table.
 
 The phases slice, train, modes, default, ppo, director and distributed
@@ -150,8 +161,10 @@ plain path; the latents phase, the scripts, the parallel phase and the
 diagnostics phase run the defaults. Every phase runs under the sync
 guard (torch.transfer_guard, on by default).
 
-The line before the last lists every kernel; the last line is
-{"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
+Every row carries `seconds`, the time since its phase began (or its
+own), and the `timing` row each phase's seconds. The line before the
+last lists every kernel; the last line is {"ok": true, "device": {...}}.
+Any failed phase exits non-zero before it.
 The script imports nothing of JAX or of the JAX package.
 """
 
@@ -210,7 +223,26 @@ HOST_PATH = ['--torch.latent_slots', '0', '--torch.fetch_depth', '0']
 NO_COUNT = ['--torch.precompile', 'False']
 
 
+# The phase that runs and when it began, and each finished phase's
+# seconds: main times every phase (timed), and each row that a phase
+# prints carries `seconds` since the phase began, unless it gives its own.
+PHASES = {'start': None, 'seconds': {}}
+
+
+def timed(fn, *args):
+  """fn(*args), a phase, with its seconds kept under its name."""
+  PHASES['start'] = time.perf_counter()
+  try:
+    return fn(*args)
+  finally:
+    PHASES['seconds'][fn.__name__[len('phase_'):]] = (
+        time.perf_counter() - PHASES['start'])
+    PHASES['start'] = None
+
+
 def emit(**fields):
+  if PHASES['start'] is not None and 'seconds' not in fields:
+    fields['seconds'] = time.perf_counter() - PHASES['start']
   print(json.dumps(fields), flush=True)
 
 
@@ -1624,13 +1656,16 @@ DEFAULT_SCRIPTS = (
     ('default pinpad train_eval', PINPAD + ['--script', 'train_eval'],
      (50,), 20, 20),
 )
-# eval_only from the size12m train_eval run's checkpoint: (label, flags).
-# 1,700 env steps over ENVS envs end each env's first 100-step episode.
+# eval_only from the size12m train_eval run's checkpoint: (label, flags),
+# on EVAL_ONLY_ENVS envs; EVAL_ONLY_STEPS env steps over them end each
+# env's first 100-step episode.
+EVAL_ONLY_ENVS = 4
 EVAL_ONLY = (
-    ('size12m eval_only', SIZE12M),
-    ('size12m eval_only, random agent', SIZE12M + ['--random_agent', 'True']),
+    ('size12m eval_only', SIZE12M + ['--run.envs', str(EVAL_ONLY_ENVS)]),
+    ('size12m eval_only, random agent', SIZE12M + [
+        '--run.envs', str(EVAL_ONLY_ENVS), '--random_agent', 'True']),
 )
-EVAL_ONLY_STEPS = 1700
+EVAL_ONLY_STEPS = 106 * EVAL_ONLY_ENVS
 
 
 def count_drivers():
@@ -2526,6 +2561,44 @@ BANDIT = ['--configs', 'debug', '--torch.device', 'cuda',
           '--agent.opt.warmup', '20', '--agent.enc.impala.depth', '4',
           '--agent..*\\.units', '32']
 BANDIT_SEED = 0
+# The bandit run (some 100 s of small train steps, bound by the host)
+# runs in a child interpreter (this script with --bandit) beside phase
+# script, whose runs end on wall-clock budgets; phase ppo reads it.
+BANDIT_TIMEOUT = 900
+
+
+def start_bandit():
+  """The bandit check's child interpreter, started now; its output (the
+  run's log, then one JSON line with its episodes' scores) goes to a
+  temporary file, which no pipe's buffer bounds. A run that fails before
+  reading it still ends it. Returns (child, its output file, the time it
+  started)."""
+  import atexit
+  import tempfile
+  out = tempfile.TemporaryFile(mode='w+')
+  child = subprocess.Popen(
+      [sys.executable, os.path.join(ROOT, 'chip_smoke.py'), '--bandit'],
+      stdout=out, stderr=subprocess.STDOUT, text=True)
+  atexit.register(lambda: child.poll() is None and (
+      child.kill(), child.wait()))
+  return child, out, time.perf_counter()
+
+
+def bandit_main():
+  """The child of start_bandit (`chip_smoke.py --bandit`): PPO on
+  dummy_bandit with the JAX test's settings, on the card."""
+  import shutil
+  import tempfile
+  sys.path.insert(0, ROOT)
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.ppo import main as pmain
+  logdir = tempfile.mkdtemp(prefix='smoke_bandit_')
+  bandit = common.assemble_config(pmain.CONFIGS, BANDIT + [
+      '--logdir', logdir, '--seed', str(BANDIT_SEED)])
+  common.run_script(bandit, pmain.make_agent)
+  scores = scores_of(logdir)
+  shutil.rmtree(logdir, ignore_errors=True)
+  print(json.dumps({'scores': scores}), flush=True)
 
 
 def act_timed(agent, config, calls):
@@ -2603,14 +2676,14 @@ def scores_of(logdir):
     return [json.loads(line)['score'] for line in f if line.strip()]
 
 
-def phase_ppo(torch):
+def phase_ppo(torch, bandit):
   """PPO's default configuration (models/ppo/configs.yaml) on PinPad:
   its parameter count; FAMILY_CALLS policy calls of ENVS envs; train
   steps on a 16 x 65 batch collected by those policy calls; main.main
   `train` on a wall-clock budget with the process driver; and the JAX
-  package's bandit learning check with its thresholds. PPO reaches no
-  kernel: every count must stay 0."""
-  import shutil
+  package's bandit learning check with its thresholds, from `bandit`
+  (start_bandit's child, its output and the time it started). PPO
+  reaches no kernel in this process: every count must stay 0."""
   from embodied_tpu_torch.models import common
   from embodied_tpu_torch.models.ppo import main as pmain
   wrappers = train_wrappers()
@@ -2639,21 +2712,26 @@ def phase_ppo(torch):
   script, more = run_main(torch, pmain, 'ppo_pinpad', PINPAD, 20, 8)
   problems += more
   row['script'] = script
-  # The bandit check: the JAX test's settings, on the card.
-  logdir = os.path.join(ROOT, 'build', 'chip_smoke_bandit')
-  shutil.rmtree(logdir, ignore_errors=True)
-  start = time.perf_counter()
-  bandit = common.assemble_config(pmain.CONFIGS, BANDIT + [
-      '--logdir', logdir, '--seed', str(BANDIT_SEED)])
-  common.run_script(bandit, pmain.make_agent)
-  scores = scores_of(logdir)
-  shutil.rmtree(logdir, ignore_errors=True)
+  # The bandit check: the JAX test's settings, on the card, in the child.
+  child, log, start = bandit
+  try:
+    child.wait(timeout=max(1, BANDIT_TIMEOUT - (time.perf_counter() - start)))
+  except subprocess.TimeoutExpired:
+    child.kill()
+    child.wait()
+    fail('ppo', 'the bandit child timed out')
+  log.seek(0)
+  out = log.read()
+  if child.returncode:
+    fail('ppo', f'the bandit child failed ({child.returncode}): '
+                f'{out[-2000:]}')
+  scores = json.loads(out.strip().splitlines()[-1])['scores']
   quarter = max(3, len(scores) // 2 // 2)
   early = statistics.mean(scores[:quarter])
   late = statistics.mean(scores[-quarter:])
   row['bandit'] = dict(
       seed=BANDIT_SEED, episodes=len(scores), early=early, late=late,
-      wall_s=time.perf_counter() - start)
+      wall_s_since_start=time.perf_counter() - start)
   if not (len(scores) >= 10 and late > early + 10 and late > 40):
     problems.append(f'the bandit check: {row["bandit"]}')
   row['launches'] = {k: w.launches for k, w in wrappers.items()}
@@ -3031,6 +3109,206 @@ def rank_2_main(rank, port, folder):
   importlib.import_module('embodied_tpu_torch.parallel.setup').shutdown()
 
 
+# The sharded check of the distributed phase: the default configuration on
+# two ranks of 8 rows, torch.mesh '1,2,1' (each rank holds half of every
+# kernel and embedding) against '2,1,1' (replicated), from one seed's
+# store past the warm-up, on one batch: SHARD_STEPS train steps each, then
+# SHARD_CALLS policy calls and a save. Two NCCL ranks on two cards where
+# the machine has them, else two gloo ranks on one card: gloo stages a
+# CUDA tensor through host memory and waits for it, which the sync guard
+# refuses, so those ranks run with torch.transfer_guard False.
+SHARD_ARGV = DEFAULT_ARGV + HOST_PATH + NO_COUNT
+SHARD_MESHES = ('1,2,1', '2,1,1')
+SHARD_STEPS = 3  # the first is the warm-up, each is held against the other
+SHARD_CALLS = 5
+SHARD_ROWS = 8
+
+
+def sharded_check(torch, data):
+  """Runs sharded_rank_main on two ranks; returns (row, problems, the
+  '1,2,1' run's launches of kernels 3, 5, 6 and 8)."""
+  import multiprocessing
+  import pickle
+  import shutil
+  import tempfile
+  from embodied_tpu_torch.tools.dryrun_multidevice import default_bytes
+  backend = 'nccl' if torch.cuda.device_count() >= 2 else 'gloo'
+  folder = tempfile.mkdtemp(prefix='smoke_sharded_')
+  with open(os.path.join(folder, 'inputs.pkl'), 'wb') as f:
+    pickle.dump(dict(data=data), f)
+  port = free_port()
+  context = multiprocessing.get_context('spawn')
+  procs = [context.Process(target=sharded_rank_main,
+                           args=(r, port, folder, backend))
+           for r in range(2)]
+  for proc in procs:
+    proc.start()
+  for proc in procs:
+    proc.join(600)
+  for proc in procs:
+    if proc.is_alive():
+      proc.kill()
+      proc.join()
+  codes = [p.exitcode for p in procs]
+  if any(codes):
+    shutil.rmtree(folder, ignore_errors=True)
+    return dict(backend=backend, exit_codes=codes), [
+        f'sharded ranks exited with {codes}'], {}
+  ranks = []
+  for r in range(2):
+    with open(os.path.join(folder, f'rank{r}.pkl'), 'rb') as f:
+      ranks.append(pickle.load(f))
+  shutil.rmtree(folder, ignore_errors=True)
+  want = {mesh: default_bytes(mesh) for mesh in SHARD_MESHES}
+  row = dict(
+      backend=backend, devices=[r['device'] for r in ranks],
+      transfer_guard=backend == 'nccl',
+      seconds_ranks=max(r['seconds'] for r in ranks),
+      store_bytes={mesh: [r[mesh]['bytes'] for r in ranks]
+                   for mesh in SHARD_MESHES},
+      store_bytes_expected={m: want[m]['placements'] for m in SHARD_MESHES},
+      collectives_per_step={m: ranks[0][m]['collectives']
+                            for m in SHARD_MESHES},
+      collective_bytes_per_step={m: ranks[0][m]['collective_bytes']
+                                 for m in SHARD_MESHES},
+      ms_per_train_step={m: [r[m]['ms'] for r in ranks]
+                         for m in SHARD_MESHES},
+      ms_per_train_step_median={m: statistics.median(
+          t for r in ranks for t in r[m]['ms']) for m in SHARD_MESHES},
+      peak_mem_mb={m: [r[m]['peak_mem_mb'] for r in ranks]
+                   for m in SHARD_MESHES},
+      losses={m: ranks[0][m]['losses'] for m in SHARD_MESHES},
+      launches={m: ranks[0][m]['launches'] for m in SHARD_MESHES},
+      policy_launches=[r['1,2,1']['policy_launches'] for r in ranks],
+      policy_collectives=[r['1,2,1']['policy_collectives'] for r in ranks],
+      mets_differ=[r['mets_differ'] for r in ranks],
+      store_differ=[r['store_differ'] for r in ranks],
+      store_max_abs_diff=[r['store_max_abs_diff'] for r in ranks])
+  problems = []
+  for mesh in SHARD_MESHES:
+    for rank, held in enumerate(row['store_bytes'][mesh]):
+      total = held['sharded'] + held['replicated']
+      if total != held['placements'] or total != want[mesh]['placements']:
+        problems.append(f'rank {rank} at {mesh} holds {held}, the '
+                        f'placements give {want[mesh]["placements"]}')
+      copy = want[mesh]['policy_copy'] if mesh == '1,2,1' else 0
+      if held['policy_copy'] != copy:
+        problems.append(f'rank {rank} at {mesh}: a policy copy of '
+                        f'{held["policy_copy"]} B, not {copy}')
+  extra = dict(row['collectives_per_step']['2,1,1'])
+  extra['all_gather'] += 1
+  if row['collectives_per_step']['1,2,1'] != extra:
+    problems.append(f'the sharded step made {row["collectives_per_step"]}')
+  for rank in range(2):
+    if row['mets_differ'][rank] or row['store_differ'][rank]:
+      problems.append(
+          f'rank {rank}: the sharded step off the replicated one: metrics '
+          f'{row["mets_differ"][rank][:5]}, store '
+          f'{row["store_differ"][rank][:5]}')
+  for mesh in SHARD_MESHES:
+    if row['launches'][mesh] != {k: SHARD_STEPS for k in TRAIN_KERNELS}:
+      problems.append(f'{mesh}: launches {row["launches"][mesh]}')
+  if row['policy_launches'] != [SHARD_CALLS] * 2 or any(
+      row['policy_collectives']):
+    problems.append(f'policy calls on the copy: kernel 3 '
+                    f'{row["policy_launches"]}, collectives '
+                    f'{row["policy_collectives"]}')
+  launches = dict(ranks[0]['1,2,1']['launches'],
+                  obs_step=ranks[0]['1,2,1']['policy_launches'])
+  return row, problems, launches
+
+
+def sharded_rank_main(rank, port, folder, backend):
+  """One rank of sharded_check (a spawned process): the default
+  configuration at each of SHARD_MESHES, one agent after the other on
+  one process group."""
+  import importlib
+  import pickle
+  import numpy as np
+  import torch
+  import torch.distributed as dist
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  from embodied_tpu_torch.ops import observe
+  from embodied_tpu_torch.tools.dryrun_multidevice import rows
+  began = time.perf_counter()
+  local = rank if backend == 'nccl' else 0
+  os.environ.update(RANK=str(rank), WORLD_SIZE='2', LOCAL_RANK=str(local))
+  with open(os.path.join(folder, 'inputs.pkl'), 'rb') as f:
+    data = pickle.load(f)['data']
+  if backend == 'gloo':
+    import datetime
+    torch.cuda.set_device(local)
+    dist.init_process_group(
+        'gloo', init_method=f'tcp://localhost:{port}', rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=600))
+    extra = ['--torch.transfer_guard', 'False']
+  else:
+    extra = ['--torch.coordinator_address', f'localhost:{port}']
+  wrappers = train_wrappers()
+  out = {'device': torch.cuda.get_device_name(local)}
+  saves, mets_all = {}, {}
+  for mesh in SHARD_MESHES:
+    config = common.assemble_config(dmain.CONFIGS, SHARD_ARGV + extra + [
+        '--batch_size', str(SHARD_ROWS), '--torch.mesh', mesh])
+    agent = dmain.make_agent(config)
+    agent.model.opt.step.fill_(int(config.agent.opt.warmup))
+    batch = rows(data, agent.mesh.data_index, SHARD_ROWS)
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    torch.cuda.reset_peak_memory_stats(agent.device)
+    carry, times, mets_all[mesh] = agent.init_train(SHARD_ROWS), [], []
+    for step in range(SHARD_STEPS):
+      torch.cuda.synchronize(agent.device)
+      start = time.perf_counter()
+      if step == 0:
+        counts, restore = counted_collectives(dist)
+      carry, _, mets = agent.train(carry, batch)
+      torch.cuda.synchronize(agent.device)
+      if step == 0:
+        restore()
+      else:
+        times.append((time.perf_counter() - start) * 1e3)
+      mets_all[mesh].append(mets)
+    row = dict(
+        ms=times, collectives={k: v[0] for k, v in counts.items()},
+        collective_bytes={k: v[1] for k, v in counts.items()},
+        bytes=agent.store_bytes(),
+        peak_mem_mb=torch.cuda.max_memory_allocated(agent.device) / 2**20,
+        losses={k: v for k, v in mets_all[mesh][0].items() if is_loss(k)},
+        launches={k: wrappers[k].launches for k in TRAIN_KERNELS})
+    obs = {k: batch[k][:, 0] for k in agent.obs_space}
+    observe.obs_step.launches = 0
+    counts, restore = counted_collectives(dist)
+    try:
+      policy = agent.init_policy(SHARD_ROWS)
+      for _ in range(SHARD_CALLS):
+        policy, _, _ = agent.policy(policy, obs)
+    finally:
+      restore()
+    row.update(policy_launches=observe.obs_step.launches,
+               policy_collectives={k: v[0] for k, v in counts.items()
+                                   if v[0]})
+    saves[mesh] = agent.save()['store']
+    out[mesh] = row
+    del agent, carry, policy
+    gc.collect()
+    torch.cuda.empty_cache()
+  got, want = saves['1,2,1'], saves['2,1,1']
+  out['store_differ'] = sorted(
+      k for k in want if not np.array_equal(got[k], want[k]))
+  out['store_max_abs_diff'] = max(
+      [float(np.abs(got[k].astype(np.float64) - want[k]).max())
+       for k in out['store_differ']] or [0.0])
+  out['mets_differ'] = sorted(
+      f'{i}:{k}' for i, (a, b) in enumerate(zip(*mets_all.values()))
+      for k in b if not np.array_equal(a[k], b[k]))
+  out['seconds'] = time.perf_counter() - began
+  with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
+    pickle.dump(out, f)
+  importlib.import_module('embodied_tpu_torch.parallel.setup').shutdown()
+
+
 def phase_distributed(torch):
   """The default configuration (202,982,304 parameters) on a process
   group: parallel.setup starts one NCCL rank at a localhost coordinator
@@ -3052,7 +3330,17 @@ def phase_distributed(torch):
       against (a)'s one-rank step (losses at LOSS_RTOL, updates and
       gradients as two_rank_errors says, the ranks' stores equal); else
       "not run: 1 card".
-  Returns the launches of kernels 3, 5, 6 and 8."""
+  (d) the sharded store (sharded_check): two ranks of 8 rows of (a)'s
+      batch at torch.mesh '1,2,1' and then at '2,1,1', NCCL on two cards
+      or gloo on one (the row's `backend`): each rank's store bytes
+      between calls against the placements' (counted on the meta
+      device), the policy copy's bytes, the collectives of a step and
+      their bytes, ms per step; the metrics of every step and the saved
+      (gathered) store at '1,2,1' equal to those at '2,1,1' bit for bit;
+      kernels 5, 6 and 8 once a step, kernel 3 once a policy call on the
+      copy, which makes no collective.
+  Returns the launches of kernels 3, 5, 6 and 8, and those of (d)'s
+  '1,2,1' run."""
   import importlib
   import numpy as np
   import torch.distributed as dist
@@ -3169,15 +3457,18 @@ def phase_distributed(torch):
   else:
     row['ranks_2'] = 'not run: 1 card'
   setuplib.shutdown()
+  del agent
+  gc.collect()
+  torch.cuda.empty_cache()
+  # (d) The sharded store: two ranks at '1,2,1' against '2,1,1'.
+  row['sharded'], more, sharded = sharded_check(torch, data)
+  problems += more
   row['ok'] = not problems
   emit(**row)
   if problems:
     fail('distributed', '; '.join(problems))
-  del agent
-  gc.collect()
-  torch.cuda.empty_cache()
   return dict(obs_step=split_launches, **{
-      k: dp_launches[k] for k in TRAIN_KERNELS})
+      k: dp_launches[k] for k in TRAIN_KERNELS}), sharded
 
 
 # The diagnostics phase: the default configuration as it runs by default
@@ -3192,7 +3483,7 @@ DIAG_WINDOW = 20  # updates the profiler window traces
 # kernel table at 989 TFLOP/s: 1.83e11 + 3.65e11 (the backward, without
 # its recompute) + 2.87e12.
 FLOPS_FLOOR = 3.4e12
-DET_ARGV = ['--configs', 'size12m', '--task', 'dummy_disc',
+DET_ARGV = ['--configs', 'size1m', '--task', 'dummy_disc',
             '--torch.fetch_depth', '0', '--torch.deterministic', 'True',
             '--torch.precompile', 'False']
 DET_TIMEOUT = 600
@@ -3238,7 +3529,7 @@ def planted_sync(torch, agent):
 
 def deterministic_main():
   """The child of phase diagnostics (`chip_smoke.py --deterministic`):
-  size12m under torch.deterministic, two train steps from one store and
+  size1m under torch.deterministic, two train steps from one store and
   one batch, and a step on the latent table; prints one JSON line."""
   import torch
   sys.path.insert(0, ROOT)
@@ -3287,7 +3578,7 @@ def phase_diagnostics(torch):
       in the Agent's guard scope raises, in its explicit crossing not;
   (d) deterministic, in a child interpreter (CUBLAS_WORKSPACE_CONFIG must
       precede the process's first cuBLAS handle) that runs beside the end
-      of (b): two size12m train steps from one store and batch give the
+      of (b): two size1m train steps from one store and batch give the
       same store bit for bit.
   Returns the launches of kernels 3, 5, 6 and 8."""
   import atexit
@@ -3470,14 +3761,16 @@ def main():
     sys.exit(2)
   if sys.argv[1:] == ['--deterministic']:
     return deterministic_main()
+  if sys.argv[1:] == ['--bandit']:
+    return bandit_main()
   start = time.perf_counter()
-  phase_device(torch)
-  phase_build()
-  rows = phase_kernels(torch)
-  launches = phase_slice(torch)
-  trained = phase_train(torch)
+  timed(phase_device, torch)
+  timed(phase_build)
+  rows = timed(phase_kernels, torch)
+  launches = timed(phase_slice, torch)
+  trained = timed(phase_train, torch)
   launches.update({k: trained[TRAIN_PATHS[0][0]][k] for k in TRAIN_KERNELS})
-  modes = phase_modes(torch)
+  modes = timed(phase_modes, torch)
   # Each kernel's launches on its own path: the core step's backward under
   # obslayers: 2, the observe step's under kernel: fused, the imagination
   # step under kernel: imag.
@@ -3487,26 +3780,27 @@ def main():
       imag_step=modes['kernel: imag']['imag_step'])
   # This slice's paths: kernel 9 on the int8 window's validation, kernels
   # 3, 5, 6 and 8 on the default configuration.
-  launches['qobs_window'] = phase_qcore(torch)
+  launches['qobs_window'] = timed(phase_qcore, torch)
   # The default configuration as it runs by default: its policy calls and
   # train steps on the latent table (their launches, in place of those of
   # the default phase's host path).
-  table_launches = phase_latents(torch)
-  default_launches, pinpad_speed = phase_default(torch)
+  table_launches = timed(phase_latents, torch)
+  default_launches, pinpad_speed = timed(phase_default, torch)
   launches.update(default_launches)
   launches.update(table_launches)
   # The actor-learner script: kernel 3 in the actor's policy calls,
   # kernels 5, 6 and 8 in the learner's train steps.
-  parallel_launches = phase_parallel(torch, pinpad_speed)
-  phase_script(torch)
-  phase_ppo(torch)
-  director = phase_director(torch)
+  parallel_launches = timed(phase_parallel, torch, pinpad_speed)
+  bandit = start_bandit()  # beside phase script, read by phase ppo
+  timed(phase_script, torch)
+  timed(phase_ppo, torch, bandit)
+  director = timed(phase_director, torch)
   # The default configuration on a one-rank NCCL group: kernels 5, 6 and 8
   # in its data-parallel steps, kernel 3 on the policy/train split's copy.
-  distributed = phase_distributed(torch)
+  distributed, sharded = timed(phase_distributed, torch)
   # The default configuration's diagnostics: kernels 5, 6 and 8 in the
   # train steps of the profiler window, kernel 3 in the policy calls.
-  diagnostics = phase_diagnostics(torch)
+  diagnostics = timed(phase_diagnostics, torch)
   kernels = []
   for row in rows:
     # The list holds each kernel once: at the default configuration's dims
@@ -3534,10 +3828,13 @@ def main():
       kernels[-1]['parallel_launches'] = parallel_launches[name]
     if name in distributed:
       kernels[-1]['distributed_launches'] = distributed[name]
+    if name in sharded:
+      kernels[-1]['sharded_launches'] = sharded[name]
     if name in diagnostics:
       kernels[-1]['diagnostics_launches'] = diagnostics[name]
   if sorted(k['name'] for k in kernels) != sorted(SOURCES):
     fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
+  emit(phase='timing', ok=True, phase_seconds=PHASES['seconds'])
   emit(phase='total', ok=True, seconds=time.perf_counter() - start)
   print(json.dumps({'kernels': kernels}), flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -1,8 +1,8 @@
 """Entry-point wiring shared by agent packages: config assembly from
 configs.yaml presets and CLI flags with logdir templating, env
-construction by task prefix with the standard wrapper stack, the agent's
-config view, the replay, stream and logger factories, and script
-dispatch.
+construction by task prefix with the standard wrapper stack (in the
+torch-free envs/factory.py, re-exported here), the agent's config view,
+the replay, stream and logger factories, and script dispatch.
 
 A copy of embodied_tpu/models/common.py with the scripts and outputs the
 port has: `train`, `train_eval`, `eval_only`, the actor-learner script
@@ -20,7 +20,6 @@ stays batch_size, as in the JAX package's one process with N virtual
 devices.
 """
 
-import importlib
 import multiprocessing
 import os
 import socket
@@ -29,6 +28,7 @@ from functools import partial as bind
 import yaml
 
 from .. import core, nn, parallel, run
+from ..envs.factory import ENV_CTORS, make_env, wrap_env  # noqa: F401
 from ..parallel import meshes
 from ..parallel.setup import rank_device, share_cores, shutdown
 from ..core import selectors as selectorlib
@@ -36,23 +36,6 @@ from ..core import streams as streamlib
 from ..utils import (
     Config, Counter, Flags, JSONLOutput, Logger, Path, ScoreOutput,
     TensorBoardOutput, TerminalOutput, WandBOutput, timer, timestamp)
-
-ENV_CTORS = {
-    'dummy': 'embodied_tpu_torch.envs.dummy:Dummy',
-    'gym': 'embodied_tpu_torch.envs.from_gym:FromGym',
-    'dm': 'embodied_tpu_torch.envs.from_dm:FromDM',
-    'crafter': 'embodied_tpu_torch.envs.crafter:Crafter',
-    'dmc': 'embodied_tpu_torch.envs.dmc:DMC',
-    'atari': 'embodied_tpu_torch.envs.atari:Atari',
-    'atari100k': 'embodied_tpu_torch.envs.atari:Atari',
-    'dmlab': 'embodied_tpu_torch.envs.dmlab:DMLab',
-    'minecraft': 'embodied_tpu_torch.envs.minecraft:Minecraft',
-    'loconav': 'embodied_tpu_torch.envs.loconav:LocoNav',
-    'pinpad': 'embodied_tpu_torch.envs.pinpad:PinPad',
-    'procgen': 'embodied_tpu_torch.envs.procgen:ProcGen',
-    'bsuite': 'embodied_tpu_torch.envs.bsuite:BSuite',
-}
-
 
 def assemble_config(configs_path, argv=None):
   with open(configs_path) as f:
@@ -261,23 +244,6 @@ def env_spaces(config):
   return obs_space, act_space
 
 
-def make_env(config, index, **overrides):
-  suite, task = config.task.split('_', 1)
-  ctor = ENV_CTORS[suite]
-  if isinstance(ctor, str):
-    module, cls = ctor.split(':')
-    module = importlib.import_module(module)
-    ctor = getattr(module, cls)
-  kwargs = dict(dict(config.env).get(suite, {}))
-  kwargs.update(overrides)
-  if kwargs.pop('use_seed', False):
-    kwargs['seed'] = hash((config.seed, index)) % (2 ** 32 - 1)
-  if kwargs.pop('use_logdir', False):
-    kwargs['logdir'] = Path(config.logdir) / f'env{index}'
-  env = ctor(task, **kwargs)
-  return wrap_env(env, config)
-
-
 def make_logger(config):
   step = Counter()
   logdir = config.logdir
@@ -326,18 +292,6 @@ def make_replay(config, folder, mode='train'):
         recency=selectorlib.Recency(config.replay.recexp),
     ), fracs)
   return core.Replay(**kwargs)
-
-
-def wrap_env(env, config):
-  for name, space in env.act_space.items():
-    if not space.discrete:
-      env = core.wrappers.NormalizeAction(env, name)
-  env = core.wrappers.UnifyDtypes(env)
-  env = core.wrappers.CheckSpaces(env)
-  for name, space in env.act_space.items():
-    if not space.discrete:
-      env = core.wrappers.ClipAction(env, name)
-  return env
 
 
 def make_stream(config, replay, mode):

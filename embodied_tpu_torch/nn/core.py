@@ -7,6 +7,13 @@ parameter's `state_dict` key is its JAX path with '/' replaced by '.', so
 JAX ones. `store(module)` and `load_store(module, store)` convert between
 the two forms, so a JAX store loads unchanged.
 
+A store that is sharded over ranks (parallel/agent.py) keeps each entry's
+Parameter or buffer object and swaps what it holds: `entries` gives the
+objects themselves and `assign` points them at other tensors, of another
+shape too. Between the Agent's calls a sharded entry holds the rank's
+slice, so `store` gives slices and `load_store` takes them; during a
+call that reads parameters it holds the full tensor.
+
 Parameters are float32. State that is not trained (normaliser statistics,
 the optimizer's step and moments, counters) is kept as buffers under the
 JAX paths, so it travels with the store too. Layers compute in a compute
@@ -103,6 +110,24 @@ def init_params(root, seed):
 def store(root):
   """The module tree as a flat JAX-style store {path: tensor}."""
   return {k.replace('.', '/'): v for k, v in root.state_dict().items()}
+
+
+def entries(root):
+  """The module tree's parameters and buffers themselves (not detached
+  views) by store path."""
+  return {k.replace('.', '/'): v
+          for k, v in root.state_dict(keep_vars=True).items()}
+
+
+@torch.no_grad()
+def assign(root, values):
+  """Point each entry of `values` ({path: tensor}) at that tensor, whatever
+  its shape: the entry's object stays (an optimizer's reference to a
+  parameter still holds), what it holds changes, and its earlier storage
+  is freed unless something else holds it."""
+  held = entries(root)
+  for path, value in values.items():
+    held[path].data = value
 
 
 @torch.no_grad()

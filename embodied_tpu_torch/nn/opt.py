@@ -17,7 +17,16 @@ step on a mesh; JAX's `DATA_AXES` under shard_map), each rank's gradients
 are averaged over the group as one flat float32 buffer, before the loss
 scale's finite check and AGC's per-parameter norms, as in JAX.
 `group_mean`, `group_min`, `group_max` and `group_cat` reduce other
-values over the same group (the normalizers, the batch diagnostics).
+values over the same group (the normalizers, the batch diagnostics). The
+data group spans ('d','f') only: ranks along 't' compute the same rows
+and are never averaged with each other, which would divide their
+gradient twice.
+
+On a sharded store (parallel/agent.py) the update sees the full
+parameters, which the Agent gathers before the step: the moments stay
+replicated flat vectors, as in the JAX fused layout, every rank updates
+all of them and every parameter, and AGC's norms are taken on full
+tensors, as in JAX; the Agent then keeps each rank's slices.
 """
 
 import contextlib

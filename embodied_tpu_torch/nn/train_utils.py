@@ -7,7 +7,10 @@ writes them after the step, and reads its own pending writes, so reading
 the updated buffer within the step is the same function. Under a data
 group (nn.opt.reduce_over) the `meanstd` means are averaged over its ranks
 and the percentiles taken over every rank's values, as JAX does over its
-data axes.
+data axes. The normalizers' statistics are scalars, replicated on a
+sharded store; the slow value's kernels are sharded like the fast ones,
+and its mix is elementwise, so on full tensors it gives the bits it would
+give on the slices.
 """
 
 import torch

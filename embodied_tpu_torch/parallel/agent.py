@@ -58,20 +58,32 @@ own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
   data group, and folds the rank's data index into its draws; ranks along
   't' train on the rows of their data index's first rank, which the step
   broadcasts to them;
-- every rank holds the whole store, starts from rank 0's and keeps it in
-  step through the reduced gradients; `shardings` holds the placements
-  that the model's `partition_rules` give on the mesh. `torch.shardmap`
-  makes every placement replicated (`use_shardmap`, as the JAX shard_map
-  mode); with a replicated store the two modes run the same reduction,
-  and they differ only once the store is sharded;
-- policy and report calls take the rank's rows alone, with no collective,
-  so that the run loop may call them on each rank's own clock;
-- `torch.policy_mesh` (the policy/train split) gives the policy its own
-  copy of the `policy_keys` parameters on the rank's device: each train
-  step marks it dirty and the next policy call refreshes it; the device
-  lock stays. The latent table is off under the split and under shardmap,
-  as in the JAX agent; on a mesh each process's table holds the slot
-  range that it allocates from.
+- every rank starts from rank 0's store and keeps it in step through the
+  reduced gradients. The model's `partition_rules` place each entry on
+  the mesh (`shardings`, parallel/meshes.py), as the JAX agent's
+  NamedShardings do: between calls a rank holds only its slice of each
+  sharded entry (the last dimension over ('f','t') for the kernels and
+  embeddings) and the whole of each replicated one, such as the flat
+  optimizer moments. A call that reads the parameters (`train`, `report`,
+  `save`, `load`) first gathers the full tensors over each entry's shard
+  group and keeps only the slices again when it ends, so on a sharded
+  store those calls are collectives that every rank makes alike. A train
+  step then computes what the replicated step computes, bit for bit: the
+  gradients are averaged over the data group only (never over 't'),
+  every rank updates the whole flat moments and parameters, and keeps
+  its slices. `torch.shardmap` makes every placement replicated
+  (`use_shardmap`, as the JAX shard_map mode);
+- policy calls take the rank's rows alone, with no collective, so that
+  the run loop may call them on each rank's own clock (an evaluation's
+  episodes end at different calls on different ranks). So the policy acts
+  on its own full copy of the `policy_keys` parameters on the rank's
+  device: under `torch.policy_mesh` (the policy/train split) and on a
+  sharded store. On a sharded store each train step refreshes the copy
+  from the full parameters it holds after the update; under the split
+  alone each train step marks it stale and the next policy call
+  refreshes it. The device lock stays. The latent table is off under the
+  split and under shardmap, as in the JAX agent; on a mesh each process's
+  table holds the slot range that it allocates from.
 """
 
 import collections
@@ -174,12 +186,14 @@ class Agent(corelib.Agent):
           f'{total:,} parameters on {self.device}')
     rules = [] if self.use_shardmap else getattr(
         model, 'partition_rules', [])
-    self.shardings = meshes.resolve_rules(
-        {k: v.shape for k, v in nn.store(model).items()}, rules, self.mesh)
+    shapes = {k: v.shape for k, v in nn.store(model).items()}
+    self.shardings = meshes.resolve_rules(shapes, rules, self.mesh)
+    self._shards = meshes.Shards(shapes, self.shardings, self.mesh)
     self._sync_store()
     self._policy_copy = None
-    if self.policy_mesh is not None:
+    if self.policy_mesh is not None or self._shards:
       self._make_policy_copy()
+    self._keep_slices()
 
     # Device-resident replay-latent table (see parallel/latents.py):
     # torch.latent_slots 0 = off (the latents ride the replay), -1 = cover
@@ -274,7 +288,7 @@ class Agent(corelib.Agent):
     data = self._example_batch(rows, length, spaces=self.model.ext_space)
     data = {k: flopslib.to_meta(self._host_tensor(v))
             for k, v in data.items()}
-    model = flopslib.meta_copy(self.model)
+    model = flopslib.meta_copy(self.model, self._shards.shapes)
     carry = model.init_train(rows)
     with flopslib.FlopCounter() as counter:
       model.train_step(carry, data, nn.dists.Draws(None, flopslib.META))
@@ -311,16 +325,71 @@ class Agent(corelib.Agent):
     return sum(d.numel() * d.element_size() for _, d in self._policy_pairs)
 
   @torch.no_grad()
+  def _refresh_policy_copy(self):
+    for src, dst in self._policy_pairs:
+      dst.copy_(src)
+    self._policy_dirty = False
+
   def _policy_model(self):
-    """The model the policy runs: the split's copy, refreshed from the
-    trained parameters if a train step changed them since."""
+    """The model the policy runs: the policy copy (under the split or on a
+    sharded store), refreshed from the trained parameters if a train step
+    changed them since."""
     if self._policy_copy is None:
       return self.model
     if self._policy_dirty:
-      for src, dst in self._policy_pairs:
-        dst.copy_(src)
-      self._policy_dirty = False
+      self._refresh_policy_copy()
     return self._policy_copy
+
+  def _trained(self):
+    """The policy copy after a change of the full parameters: refreshed
+    now on a sharded store, whose full parameters are gone after the
+    call; else marked stale."""
+    if self._policy_copy is None:
+      return
+    if self._shards:
+      self._refresh_policy_copy()
+    else:
+      self._policy_dirty = True
+
+  # --- The sharded store --------------------------------------------------
+
+  @contextlib.contextmanager
+  def _full_store(self):
+    """Within: every sharded entry holds its full tensor, gathered over
+    its shard group (a collective); after: the rank's slices again."""
+    if not self._shards:
+      yield
+      return
+    held = nn.core.entries(self.model)
+    nn.core.assign(self.model, self._shards.gather(
+        {p: held[p].detach() for p in self._shards.paths}))
+    del held
+    try:
+      yield
+    finally:
+      self._keep_slices()
+
+  @torch.no_grad()
+  def _keep_slices(self):
+    """Every sharded entry keeps the rank's slice of the full tensor it
+    holds, and the full tensor's memory goes."""
+    held = nn.core.entries(self.model)
+    nn.core.assign(self.model, {p: self._shards.local(p, held[p].detach())
+                                for p in self._shards.paths})
+
+  def store_bytes(self):
+    """The bytes of the store this rank holds now, as {'sharded': bytes of
+    the sharded entries, 'replicated': the rest, 'placements': what the
+    placements give this rank in all, 'policy_copy': the policy copy's
+    own, counted apart}."""
+    held = nn.store(self.model)
+    size = lambda v: v.numel() * v.element_size()
+    sharded = sum(size(held[p]) for p in self._shards.paths)
+    return dict(
+        sharded=sharded,
+        replicated=sum(size(v) for v in held.values()) - sharded,
+        placements=self._shards.nbytes({k: v.dtype for k, v in held.items()}),
+        policy_copy=self.policy_copy_bytes)
 
   def policy(self, carry, obs, mode='train'):
     obs = {k: self._to_device(v) for k, v in obs.items()
@@ -392,7 +461,7 @@ class Agent(corelib.Agent):
         replica = self._replicate(data)
         if use_table:
           valid = data.pop('latents/valid')
-        with nn.opt.reduce_over(self.data_group):
+        with nn.opt.reduce_over(self.data_group), self._full_store():
           carry, outs, mets = self.model.train_step(
               carry, data, self._draws('train', 2_000_003))
           carry = nn.core.tree_map(lambda x: x.detach(), carry)
@@ -400,6 +469,7 @@ class Agent(corelib.Agent):
           if use_table:
             mets['latents/valid'] = valid.float().mean()
           mets = self._group_mean_scalars(mets)
+          self._trained()
         if replica:
           outs.pop('replay', None)
         elif use_table:
@@ -410,8 +480,6 @@ class Agent(corelib.Agent):
             upd = outs.pop('replay', None)
           if upd is not None:
             self._latents.scatter(slots[:, K:], gens[:, K:], upd)
-      if self._policy_copy is not None:
-        self._policy_dirty = True
       queue = self._pending_train
       with self._allowed():
         queue.append(self._start_fetch(outs, mets))
@@ -476,15 +544,17 @@ class Agent(corelib.Agent):
   def report(self, carry, data):
     """Metrics of a (B, T + replay_context) batch without updates (see
     Model.report): scalars as host floats, videos as uint8 numpy arrays.
-    On a mesh, the rank's own rows' metrics."""
+    On a mesh, the rank's own rows' metrics; on a sharded store a
+    collective (the parameters' gather)."""
     with self._device_lock, self._checked():
       data = self._take_batch(data)
       carry = nn.core.tree_map(self._to_device, carry)
       self._counters['report'] += 1
       if self._latents is not None and 'slot' in data:
         data = self.inject_latents(data)[0]
-      carry, mets = self.model.report(
-          carry, data, self._draws('report', 3_000_003))
+      with self._full_store():
+        carry, mets = self.model.report(
+            carry, data, self._draws('report', 3_000_003))
       carry = nn.core.tree_map(lambda x: x.detach(), carry)
       with self._allowed():
         return carry, self._fetch(mets)
@@ -714,19 +784,24 @@ class Agent(corelib.Agent):
 
   def save(self, chunk_bytes=1 << 30):
     """The state {'store', 'counters'[, 'latents']} on the host. The store
-    comes to the host in groups of at most `chunk_bytes` (or one larger
-    entry), each packed into one device buffer and copied in one transfer,
-    so a save never needs much more device memory than the model (JAX's
-    grouped gather, agent.py:724-755). Every rank holds the same store,
-    so every rank returns the same state."""
+    comes to the host in groups of at most `chunk_bytes` of full entries
+    (or one larger entry): each group's sharded entries are gathered to
+    full tensors (a collective on a sharded store), and the group is
+    packed into one device buffer and copied in one transfer, so a save
+    never needs much more device memory than the model (JAX's grouped
+    gather, agent.py:724-755). Every rank returns the same state."""
     with timer.section('agent_save'), self._device_lock, self._allowed():
       store = nn.store(self.model)
+      full = lambda k: int(np.prod(self._shards.shapes[k], dtype=np.int64))
       result, group, size = {}, [], 0
       for key in sorted(store) + [None]:
-        nbytes = 0 if key is None else (
-            store[key].numel() * store[key].element_size())
+        nbytes = 0 if key is None else full(key) * store[key].element_size()
         if group and (key is None or size + nbytes > chunk_bytes):
-          result.update(_to_host({k: store[k] for k in group}))
+          tensors = {k: store[k] for k in group}
+          tensors.update(self._shards.gather(
+              {k: store[k] for k in group if k in self._shards.dims}))
+          result.update(_to_host(tensors))
+          del tensors
           group, size = [], 0
         if key is not None:
           group.append(key)
@@ -741,15 +816,15 @@ class Agent(corelib.Agent):
 
   def load(self, data, regex=None):
     """Load a store {path: array} by flat path, such as `save()` or
-    `convert.from_jax` return: parameters and state. Without `regex` the
-    store must hold every entry of the model, or this raises naming the
-    first five it lacks; with `regex`, only the store's entries that match
-    it load and the rest keep their values. Entries the port lacks are
-    reported and ignored. A checkpoint without the latent allocator's
-    state (made without the table) moves the allocator one generation up,
-    so no restored (slot, slotgen) pair validates against a new one. On
-    a process group every rank calls `load`, and every rank ends with
-    rank 0's store."""
+    `convert.from_jax` return: parameters and state, whole entries. Without
+    `regex` the store must hold every entry of the model, or this raises
+    naming the first five it lacks; with `regex`, only the store's entries
+    that match it load and the rest keep their values. Entries the port
+    lacks are reported and ignored. A checkpoint without the latent
+    allocator's state (made without the table) moves the allocator one
+    generation up, so no restored (slot, slotgen) pair validates against a
+    new one. On a process group every rank calls `load`, and every rank
+    ends with rank 0's store, on a sharded store its slices of it."""
     store = data['store']
     if regex:
       pattern = re.compile(regex)
@@ -757,11 +832,10 @@ class Agent(corelib.Agent):
     missing = sorted(set(nn.store(self.model)) - set(store))
     if missing and not regex:
       raise KeyError(f'Checkpoint missing entries: {missing[:5]}')
-    with self._device_lock:
+    with self._device_lock, self._full_store():
       unused = nn.load_store(self.model, store, strict=False)
       self._sync_store()
-      if self._policy_copy is not None:
-        self._policy_dirty = True
+      self._trained()
     if unused:
       print(f'Ignoring {len(unused)} unexpected checkpoint entries: '
             f'{unused[:5]}')
@@ -774,7 +848,8 @@ class Agent(corelib.Agent):
 
   @torch.no_grad()
   def _sync_store(self):
-    """Every rank takes rank 0's store (on more than one process)."""
+    """Every rank takes rank 0's store (on more than one process): the
+    full entries."""
     if self.nprocs > 1:
       for _, value in sorted(nn.store(self.model).items()):
         dist.broadcast(value, 0)

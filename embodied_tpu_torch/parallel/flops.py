@@ -52,15 +52,20 @@ class FlopCounter(TorchDispatchMode):
     return out
 
 
-def meta_copy(module):
+def meta_copy(module, shapes=None):
   """A deep copy of `module` whose parameters and buffers are meta tensors
-  of the same shapes, dtypes and grad flags; every reference to one of
-  them inside the copy (an optimizer's list of parameters, say) points to
-  its meta counterpart. Raises if the copy holds another tensor that is
-  not on meta."""
+  of the same dtypes and grad flags, and of the shapes they have or,
+  where `shapes` ({store path: shape}) names them, of those: the full
+  shapes of a sharded store's slices. Every reference to one of them
+  inside the copy (an optimizer's list of parameters, say) points to its
+  meta counterpart. Raises if the copy holds another tensor that is not
+  on meta."""
+  shapes = shapes or {}
   memo = {}
-  for value in itertools.chain(module.parameters(), module.buffers()):
-    meta = torch.empty_like(value, device=META)
+  named = itertools.chain(module.named_parameters(), module.named_buffers())
+  for name, value in named:
+    shape = shapes.get(name.replace('.', '/'), value.shape)
+    meta = torch.empty(shape, dtype=value.dtype, device=META)
     if isinstance(value, torch.nn.Parameter):
       meta = torch.nn.Parameter(meta, requires_grad=value.requires_grad)
     memo[id(value)] = meta

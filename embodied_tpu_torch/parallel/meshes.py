@@ -10,14 +10,21 @@ are replicas that compute the same rows.
 
 `resolve_rules` gives each store path its placement as the JAX package's
 `PartitionSpec` entries: a tuple of axis names (or tuples of them) and
-None, () where replicated. In this slice every rank holds the whole
-store, so the placements say where a sharded store would put each entry;
-they do not change what a step computes.
+None, () where replicated. The Agent applies them: between calls each rank
+holds only its slice of every sharded entry, as the JAX mesh places the
+array's shards on its devices. `Shards` is the geometry of one store's
+placements on this rank: for each sharded entry the shard group (the
+ranks along the placement's axes that share this rank's other
+coordinates), this rank's index in it (axes listed together, such as
+('f','t'), count first-axis-major: f-major, t-minor, as `P(('f','t'))`
+lays the devices out), the local shape and slice; and the gather that
+puts the slices back into full tensors, one all-gather per shard group.
 """
 
 import re
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 AXES = ('d', 'f', 't')
@@ -35,7 +42,8 @@ class Mesh:
     lies outside the mesh.
   replica_group: the ranks along 't' that share this rank's ('d','f'),
     where t > 1.
-  data_index: this rank's index over ('d','f') (0 without a group)."""
+  data_index: this rank's index over ('d','f') (0 without a group).
+  coords: this rank's (d, f, t) coordinate (None outside the mesh)."""
 
   def __init__(self, sizes, world):
     self.shape = dict(zip(AXES, sizes))
@@ -45,6 +53,8 @@ class Mesh:
     self.data_group = None
     self.replica_group = None
     self.data_index = 0
+    self.coords = (0, 0, 0)
+    self._groups = {}
     if not dist.is_initialized():
       return
     if world == 1:
@@ -68,6 +78,45 @@ class Mesh:
     where = np.argwhere(self.ranks == rank)
     self.data_index = (int(where[0][0] * sizes[1] + where[0][1])
                        if len(where) else None)
+    self.coords = tuple(int(x) for x in where[0]) if len(where) else None
+    self._groups = {}
+
+  def members(self, axes, coords=None):
+    """The ranks along `axes` (a tuple of axis names) that share the other
+    coordinates of `coords` (default: this rank's), first axis major."""
+    coords = self.coords if coords is None else coords
+    index = tuple(slice(None) if a in axes else coords[i]
+                  for i, a in enumerate(AXES))
+    sub = self.ranks[index]  # The axes in AXES order.
+    order = [a for a in AXES if a in axes]
+    sub = np.transpose(sub, [order.index(a) for a in axes])
+    return sub.reshape(-1).tolist()
+
+  def group(self, axes):
+    """The process group of `members(axes)` (None without a process
+    group). The first call for `axes` makes every such group of the mesh,
+    so every rank must make the same calls in the same order (as Shards
+    does from the placements)."""
+    axes = tuple(axes)
+    if not dist.is_initialized():
+      return None
+    if axes not in self._groups:
+      rest = [i for i, a in enumerate(AXES) if a not in axes]
+      mine = None
+      for other in np.ndindex(*[self.sizes[i] for i in rest]):
+        coords = [0, 0, 0]
+        for i, c in zip(rest, other):
+          coords[i] = c
+        members = self.members(axes, coords)
+        group = dist.new_group(members)
+        if self.rank in members:
+          mine = group
+      self._groups[axes] = mine
+    return self._groups[axes]
+
+  @property
+  def rank(self):
+    return dist.get_rank() if dist.is_initialized() else 0
 
   @property
   def size(self):
@@ -153,3 +202,102 @@ def _fit_spec(spec, shape, axis_sizes):
     else:
       fitted.append(None)
   return tuple(fitted)
+
+
+def sharded_dim(spec):
+  """The one dimension that `spec` (a resolved placement) shards, or None
+  where it is replicated."""
+  dims = [i for i, entry in enumerate(spec) if entry is not None]
+  assert len(dims) <= 1, f'more than one sharded dimension: {spec}'
+  return dims[0] if dims else None
+
+
+def spec_axes(entry):
+  """A placement entry ('f' or ('f','t')) as a tuple of axis names."""
+  return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+class Shards:
+  """This rank's slices of the entries that `placements` shard on `mesh`.
+
+  shapes: {path: full shape} of the store. For each sharded path:
+  `dims[path]` the sharded dimension, `axes[path]` its mesh axes, and
+  `index[path]`, `count[path]` this rank's position among the shard
+  group's members and their number. The groups are made in sorted order
+  of their axes, by every rank alike."""
+
+  def __init__(self, shapes, placements, mesh):
+    self.mesh = mesh
+    self.shapes = {k: tuple(v) for k, v in shapes.items()}
+    self.dims, self.axes, self.index, self.count = {}, {}, {}, {}
+    for path in sorted(placements):
+      dim = sharded_dim(placements[path])
+      if dim is None:
+        continue
+      axes = spec_axes(placements[path][dim])
+      members = mesh.members(axes)
+      self.dims[path] = dim
+      self.axes[path] = axes
+      self.count[path] = len(members)
+      self.index[path] = members.index(mesh.rank)
+    self.groups = {axes: mesh.group(axes)
+                   for axes in sorted(set(self.axes.values()))}
+
+  @property
+  def paths(self):
+    return sorted(self.dims)
+
+  def __bool__(self):
+    return bool(self.dims)
+
+  def local_shape(self, path):
+    shape = list(self.shapes[path])
+    if path in self.dims:
+      shape[self.dims[path]] //= self.count[path]
+    return tuple(shape)
+
+  def local(self, path, full):
+    """This rank's slice of the full tensor `full`, in storage of its
+    own (so that the full tensor's is freed with it)."""
+    if path not in self.dims:
+      return full
+    dim, n = self.dims[path], self.shapes[path][self.dims[path]]
+    size = n // self.count[path]
+    part = full.narrow(dim, self.index[path] * size, size)
+    return part.clone(memory_format=torch.contiguous_format)
+
+  def gather(self, slices):
+    """{path: full tensor} of {path: this rank's slice} (sharded paths):
+    per shard group and dtype one all-gather of the slices packed flat in
+    sorted path order, then each entry's slices joined along its
+    dimension in shard order. Every rank of a group gathers the same
+    paths."""
+    buckets = {}
+    for path in sorted(slices):
+      key = (self.axes[path], str(slices[path].dtype))
+      buckets.setdefault(key, []).append(path)
+    out = {}
+    for (axes, _), paths in sorted(buckets.items()):
+      parts = [slices[p].contiguous().reshape(-1) for p in paths]
+      packed = torch.cat(parts) if len(parts) > 1 else parts[0]
+      gathered = [torch.empty_like(packed)
+                  for _ in range(self.count[paths[0]])]
+      dist.all_gather(gathered, packed, group=self.groups[axes])
+      offset = 0
+      for path, part in zip(paths, parts):
+        shape = slices[path].shape
+        out[path] = torch.cat(
+            [chunk[offset:offset + part.numel()].view(shape)
+             for chunk in gathered], self.dims[path])
+        offset += part.numel()
+      del gathered
+    return out
+
+  def nbytes(self, dtypes):
+    """The bytes one rank holds of a store with entries of `dtypes`
+    ({path: torch dtype}) under these placements."""
+    total = 0
+    for path, shape in self.shapes.items():
+      size = torch.empty((), dtype=dtypes[path]).element_size()
+      total += int(np.prod(self.local_shape(path), dtype=np.int64)) * size
+    return total

@@ -150,12 +150,23 @@ def agree(flag):
   """Rank 0's boolean `flag` on every rank (the flag itself without a
   process group): for decisions taken from a wall clock that every rank
   must take alike."""
+  return _decide(flag, lambda value: dist.broadcast(value, 0))
+
+
+def everyone(flag):
+  """Whether every rank's boolean `flag` is true (the flag itself without
+  a process group): for a collective that needs each rank's own data."""
+  return _decide(flag, lambda value: dist.all_reduce(
+      value, dist.ReduceOp.MIN))
+
+
+def _decide(flag, collective):
   if not dist.is_initialized() or dist.get_world_size() == 1:
     return bool(flag)
   nccl = dist.get_backend() == 'nccl'
   value = torch.tensor([int(bool(flag))],
                        device=rank_device('cuda' if nccl else 'cpu'))
-  dist.broadcast(value, 0)
+  collective(value)
   return bool(value.item())
 
 

@@ -10,7 +10,8 @@ concerns are components and each protocol is a short composition:
 - EpisodeLog   per-worker episode aggregation into the logger
 - Learner      train stream + carry + replay-ratio pacing + latent updates
 - Reporter     report stream + carry, aggregated over N batches
-- Schedule     named wall-clock tasks polled from the main loop
+- Schedule     named wall-clock tasks polled from the main loop, those
+               that make collectives taken alike on every rank
 - Deadline     optional run.duration wall-clock budget
 - make_driver  env fleet construction honoring args.driver
 """
@@ -130,19 +131,26 @@ def timer_metrics():
 
 
 class Schedule:
-  """Named wall-clock tasks; poll() runs whichever are due."""
+  """Named wall-clock tasks; poll() runs whichever are due. A task made
+  with `together` fires on a process group where rank 0's clock says it
+  is due, on every rank at the same poll: a task that makes a collective
+  (a report or a save of a sharded agent) must. Other tasks (logging)
+  follow each rank's own clock."""
 
   def __init__(self, clock=core.LocalClock):
     self._tasks = []
     self._clock = clock
 
-  def every(self, seconds, fn, first=False):
-    self._tasks.append((self._clock(seconds, first), fn))
+  def every(self, seconds, fn, first=False, together=False):
+    self._tasks.append((self._clock(seconds, first), fn, together))
     return self
 
   def poll(self, step):
-    for clock, fn in self._tasks:
-      if clock(step):
+    for clock, fn, together in self._tasks:
+      due = clock(step)
+      if together:
+        due = agree(due)
+      if due:
         fn()
 
 

@@ -1,7 +1,8 @@
 """Single-process training protocol.
 
 A copy of embodied_tpu/run/train.py; the run stops the prefetch threads of
-its streams when it ends.
+its streams when it ends, and on a process group every rank reports and
+saves at rank 0's times.
 
 Capability match for the reference's embodied/run/train.py, composed from
 the shared harness in run/loop.py: env driver feeding replay and episode
@@ -67,11 +68,13 @@ def train(make_agent, make_replay, make_env, make_stream, make_logger, args):
                 **loop.timer_metrics()})
     logger.write()
 
+  # Reports and saves gather a sharded agent's store: every rank of a
+  # process group takes them at the same poll.
   tasks = (loop.Schedule()
-           .every(args.report_every, report)
+           .every(args.report_every, report, together=True)
            .every(args.log_every, log))
   if checkpointing:
-    tasks.every(args.save_every, cp.save)
+    tasks.every(args.save_every, cp.save, together=True)
   out_of_time = loop.Deadline(args.duration)
 
   print('Start training loop')

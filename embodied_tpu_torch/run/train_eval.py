@@ -2,7 +2,9 @@
 
 A copy of embodied_tpu/run/train_eval.py; the run stops the prefetch
 threads of its streams when it ends, and makes the eval replay's stream
-at the first evaluation that has eval data.
+at the first evaluation that has eval data. On a process group every
+rank evaluates and saves at rank 0's times, and the eval report waits
+until every rank has eval data.
 
 Capability match for the reference's embodied/run/train_eval.py on the
 run/loop.py harness: adds to train() a second driver running eval-mode
@@ -12,6 +14,7 @@ policy episodes on report cadence, an eval replay, and eval reports.
 import pickle
 
 from ..core import streams
+from ..parallel.setup import everyone
 from ..utils import Checkpoint, FPS, Path, Usage, timer
 from . import loop
 
@@ -71,7 +74,9 @@ def train_eval(
     logger.add(eval_episodes.stats(), prefix='epstats')
     if len(replay_train):
       logger.add(report_train(), prefix='report')
-    if len(replay_eval):
+    # Each rank's evaluation ran its own episodes: the eval report, a
+    # collective on a sharded agent, waits until every rank has eval data.
+    if everyone(len(replay_eval)):
       if report_eval is None:
         report_eval = loop.Reporter(
             agent, agent.stream(make_stream(replay_eval, 'eval')), args,
@@ -89,9 +94,9 @@ def train_eval(
     logger.write()
 
   tasks = (loop.Schedule()
-           .every(args.report_every, evaluate)
+           .every(args.report_every, evaluate, together=True)
            .every(args.log_every, log)
-           .every(args.save_every, cp.save))
+           .every(args.save_every, cp.save, together=True))
   out_of_time = loop.Deadline(args.duration)
 
   print('Start training loop')

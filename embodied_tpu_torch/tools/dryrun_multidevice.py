@@ -16,11 +16,18 @@ stores must be equal after the step and equal to the one-rank store
 (rtol 1e-5, atol 1e-6), the second step must find the window's latents
 in the table (latents/valid is T / (T + K) for windows of T steps after
 K context steps, whose slots the first step did not write), and the
-reloaded store must give the same policy output. Prints one line and
-exits 0, or raises.
+reloaded store must give the same policy output. On a mesh with 'f' or
+'t' above 1 the ranks hold their slices of the sharded entries: the
+stores compared are the ranks' gathered saves, and each rank's resident
+store bytes between calls must equal what the placements give it. Prints
+each rank's store bytes (sharded, replicated, the placements' sum, the
+policy copy's own), the same for the default configuration on the same
+mesh and on '1,2,1', counted on the meta device (no memory, no agent),
+and one line of the checks; exits 0, or raises.
 
 `RecordDraws` and `RankDraws` hand ranks their rows of one run's noise;
-the tests use them too.
+the tests use them too. `default_bytes(spec)` is the default
+configuration's count alone.
 """
 
 import multiprocessing
@@ -155,8 +162,8 @@ def run_rank(rank, n, port, ref, out):
     carry = agent.init_train(ref['local'])
     carry, _, mets = agent.train(carry, data)
     assert draws.used_all(), (draws.calls, len(draws.recorded))
-    store = {k: v.detach().numpy().copy()
-             for k, v in nn.store(agent.model).items()}
+    held = agent.store_bytes()
+    store = agent.save(chunk_bytes=4096)['store']
     agent._draws = lambda kind, salt: RankDraws(
         ref['recorded'], index, agent.nbatch)
     _, _, mets2 = agent.train(carry, data)
@@ -170,7 +177,7 @@ def run_rank(rank, n, port, ref, out):
     shutdown()
     out.put((rank, dict(
         loss=mets['opt/loss'], store=store, act=act, again=again,
-        valid=mets2['latents/valid'], window=(
+        valid=mets2['latents/valid'], bytes=held, window=(
             config.batch_length, config.replay_context))))
   except BaseException as e:
     out.put((rank, e))
@@ -213,10 +220,56 @@ def dryrun(n):
       np.testing.assert_array_equal(value, result['again'][key])
     T, K = result['window']
     assert abs(result['valid'] - T / (T + K)) < 1e-6, result['valid']
+    held = result['bytes']
+    assert held['sharded'] + held['replicated'] == held['placements'], held
+    print(f'rank {rank} store bytes: {bytes_line(held)}', flush=True)
+  for spec in sorted({ref['spec'], '1,2,1'}):
+    print(f'default configuration on mesh {spec}, per rank: '
+          f'{bytes_line(default_bytes(spec))}', flush=True)
   print(f'dryrun_multidevice({n}): mesh {ref["spec"]}, gloo ranks, '
         f'train+policy+save/load ok, loss={want:.6f} on every rank and '
         f'on one rank, latents/valid={results[0]["valid"]:.4f}',
         flush=True)
+
+
+def bytes_line(held):
+  return (f'{held["sharded"] + held["replicated"]:,} B held '
+          f'({held["sharded"]:,} sharded, {held["replicated"]:,} '
+          f'replicated; the placements give {held["placements"]:,}), '
+          f'policy copy {held["policy_copy"]:,} B')
+
+
+def default_bytes(spec):
+  """The store bytes that one rank holds of the default DreamerV3
+  configuration on `spec`'s mesh, as Agent.store_bytes gives them after
+  a train step, counted from the shapes of a model built on the meta
+  device: no memory, no process group."""
+  import re
+  from .. import nn
+  from ..models import common
+  from ..models.dreamerv3 import main
+  from ..models.dreamerv3.model import Model
+  from ..parallel import meshes
+  config = common.assemble_config(main.CONFIGS, ['--task', 'dummy_disc'])
+  obs_space, act_space = common.env_spaces(config)
+  with torch.device('meta'):
+    model = Model(obs_space, act_space, common.agent_config(config))
+  store = nn.store(model)
+  shapes = {k: v.shape for k, v in store.items()}
+  sizes = [int(x) for x in spec.split(',')]
+  mesh = meshes.make_mesh(spec, world=int(np.prod(sizes)))
+  shards = meshes.Shards(shapes, meshes.resolve_rules(
+      shapes, model.partition_rules, mesh), mesh)
+  full = lambda k: store[k].numel() * store[k].element_size()
+  local = lambda k: int(np.prod(shards.local_shape(k))) * (
+      store[k].element_size())
+  sharded = sum(local(k) for k in shards.paths)
+  pattern = re.compile(model.policy_keys)
+  return dict(
+      sharded=sharded,
+      replicated=sum(full(k) for k in store if k not in shards.dims),
+      placements=shards.nbytes({k: v.dtype for k, v in store.items()}),
+      policy_copy=sum(full(k) for k in store if pattern.search(k)))
 
 
 def main():

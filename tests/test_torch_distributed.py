@@ -307,39 +307,45 @@ def test_data_parallel_equals_one_process(request, family):
 
 
 def test_two_ranks_match_the_jax_mesh_step(dreamer):
-  """test_slice_train_step_matches_jax's tolerances: values 1e-4; a first
+  assert dreamer['mesh_spec'] == (2, 1, 1)
+  for got in dreamer['ranks']:
+    assert_matches_jax_step(got, dreamer)
+
+
+def assert_matches_jax_step(got, ref):
+  """A rank's step (metrics, store after it, replay outputs of its rows)
+  against the JAX mesh step in `ref` (jmets, jafter, meta, jouts) at
+  test_slice_train_step_matches_jax's tolerances: values 1e-4; a first
   update of lr * sign(g) (2 lr apart where |g| is near zero, 99% within
   1e-6); the square moments 1e-3 relative in norm."""
-  assert dreamer['mesh_spec'] == (2, 1, 1)
-  jmets, jafter, meta = dreamer['jmets'], dreamer['jafter'], dreamer['meta']
-  for got in dreamer['ranks']:
-    assert sorted(got['mets']) == sorted(jmets)
-    for key, value in got['mets'].items():
-      if not key.startswith('opt/update'):
-        close(torch.as_tensor(value), jmets[key], key)
-    assert sorted(got['store']) == sorted(jafter)
-    for path, want in jafter.items():
-      want = np.asarray(want, np.float32)
-      value = got['store'][path].astype(np.float32)
-      if meta.get(path) == 'param' and not path.startswith('slowval/'):
-        np.testing.assert_allclose(value, want, atol=2 * LR + 1e-6, rtol=0,
-                                   err_msg=path)
-        assert np.mean(np.abs(value - want) <= 1e-6) >= 0.99, path
-      elif path == 'opt/mom_flat':
-        np.testing.assert_allclose(value, want, atol=2 * 0.1 + 1e-6, rtol=0)
-        assert np.mean(np.abs(value - want) <= 1e-5) >= 0.99, path
-      elif path == 'opt/rms_flat':
-        grad_close(torch.tensor(value), want, path)
-      else:
-        close(value, want, path, tol=1e-3 if path.startswith('slowval/')
-              else TOL)
-    index = got['data_index']
-    for key, value in got['outs']['replay'].items():
-      want = np.asarray(dreamer['jouts']['replay'][key])[
-          index * LOCAL:(index + 1) * LOCAL]
-      assert value.shape == want.shape, key
-      assert np.abs(value.astype(int) - want.astype(int)).max() <= (
-          1 if key == 'dyn/deter' else 0), key
+  jmets, jafter, meta = ref['jmets'], ref['jafter'], ref['meta']
+  assert sorted(got['mets']) == sorted(jmets)
+  for key, value in got['mets'].items():
+    if not key.startswith('opt/update'):
+      close(torch.as_tensor(value), jmets[key], key)
+  assert sorted(got['store']) == sorted(jafter)
+  for path, want in jafter.items():
+    want = np.asarray(want, np.float32)
+    value = got['store'][path].astype(np.float32)
+    if meta.get(path) == 'param' and not path.startswith('slowval/'):
+      np.testing.assert_allclose(value, want, atol=2 * LR + 1e-6, rtol=0,
+                                 err_msg=path)
+      assert np.mean(np.abs(value - want) <= 1e-6) >= 0.99, path
+    elif path == 'opt/mom_flat':
+      np.testing.assert_allclose(value, want, atol=2 * 0.1 + 1e-6, rtol=0)
+      assert np.mean(np.abs(value - want) <= 1e-5) >= 0.99, path
+    elif path == 'opt/rms_flat':
+      grad_close(torch.tensor(value), want, path)
+    else:
+      close(value, want, path, tol=1e-3 if path.startswith('slowval/')
+            else TOL)
+  index = got['data_index']
+  for key, value in got['outs']['replay'].items():
+    want = np.asarray(ref['jouts']['replay'][key])[
+        index * LOCAL:(index + 1) * LOCAL]
+    assert value.shape == want.shape, key
+    assert np.abs(value.astype(int) - want.astype(int)).max() <= (
+        1 if key == 'dyn/deter' else 0), key
 
 
 def test_shardmap_equals_default_mode(dreamer):
@@ -510,3 +516,12 @@ def test_dryrun_multidevice_on_four_ranks():
       env=ENV)
   assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
   assert 'dryrun_multidevice(4): mesh 1,2,2' in proc.stdout
+  # Each rank's bytes between calls, sharded over ('f','t') = 4 ranks,
+  # and the default configuration's store per rank (the dry run asserts
+  # that the bytes held equal the placements').
+  for rank in range(4):
+    assert f'rank {rank} store bytes: ' in proc.stdout
+  assert ('default configuration on mesh 1,2,1, per rank: 2,057,557,900 B '
+          'held (429,631,488 sharded, 1,627,926,412 replicated') in (
+              proc.stdout)
+  assert 'mesh 1,2,2, per rank: 1,842,742,156 B held' in proc.stdout

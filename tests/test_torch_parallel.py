@@ -12,7 +12,9 @@ against the JAX package's where they are deterministic.
 - `script=parallel` runs DreamerV3 at the `debug` size in a child
   interpreter with the latent table on: it writes agent.pkl, replay.pkl
   and logger.pkl, trains, sends replay updates, and leaves no child
-  process, no thread and no prefetch thread behind when it returns; so
+  process, no thread and no prefetch thread behind when it returns (an
+  interrupt ends it once its log holds what the test reads, within a
+  cap, so that a busy host only makes it take longer); so
   do the `train` and `train_eval` scripts with their prefetch threads.
   `Prefetch.close` ends a producer that waits on its full queue, and
   does not wait for one inside its source.
@@ -209,10 +211,49 @@ def children():
       pids.append(int(pid))
   return pids
 
+def seen(logdir, events):
+  """Whether the run has written its checkpoint files and metric lines
+  that hold each of `events` (a key, or a key whose value must be > 0)."""
+  names = ('agent.pkl', 'replay.pkl', 'logger.pkl')
+  if not all(os.path.exists(os.path.join(logdir, n)) for n in names):
+    return False
+  try:
+    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+      lines = [json.loads(l) for l in f if l.endswith('\\n')]
+  except OSError:
+    return False
+  for key, positive in events:
+    values = [v for l in lines for k, v in l.items()
+              if k == key or (key.endswith('/') and k.startswith(key))]
+    if not values or (positive and not max(values) > 0):
+      return False
+  return True
+
 if __name__ == '__main__':
   parallel.Agent.train = counted
+  events = {events!r}
+  ender, finished = None, threading.Event()
+  if events:
+    # End the run once the events are logged, as a user does: with an
+    # interrupt, which main's supervisor answers by stopping every role.
+    import _thread
+
+    def end_run():
+      while not finished.is_set():
+        if seen({logdir!r}, events):
+          _thread.interrupt_main()
+          return
+        time.sleep(0.3)
+    ender = threading.Thread(target=end_run, daemon=True)
+    ender.start()
   start = time.time()
-  main.main({argv!r})
+  try:
+    main.main({argv!r})
+  except KeyboardInterrupt:
+    pass
+  finished.set()
+  if ender is not None:
+    ender.join()
   print(json.dumps(dict(
       threads=[t.name for t in threading.enumerate()
                if t is not threading.main_thread()],
@@ -221,11 +262,15 @@ if __name__ == '__main__':
 '''
 
 
-def run_child(family, argv, timeout):
+def run_child(family, argv, timeout, logdir=None, events=()):
   """`main.main(argv)` of a model family in a child interpreter; returns
   its Agent.train calls, and the threads and child processes still alive
-  after it returned."""
-  code = CHILD.format(root=str(ROOT), family=family, argv=argv)
+  after it returned. With `events` ((metric key, whether its value must be
+  > 0) pairs; a key ending in '/' is a prefix), an interrupt ends the run
+  once `logdir` holds its checkpoint files and metric lines with each of
+  them, else it ends on its budget."""
+  code = CHILD.format(root=str(ROOT), family=family, argv=argv,
+                      logdir=str(logdir), events=list(events))
   proc = subprocess.run(
       [sys.executable, '-c', code], cwd=ROOT, capture_output=True,
       text=True, timeout=timeout)
@@ -264,9 +309,14 @@ def check_run(logdir, left, table=True):
 def test_parallel_script_dreamer_debug(tmp_path):
   # The latent table on, its latents also riding the replay
   # (torch.latents_in_replay), so that the learner sends replay updates.
+  # The run ends once it has logged what the asserts read (a busy host
+  # takes longer to get there), within a cap of 150 s.
+  events = [('fps/train', True), ('train/latents/valid', False),
+            ('replay/updates', True), ('report/', False),
+            ('timer/agent/policy_lock_wait/avg', False)]
   left = run_child('dreamerv3', parallel_argv(
-      tmp_path, '--run.duration', '15', '--torch.latents_in_replay',
-      'True'), timeout=120)
+      tmp_path, '--run.duration', '150', '--torch.latents_in_replay',
+      'True'), timeout=300, logdir=tmp_path, events=events)
   lines = check_run(tmp_path, left)
   updates = [l['replay/updates'] for l in lines if 'replay/updates' in l]
   assert updates and max(updates) > 0, updates
@@ -295,7 +345,8 @@ def test_parallel_replay_beside_remote_replay(tmp_path):
            '--run.logger_addr', addrs['logger']]
   argv = parallel_argv(tmp_path, '--run.duration', '40', *flags)
   replay_argv = [a if a != 'parallel' else 'parallel_replay' for a in argv]
-  code = CHILD.format(root=str(ROOT), family='dreamerv3', argv=replay_argv)
+  code = CHILD.format(root=str(ROOT), family='dreamerv3', argv=replay_argv,
+                      logdir=None, events=[])
   replay = subprocess.Popen(
       [sys.executable, '-c', code], cwd=ROOT, stdout=subprocess.DEVNULL,
       stderr=subprocess.DEVNULL)

@@ -19,6 +19,14 @@ no JAX. Cases:
              table, the fetch pipeline), batch_size 4 per process: the
              global batch size and the loss of two train steps; and
              whether an agent under torch.shardmap has a latent table.
+  sharded    tests/test_torch_sharded.py: for each of `placements`, a
+             family's agent on a mesh that loads a whole store: its
+             slices, coordinate, placements, store bytes and, with
+             `flops`, its FLOP count; and the same under torch.shardmap.
+             For each of `steps`, a step as in `step` on its mesh, with
+             the collectives the step and the policy calls made, the
+             store bytes between calls, the grouped save, and the
+             outputs of the policy copy on one observation and noise.
 """
 
 import importlib
@@ -108,6 +116,89 @@ def case_multihost(inputs, port):
               shardmap_table=shardmap._latents is not None)
 
 
+COLLECTIVES = ('all_reduce', 'all_gather', 'broadcast',
+               'all_gather_into_tensor', 'reduce_scatter_tensor')
+
+
+def counting(counts):
+  """torch.distributed's collectives replaced by ones that count their
+  calls into `counts` ({name: calls}); returns a function that puts the
+  originals back."""
+  import torch.distributed as dist
+  originals = {name: getattr(dist, name) for name in COLLECTIVES}
+
+  def wrap(name):
+    def fn(*args, **kw):
+      counts[name] = counts.get(name, 0) + 1
+      return originals[name](*args, **kw)
+    return fn
+  for name in COLLECTIVES:
+    setattr(dist, name, wrap(name))
+  return lambda: [setattr(dist, k, v) for k, v in originals.items()]
+
+
+def host(tensors):
+  return {k: v.detach().numpy().copy() for k, v in tensors.items()}
+
+
+def case_sharded(inputs, port):
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.tools.dryrun_multidevice import RankDraws, rows
+  coordinator = ['--torch.coordinator_address', f'localhost:{port}']
+  out = {'placements': [], 'steps': {}}
+  for run in inputs['placements']:
+    argv = run['argv'] + ['--torch.mesh', run['spec']] + coordinator
+    agent, _ = make(run['family'], argv)
+    agent.load({'store': run['store']})
+    other, _ = make(run['family'], argv + ['--torch.shardmap', 'True'])
+    count = lambda a: a.train_cost()['flops'] if run['flops'] else None
+    out['placements'].append(dict(
+        family=run['family'], spec=run['spec'], coords=agent.mesh.coords,
+        local=host(nn.store(agent.model)), shardings=agent.shardings,
+        bytes=agent.store_bytes(), flops=count(agent),
+        shardmap=dict(shardings=other.shardings, bytes=other.store_bytes(),
+                      flops=count(other))))
+  for run in inputs['steps']:
+    argv = run['argv'] + [
+        '--batch_size', str(run['local']), '--torch.mesh', run['mesh'],
+        *coordinator]
+    agent, _ = make('dreamerv3', argv)
+    agent.load({'store': run['store']})
+    index = agent.mesh.data_index
+    draws = RankDraws(run['recorded'], index, agent.nbatch)
+    agent._draws = lambda kind, salt: draws
+    counts = {}
+    restore = counting(counts)
+    try:
+      _, outs, mets = agent.train(
+          agent.init_train(run['local']),
+          rows(run['batch'], index, run['local']))
+    finally:
+      restore()
+    assert draws.used_all(), (draws.calls, len(draws.recorded))
+    got = dict(
+        mets=mets, outs=outs, store=host(nn.store(agent.model)),
+        step_collectives=counts, bytes=agent.store_bytes(),
+        data_index=index, coords=agent.mesh.coords,
+        save=agent.save(chunk_bytes=run['chunk_bytes'])['store'])
+    counts = {}
+    restore = counting(counts)
+    try:
+      gen = torch.Generator().manual_seed(5)
+      obs = {k: torch.as_tensor(v) for k, v in run['obs'].items()}
+      count = len(obs['is_first'])
+      with torch.inference_mode():
+        _, act, pouts = agent._policy_model().policy(
+            agent.init_policy(count), obs, 'train', gen)
+      agent.policy(agent.init_policy(count), run['obs'])
+    finally:
+      restore()
+    got.update(policy_collectives=counts, act=host(act),
+               policy_outs=host(pouts))
+    out['steps'][run['label']] = got
+  return out
+
+
 def main():
   case, rank, world, port, folder = sys.argv[1:]
   os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
@@ -115,7 +206,8 @@ def main():
   share_cores(int(world))
   with open(os.path.join(folder, 'inputs.pkl'), 'rb') as f:
     inputs = pickle.load(f)
-  out = {'step': case_step, 'multihost': case_multihost}[case](inputs, port)
+  out = {'step': case_step, 'multihost': case_multihost,
+         'sharded': case_sharded}[case](inputs, port)
   with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
     pickle.dump(out, f)
   shutdown()
