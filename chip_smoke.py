@@ -153,6 +153,27 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            child interpreter (this script with --deterministic),
            torch.deterministic at size1m: two train steps from one store
            and batch equal bit for bit, and a step on the latent table.
+  encoder_modes
+           the Encoder and Decoder's other modes at the default RSSM
+           widths on dummy_disc, each set by the JAX package's config keys
+           (s2d 0, mults [2,3,4,4]): `strided` (stride-2 convolutions,
+           transposed ones in the decoder, bspace 0; tokens 4,096 wide)
+           and `outer` (the pooled stack with its first layer unpooled;
+           tokens 16,384 wide): the parameter count and token width, 10
+           policy calls (kernel 3, the last against the plain path) and 3
+           train steps (kernels 5, 6 and 8, the first step's losses
+           against kernel: off), ms per train step and peak MB.
+  nn_modules
+           a Transformer (4 layers, units 1024, 16 heads, 4 key-value
+           heads, causal) at B 8 and T 1024 in bf16: forward and
+           forward+backward ms, its output and gradients on 2 rows against
+           the same module in float32 on the CPU; StackedLayers of one
+           block against the blocks unrolled, bit for bit; run.pretrain
+           at the default configuration on a data.BagSampler over a bag
+           written from a short dummy_disc run's replay, 20 s and then
+           resumed from its checkpoint, the sampler's stream continued
+           exactly (train steps, frames/s); ring attention on two NCCL
+           ranks where the machine has two cards, else `ring_ranks: 1`.
 
 The phases slice, train, modes, default, ppo, director and distributed
 run the host path (HOST_PATH: torch.latent_slots 0, fetch_depth 0), on
@@ -3742,6 +3763,445 @@ def phase_diagnostics(torch):
   return {k: launches[k] for k in ('obs_step',) + TRAIN_KERNELS}
 
 
+# The Encoder and Decoder's other modes at the default RSSM widths, each
+# set by the JAX package's own config keys alone (configs.yaml enc.simple
+# and dec.simple): (label, argv, the image's token width). s2d 0 and mults
+# [2,3,4,4] give the upstream DreamerV3 conv stacks on 64 x 64 images: the
+# strided one (stride-2 convolutions, transposed ones in the decoder,
+# whose grid comes from one `space` Linear under bspace 0) down to 4 x 4 x
+# 256, and the pooled one whose first layer is unpooled (`outer`) down to
+# 8 x 8 x 256, with the block-space projection (bspace 8). dummy_disc's
+# vector keys add the MLP's 1024 to the token.
+def mode_flags(*flags):
+  return [arg for part in ('enc', 'dec') for key, value in (
+      ('s2d', '0'), ('mults', '[2,3,4,4]')) + flags
+      for arg in (f'--agent.{part}.simple.{key}', value)]
+
+
+ENCODER_MODES = (
+    ('strided', DEFAULT_ARGV + mode_flags(('strided', 'True')) + [
+        '--agent.dec.simple.bspace', '0'], 4096),
+    ('outer', DEFAULT_ARGV + mode_flags(('outer', 'True')), 16384),
+)
+MODE_CALLS = 10  # policy calls of ENVS envs on each variant
+MODE_TRAIN_STEPS = 3
+
+
+def phase_encoder_modes(torch, modes=ENCODER_MODES):
+  """Each variant of ENCODER_MODES at the default RSSM widths (deter 8192,
+  hidden 1024, 32 x 64 stoch) on the host path with dummy_disc's 64 x 64
+  images, through make_agent: its parameter count and token width; then,
+  with the launch counts set to 0 before and read after, MODE_CALLS
+  policy calls of ENVS envs (kernel 3 once each, the last batch held
+  against the plain path on the card), and MODE_TRAIN_STEPS Agent.train
+  steps on a batch that the policy collected (kernels 5, 6 and 8 once
+  each, the first step's losses against kernel: off with check_losses,
+  every trained parameter changed by the last): ms per train step and
+  peak MB.
+  Returns each variant's launches of kernels 3, 5, 6 and 8."""
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  wrappers = train_wrappers()
+  out = {}
+  for label, argv, width in modes:
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    agent, stats, last = drive(argv, MODE_CALLS, ('train',))
+    calls = {k: w.launches for k, w in wrappers.items()}
+    errs, same = check_against_plain(torch, agent, last)
+    model = agent.model
+    row = dict(
+        phase='encoder_modes', mode=label, argv=argv,
+        params=sum(p.numel() for p in model.parameters()),
+        token_width=model.enc.token_dim, launches_policy=calls,
+        ms_per_policy_call=statistics.median(stats['policy_ms'][1:]),
+        plain_max_abs_err={k: e for k, (e, _) in errs.items()},
+        sample_agreement=same)
+    problems = []
+    image = model.enc.token_dim - (
+        model.enc.mlp_layers[-1][0].units if model.enc.veckeys else 0)
+    row['image_token_width'] = image
+    if image != width or not model.dyn._obs_seq_eligible():
+      problems.append(f'image token width {image}, not {width} on the '
+                      f'kernels')
+    if calls['obs_step'] != MODE_CALLS or stats['bad_actions'] or (
+        stats['nonfinite']):
+      problems.append(f'policy calls: {calls}, {stats}')
+    if not all(ok for _, ok in errs.values()):
+      problems.append(f'kernel path disagrees with the plain path: {errs}')
+    config = common.assemble_config(dmain.CONFIGS, argv + HOST_PATH + NO_COUNT)
+    data, _ = collect_batch(agent, config)
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+    floor = config.agent.dyn.rssm.free_nats
+    _, trained, bad = train_steps(
+        torch, agent, data, wrappers, 0, MODE_TRAIN_STEPS,
+        {k: 1 for k in TRAIN_KERNELS}, plain=plain_train, trained=TRAINED,
+        at_floor=lambda row: row['first_losses']['loss/dyn'] <= floor)
+    problems += bad
+    steps = {k: w.launches for k, w in wrappers.items()}
+    row.update(
+        launches_train=steps, ms_per_train_step=trained['ms_per_train_step'],
+        first_step_ms=trained['first_step_ms'],
+        train_frames_per_s=trained['train_frames_per_s'],
+        peak_mem_mb=trained['peak_mem_mb'],
+        losses_kernel_vs_plain=trained.get('losses_kernel_vs_plain'),
+        ok=not problems)
+    emit(**row)
+    if problems:
+      fail('encoder_modes', '; '.join(problems))
+    out[label] = dict(obs_step=calls['obs_step'],
+                      **{k: steps[k] for k in TRAIN_KERNELS})
+    del agent, model, data, last
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+# The nn modules that no model uses, on the card: a Transformer of
+# NN_LAYERS pre-norm blocks (units 1024, 16 heads, 4 key-value heads,
+# GLU feedforward) under a causal mask at B 8 and T 1024 in bf16, timed;
+# its output and gradients at NN_CHECK_ROWS rows against the same module
+# in float32 on the CPU (relative errors in norm: bf16 rounds every
+# product and activation, some 2^-8 each, and four residual blocks add
+# them up); StackedLayers of one block against the blocks unrolled on the
+# same slices; then run.pretrain at the default configuration.
+NN_LAYERS, NN_UNITS, NN_HEADS, NN_KV = 4, 1024, 16, 4
+NN_BATCH, NN_T = 8, 1024
+NN_CHECK_ROWS = 2
+NN_OUT_RTOL = 3e-2
+NN_GRAD_RTOL = 6e-2
+PRETRAIN_STEPS = 80  # env steps of each of ENVS envs that fill the bag
+PRETRAIN_BUDGET = (20, 8)  # seconds of the first run and of the resumed one
+PRETRAIN_SAVE_EVERY = 10  # one save inside the first run's budget
+
+
+def relnorm(torch, got, want):
+  got, want = got.float().cpu(), want.float().cpu()
+  return float(torch.linalg.vector_norm(got - want) /
+               torch.linalg.vector_norm(want).clamp(min=1e-30))
+
+
+def nn_module(torch, make, dtype, seed=SEED):
+  """`make(cdtype)`, a module of the port, under its scope with weights
+  drawn from `seed` (the same values in any dtype)."""
+  from embodied_tpu_torch import nn
+  module = make(dtype)
+  root = torch.nn.Module()
+  root.add_module(module.name, module)
+  nn.init_params(root, seed)
+  return module
+
+
+def transformer_check(torch):
+  """The Transformer on the card, timed, against float32 on the CPU;
+  StackedLayers against the unrolled blocks. Returns the row's fields and
+  the problems."""
+  from embodied_tpu_torch import nn
+  make = lambda layers, name: lambda dtype: nn.Transformer(
+      layers, NN_UNITS, NN_HEADS, name, kvheads=NN_KV, causal=True,
+      cdtype=dtype)
+  card = nn_module(torch, make(NN_LAYERS, 'tf'), torch.bfloat16).to(DEV)
+  gen = torch.Generator().manual_seed(SEED + 7)
+  x = torch.randn((NN_BATCH, NN_T, NN_UNITS), generator=gen)
+  w = torch.randn((NN_BATCH, NN_T, NN_UNITS), generator=gen)
+  mask = torch.tril(torch.ones((NN_T, NN_T), dtype=torch.bool))
+  xd, wd, maskd = x.to(DEV), w.to(DEV), mask.to(DEV)
+  loss = lambda module, x, w, mask: (
+      module(x, mask).float() * w).sum() / w.numel()
+
+  def forward():
+    with torch.no_grad():
+      card(xd, maskd)
+
+  def forward_backward():
+    card.zero_grad(set_to_none=True)
+    loss(card, xd, wd, maskd).backward()
+  torch.cuda.reset_peak_memory_stats()
+  fields = dict(
+      transformer=dict(layers=NN_LAYERS, units=NN_UNITS, heads=NN_HEADS,
+                       kvheads=NN_KV, batch=NN_BATCH, T=NN_T, dtype='bf16',
+                       params=sum(p.numel() for p in card.parameters())),
+      forward_ms=cuda_ms(torch, forward, warmup=3, iters=10),
+      forward_backward_ms=cuda_ms(torch, forward_backward, warmup=3,
+                                  iters=10),
+      peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+  rows = slice(0, NN_CHECK_ROWS)
+  card.zero_grad(set_to_none=True)
+  got = loss(card, xd[rows], wd[rows], maskd)
+  got.backward()
+  with torch.no_grad():
+    out = card(xd[rows], maskd)
+  cpu = nn_module(torch, make(NN_LAYERS, 'tf'), torch.float32)
+  want = loss(cpu, x[rows], w[rows], mask)
+  want.backward()
+  with torch.no_grad():
+    want_out = cpu(x[rows], mask)
+  reference = dict(cpu.named_parameters())
+  grads = {k: relnorm(torch, p.grad, reference[k].grad)
+           for k, p in card.named_parameters()}
+  worst = max(grads, key=grads.get)
+  fields.update(
+      check_rows=NN_CHECK_ROWS, out_rtol=NN_OUT_RTOL, grad_rtol=NN_GRAD_RTOL,
+      out_relerr=relnorm(torch, out, want_out),
+      grad_relerr_max=grads[worst], grad_relerr_worst=worst)
+  problems = []
+  if not (fields['out_relerr'] <= NN_OUT_RTOL):
+    problems.append(f'transformer output off by {fields["out_relerr"]}')
+  if not (grads[worst] <= NN_GRAD_RTOL):
+    problems.append(f'transformer gradients off: {grads}')
+  del card, cpu, reference
+  # One block stacked NN_LAYERS times against the blocks unrolled (no mask:
+  # a stacked layer takes x alone).
+  stack = nn_module(torch, lambda dtype: nn.StackedLayers(
+      make(1, 'block')(dtype), NN_LAYERS, 'stack'), torch.bfloat16).to(DEV)
+  block = make(1, 'block')(torch.bfloat16).to(DEV)
+  slices = dict(stack.layer.named_parameters())
+  with torch.no_grad():
+    got = stack(xd[rows])
+    want = xd[rows]
+    for i in range(NN_LAYERS):
+      for name, param in block.named_parameters():
+        param.copy_(slices[name][i])
+      want = block(want)
+  fields['stacked'] = dict(
+      layers=NN_LAYERS, shapes=tuple(slices['attn0.q.kernel'].shape),
+      max_abs_err=float((got.float() - want.float()).abs().max()))
+  if fields['stacked']['max_abs_err'] != 0:
+    problems.append(f'stacked layers off the unrolled ones: '
+                    f'{fields["stacked"]}')
+  return fields, problems
+
+
+def bag_from_replay(torch, folder):
+  """A short dummy_disc run of the default configuration on the host path
+  fills a replay, whose chunks BagWriter writes to `folder`/bag, each
+  record with `consec` 0 (each window starts fresh from its stored
+  latents). The latent table stays off: its latents live on the device,
+  and a bag's records carry the latents themselves. Returns the agent,
+  its config and the bag's row."""
+  import numpy as np
+  from embodied_tpu_torch import core, data
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  config = common.assemble_config(dmain.CONFIGS, DEFAULT_ARGV + HOST_PATH + [
+      '--torch.precompile', 'False', '--logdir', f'{folder}/run',
+      '--run.save_every', str(PRETRAIN_SAVE_EVERY), '--run.log_every', '5',
+      '--run.report_every', str(10 ** 9)])
+  agent = dmain.make_agent(config)
+  replay = common.make_replay(config, f'{folder}/replay')
+  driver = core.Driver(
+      [lambda i=i: common.make_env(config, i) for i in range(ENVS)],
+      parallel=False)
+  driver.on_step(replay.add)
+  driver.reset(agent.init_policy)
+  driver(agent.policy, steps=ENVS * PRETRAIN_STEPS)
+  driver.close()
+  writer = data.BagWriter(f'{folder}/bag', shard_size=512)
+  records = 0
+  for lane in sorted(replay.lanes):
+    for index in sorted(replay.lanes[lane]):
+      segment = replay.lanes[lane][index]
+      for i in range(segment.count):
+        writer.append({**{k: v[i] for k, v in segment.cols.items()},
+                       'consec': np.int32(0)})
+        records += 1
+  writer.close()
+  bag = data.Bag(f'{folder}/bag')
+  keys = set(agent._example_batch(1, 1))
+  return agent, config, dict(
+      records=records, shards=len(bag.files), keys=sorted(bag.spaces),
+      missing=sorted(keys - set(bag.spaces)))
+
+
+def pretrain_check(torch):
+  """run.pretrain at the default configuration (on the host path) on a
+  data.BagSampler over a bag written from a replay (bag_from_replay),
+  through PRETRAIN_BUDGET[0] seconds, then resumed from its checkpoint for
+  PRETRAIN_BUDGET[1]: train steps and frames/s of each run, and the
+  sampler's stream against one sampler of the same seed drawn alone: the
+  first run's draws are its first ones, and the resumed run's continue
+  it from the draw its checkpoint saved. Returns the row's fields and the
+  problems."""
+  import shutil
+  from embodied_tpu_torch import data, run
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.utils import Config
+  folder = os.path.join(ROOT, 'build', 'chip_smoke_pretrain')
+  shutil.rmtree(folder, ignore_errors=True)
+  agent, config, fields = bag_from_replay(torch, folder)
+  problems = []
+  if fields['missing']:
+    problems.append(f'the bag lacks the train keys {fields["missing"]}')
+  B, T = config.batch_size, config.batch_length + config.replay_context
+
+  class Sampler(data.BagSampler):
+    """Logs each draw: the generator's state before it, and the stepids
+    of its windows' first records; and each load, with the state loaded
+    (a prefetch that began before the load drew before it, and its
+    batches are dropped)."""
+
+    def __init__(self, log, *args, **kw):
+      super().__init__(*args, **kw)
+      self.log = log
+
+    def __next__(self):
+      state = json.dumps(self.rng.bit_generator.state)
+      batch = super().__next__()
+      self.log.append((state, batch['stepid'][:, 0].tobytes()))
+      return batch
+
+    def load(self, state):
+      self.log.append(('load', state['rng']))
+      super().load(state)
+
+  logs = []
+
+  def make_stream(_, mode):
+    log = []
+    if mode == 'train':
+      logs.append(log)
+      return Sampler(log, f'{folder}/bag', B, T, seed=SEED)
+    length = config.report_length + config.replay_context
+    return Sampler(log, f'{folder}/bag', B, length, seed=SEED + 1)
+
+  fields['runs'] = []
+  for budget in PRETRAIN_BUDGET:
+    args = Config(
+        **{**dict(config.run), 'duration': budget}, replica=0, replicas=1,
+        logdir=config.logdir, batch_size=B,
+        batch_length=config.batch_length, report_length=config.report_length,
+        consec_train=config.consec_train, consec_report=config.consec_report,
+        replay_context=config.replay_context)
+    before = agent._counters['train']
+    start = time.perf_counter()
+    run.pretrain(lambda: agent, make_stream,
+                 lambda: common.make_logger(config), args)
+    wall = time.perf_counter() - start
+    steps = agent._counters['train'] - before
+    fields['runs'].append(dict(
+        budget_s=budget, wall_s=wall, train_steps=steps,
+        frames_per_s=steps * B * config.batch_length / budget,
+        draws=len(logs[-1])))
+  reference = Sampler([], f'{folder}/bag', B, T, seed=SEED)
+  for _ in range(sum(len(log) for log in logs) + 4):
+    next(reference)
+  first, resumed = logs
+  states = [state for state, _ in reference.log]
+  loads = [i for i, (kind, _) in enumerate(resumed) if kind == 'load']
+  loaded = resumed[loads[-1]][1] if loads else None
+  at = states.index(loaded) if loaded in states else None
+  resumed = resumed[loads[-1] + 1:] if loads else resumed
+  fields['stream'] = dict(first_draws=len(first), loads=len(loads),
+                          resumed_at=at, resumed_draws=len(resumed))
+  if first != reference.log[:len(first)]:
+    problems.append('the first run drew off the seeded stream')
+  if at is None or not 0 < at <= len(first) or not resumed or (
+      resumed != reference.log[at:at + len(resumed)]):
+    problems.append(f'the resumed run does not continue the stream: '
+                    f'{fields["stream"]}')
+  if not all(r['train_steps'] for r in fields['runs']):
+    problems.append(f'a run trained no step: {fields["runs"]}')
+  del agent
+  shutil.rmtree(folder, ignore_errors=True)
+  return fields, problems
+
+
+RING_SHAPE = (2, 2048, 16, 64)  # B, T (over all ranks), H, D
+RING_TOL = 2e-2  # bf16 against bf16: the block order rounds differently
+
+
+def ring_check(torch, world, backend='nccl', device='cuda'):
+  """Ring attention on `world` ranks (spawned processes; NCCL on one card
+  each, or gloo on the CPU), causal and full, in bf16 on the card (float32
+  on the CPU), against full_attention on the same global q, k and v on
+  each rank. Returns (row, problems)."""
+  import multiprocessing
+  import pickle
+  import shutil
+  import tempfile
+  folder = tempfile.mkdtemp(prefix='smoke_ring_')
+  port = free_port()
+  context = multiprocessing.get_context('spawn')
+  procs = [context.Process(target=ring_rank_main,
+                           args=(r, world, port, folder, backend, device))
+           for r in range(world)]
+  for proc in procs:
+    proc.start()
+  for proc in procs:
+    proc.join(300)
+  for proc in procs:
+    if proc.is_alive():
+      proc.kill()
+      proc.join()
+  codes = [p.exitcode for p in procs]
+  if any(codes):
+    shutil.rmtree(folder, ignore_errors=True)
+    return None, [f'ring ranks exited with {codes}']
+  got = []
+  for r in range(world):
+    with open(os.path.join(folder, f'rank{r}.pkl'), 'rb') as f:
+      got.append(pickle.load(f))
+  shutil.rmtree(folder, ignore_errors=True)
+  row = dict(ring_ranks=world, backend=backend, shape=RING_SHAPE,
+             tol=RING_TOL, max_abs_err={
+                 k: max(g[k] for g in got) for k in got[0]})
+  bad = {k: e for k, e in row['max_abs_err'].items() if not e <= RING_TOL}
+  return row, [f'ring attention off full attention: {bad}'] if bad else []
+
+
+def ring_rank_main(rank, world, port, folder, backend, device):
+  """One rank of ring_check (a spawned process)."""
+  import pickle
+  import torch
+  import torch.distributed as dist
+  from embodied_tpu_torch.ops import ring_attention as ra
+  device = torch.device(device, rank) if device == 'cuda' else (
+      torch.device(device))
+  if device.type == 'cuda':
+    torch.cuda.set_device(device)
+  dist.init_process_group(backend, init_method=f'tcp://localhost:{port}',
+                          rank=rank, world_size=world)
+  dtype = torch.bfloat16 if device.type == 'cuda' else torch.float32
+  gen = torch.Generator().manual_seed(SEED + 8)
+  q, k, v = (torch.randn(RING_SHAPE, generator=gen).to(device, dtype)
+             for _ in range(3))
+  out = {}
+  for causal in (False, True):
+    got = ra.ring_attention_sharded(q, k, v, causal=causal)
+    want = ra.full_attention(q, k, v, causal=causal)
+    out[f'causal={causal}'] = float((got.float() - want.float()).abs().max())
+  with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
+    pickle.dump(out, f)
+  dist.barrier()
+  dist.destroy_process_group()
+
+
+def phase_nn_modules(torch):
+  """The nn modules and the dataset reader on the card: transformer_check
+  and pretrain_check; ring attention (ring_check) only where two or more
+  cards are, on two NCCL ranks, else `ring_ranks: 1`."""
+  row = dict(phase='nn_modules')
+  fields, problems = transformer_check(torch)
+  row.update(fields)
+  gc.collect()
+  torch.cuda.empty_cache()
+  fields, bad = pretrain_check(torch)
+  row.update(pretrain=fields)
+  problems += bad
+  if torch.cuda.device_count() < 2:
+    row['ring_ranks'] = 1
+  else:
+    row['ring'], bad = ring_check(torch, 2)
+    problems += bad
+  row['ok'] = not problems
+  emit(**row)
+  if problems:
+    fail('nn_modules', '; '.join(problems))
+  gc.collect()
+  torch.cuda.empty_cache()
+
+
 def main():
   try:
     import torch
@@ -3801,6 +4261,12 @@ def main():
   # The default configuration's diagnostics: kernels 5, 6 and 8 in the
   # train steps of the profiler window, kernel 3 in the policy calls.
   diagnostics = timed(phase_diagnostics, torch)
+  # The Encoder and Decoder's strided and outer modes at the default RSSM
+  # widths: kernel 3 in their policy calls, kernels 5, 6 and 8 in their
+  # train steps. Then the nn modules that no model uses, and run.pretrain
+  # on the dataset reader.
+  encoder_modes = timed(phase_encoder_modes, torch)
+  timed(phase_nn_modules, torch)
   kernels = []
   for row in rows:
     # The list holds each kernel once: at the default configuration's dims
@@ -3832,6 +4298,9 @@ def main():
       kernels[-1]['sharded_launches'] = sharded[name]
     if name in diagnostics:
       kernels[-1]['diagnostics_launches'] = diagnostics[name]
+    if name in encoder_modes[ENCODER_MODES[0][0]]:
+      kernels[-1]['encoder_modes_launches'] = {
+          label: counts[name] for label, counts in encoder_modes.items()}
   if sorted(k['name'] for k in kernels) != sorted(SOURCES):
     fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
   emit(phase='timing', ok=True, phase_seconds=PHASES['seconds'])

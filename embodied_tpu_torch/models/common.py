@@ -75,12 +75,12 @@ def run_script(config, make_agent_fn):
   print('Run script:', config.script)
   if config.script == 'pretrain':
     # The JAX package hands run.pretrain make_stream, which needs a replay
-    # that pretrain never gives it; the source of offline batches is the
-    # dataset reader (data/bag.py), which the port does not have yet.
+    # that pretrain never gives it, and its configs name no dataset.
     # run.pretrain itself runs on a stream the caller gives.
     raise NotImplementedError(
-        'Script pretrain needs the dataset reader (data/bag.py), which is '
-        'not ported yet; call run.pretrain with a stream of batches.')
+        'Script pretrain from main has no source of offline batches; call '
+        'run.pretrain with a make_stream that returns a data.BagSampler '
+        '(data/bag.py) over a directory of BagWriter shards.')
   if not config.script.endswith(('_env', '_replay')):
     logdir.mkdir()
     config.save(logdir / 'config.yaml')

@@ -481,10 +481,11 @@ class RSSM(nn.Module):
 
 
 class Encoder(nn.Module):
-  """CNN + MLP encoder; `token_dim` is the width of its output. Each conv
-  layer is a stride-1 SAME convolution followed by a 2x2 max pool; the
-  JAX encoder's `outer` and `strided` modes, which no preset sets, are not
-  ported."""
+  """CNN + MLP encoder; `token_dim` is the width of its output. By default
+  each conv layer is a stride-1 SAME convolution followed by a 2x2 max
+  pool; `strided` makes each a stride-2 convolution with no pool, and
+  `outer` keeps the first layer at full resolution (stride 1, no pool).
+  `s2d` folds pixel patches into channels first and takes neither mode."""
 
   def __init__(
       self, obs_space, name='enc', units=1024, norm='rms', act='gelu',
@@ -496,10 +497,9 @@ class Encoder(nn.Module):
     self.veckeys = [k for k, s in obs_space.items() if len(s.shape) <= 2]
     self.imgkeys = [k for k, s in obs_space.items() if len(s.shape) == 3]
     self.depths = tuple(depth * m for m in mults)
-    if outer or strided:
-      raise NotImplementedError('The outer and strided encoder modes')
     self.s2d = int(s2d)
     if self.s2d:
+      assert not outer and not strided, 's2d replaces the outer/strided modes'
       for k in self.imgkeys:
         res = obs_space[k].shape[:-1]
         assert all(r % self.s2d == 0 for r in res), (res, self.s2d)
@@ -523,12 +523,17 @@ class Encoder(nn.Module):
       res = shape[0] // max(1, self.s2d)
       din = sum(obs_space[k].shape[-1] for k in self.imgkeys)
       din *= max(1, self.s2d) ** 2
-      self.convs = []
+      self.convs = []  # (conv, norm, whether a max pool follows the conv)
       for i, d in enumerate(self.depths):
+        full = outer and i == 0
+        stride = 2 if strided and not full else 1
         self.convs.append((
-            self.child(nn.Conv2D(din, d, kernel, f'cnn{i}', **kw)),
-            self.child(nn.Norm(norm, f'cnn{i}norm', d, cdtype=cdtype))))
-        res //= 2
+            self.child(nn.Conv2D(din, d, kernel, f'cnn{i}', stride=stride,
+                                 **kw)),
+            self.child(nn.Norm(norm, f'cnn{i}norm', d, cdtype=cdtype)),
+            not strided and not full))
+        if not full:
+          res = -(-res // 2) if strided else res // 2
         din = d
       assert 3 <= res <= 16, res
       self.token_dim += res * res * din
@@ -564,8 +569,9 @@ class Encoder(nn.Module):
       x = x.reshape((-1, *x.shape[bdims:]))
       if self.s2d:
         x = space_to_depth(x, self.s2d)
-      for conv, norm in self.convs:
-        x = self.actfn(norm(max_pool(conv(x))))
+      for conv, norm, pool in self.convs:
+        x = conv(x)
+        x = self.actfn(norm(max_pool(x) if pool else x))
       assert 3 <= x.shape[-3] <= 16, x.shape
       outs.append(x.reshape((x.shape[0], -1)))
     x = torch.cat(outs, -1)
@@ -574,14 +580,18 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-  """CNN + MLP decoder, as the JAX Decoder with its defaults: the vector
-  keys through an MLP and a DictHead (categorical for discrete spaces,
-  symlog_mse or mse for the rest); the image keys from a block-space
-  projection (`bspace` groups of deter through a BlockLinear into the conv
-  grid, plus the stoch through two dense layers), 2x nearest-neighbour
-  upsampling before each stride-1 convolution, and `s2d` depth-to-space at
-  the end. The `outer` and `strided` modes, which no preset sets, and
-  `bspace: 0` are not ported."""
+  """CNN + MLP decoder, as the JAX Decoder: the vector keys through an MLP
+  and a DictHead (categorical for discrete spaces, symlog_mse or mse for
+  the rest); the image keys from a block-space projection (`bspace` groups
+  of deter through a BlockLinear into the conv grid, plus the stoch
+  through two dense layers), or with `bspace: 0` from one Linear
+  (`space`) of the stoch and deter concatenated; then by default 2x
+  nearest-neighbour upsampling before each stride-1 convolution and
+  before `imgout`, and `s2d` depth-to-space at the end. `strided` makes
+  each convolution a stride-2 transposed one with no upsampling, `outer`
+  leaves the last doubling out (`imgout` a stride-1 convolution on the
+  full grid), so the grid starts 2^(len(depths) - outer) times smaller
+  than the image."""
 
   def __init__(
       self, obs_space, name='dec', feat_dims=None, units=1024, norm='rms',
@@ -589,8 +599,6 @@ class Decoder(nn.Module):
       kernel=5, symlog=True, bspace=8, outer=False, strided=False, s2d=0,
       cdtype=nn.COMPUTE_DTYPE, **kw):
     super().__init__(name, cdtype)
-    if outer or strided or not bspace:
-      raise NotImplementedError('The outer, strided and bspace: 0 modes')
     deter, stochflat = feat_dims
     self.obs_space = obs_space
     self.veckeys = [k for k, s in obs_space.items() if len(s.shape) <= 2]
@@ -598,7 +606,11 @@ class Decoder(nn.Module):
     self.depths = tuple(depth * m for m in mults)
     self.imgdep = sum(obs_space[k].shape[-1] for k in self.imgkeys)
     self.bspace = bspace
+    self.outer = outer
+    self.strided = strided
     self.s2d = int(s2d)
+    assert not self.s2d or not (outer or strided), (
+        's2d replaces the outer/strided modes')
     self.actfn = nn.act(act)
     kw = dict(kw, cdtype=cdtype)
     if self.veckeys:
@@ -612,27 +624,32 @@ class Decoder(nn.Module):
                              outscale=outscale, **kw)
     if self.imgkeys:
       imgres = obs_space[self.imgkeys[0]].shape[:-1]
-      factor = 2 ** len(self.depths) * max(1, self.s2d)
+      factor = 2 ** (len(self.depths) - int(bool(outer))) * max(1, self.s2d)
       self.minres = [int(x // factor) for x in imgres]
       assert 3 <= self.minres[0] <= 16, (self.minres, imgres)
       shape = (*self.minres, self.depths[-1])
       self.space_shape = shape
-      u = math.prod(shape)
-      self.sp0 = nn.BlockLinear(deter, u, bspace, 'sp0', **kw)
-      self.sp1 = nn.Linear(stochflat, 2 * units, 'sp1', **kw)
-      self.sp1norm = nn.Norm(norm, 'sp1norm', 2 * units, cdtype=cdtype)
-      self.sp2 = nn.Linear(2 * units, shape, 'sp2', **kw)
-      self.spnorm = nn.Norm(norm, 'spnorm', shape[-1], cdtype=cdtype)
+      if bspace:
+        u = math.prod(shape)
+        self.sp0 = nn.BlockLinear(deter, u, bspace, 'sp0', **kw)
+        self.sp1 = nn.Linear(stochflat, 2 * units, 'sp1', **kw)
+        self.sp1norm = nn.Norm(norm, 'sp1norm', 2 * units, cdtype=cdtype)
+        self.sp2 = nn.Linear(2 * units, shape, 'sp2', **kw)
+        self.spnorm = nn.Norm(norm, 'spnorm', shape[-1], cdtype=cdtype)
+      else:
+        self.space = nn.Linear(stochflat + deter, shape, 'space', **kw)
+        self.spacenorm = nn.Norm(norm, 'spacenorm', shape[-1], cdtype=cdtype)
+      up = dict(stride=2, transp=True) if strided else {}
       self.deconvs = []
       din = shape[-1]
       for i, d in reversed(list(enumerate(self.depths[:-1]))):
         self.deconvs.append((
-            self.child(nn.Conv2D(din, d, kernel, f'conv{i}', **kw)),
+            self.child(nn.Conv2D(din, d, kernel, f'conv{i}', **up, **kw)),
             self.child(nn.Norm(norm, f'conv{i}norm', d, cdtype=cdtype))))
         din = d
       outdep = self.imgdep * max(1, self.s2d) ** 2
       self.imgout = nn.Conv2D(din, outdep, kernel, 'imgout',
-                              outscale=outscale, **kw)
+                              outscale=outscale, **({} if outer else up), **kw)
 
   @property
   def entry_space(self):
@@ -657,17 +674,23 @@ class Decoder(nn.Module):
       x = self.mlp(torch.cat([stoch, deter], -1))
       recons.update(self.vec(x.reshape((*bshape, *x.shape[1:]))))
     if self.imgkeys:
-      g = self.bspace
-      h, w = self.minres
-      c = self.space_shape[-1] // g
-      # (g h w c) -> (h, w, g * c)
-      x0 = self.sp0(deter).reshape((-1, g, h, w, c))
-      x0 = x0.permute(0, 2, 3, 1, 4).reshape((-1, h, w, g * c))
-      x1 = self.actfn(self.sp1norm(self.sp1(stoch)))
-      x = self.actfn(self.spnorm(x0 + self.sp2(x1)))
+      if self.bspace:
+        g = self.bspace
+        h, w = self.minres
+        c = self.space_shape[-1] // g
+        # (g h w c) -> (h, w, g * c)
+        x0 = self.sp0(deter).reshape((-1, g, h, w, c))
+        x0 = x0.permute(0, 2, 3, 1, 4).reshape((-1, h, w, g * c))
+        x1 = self.actfn(self.sp1norm(self.sp1(stoch)))
+        x = self.actfn(self.spnorm(x0 + self.sp2(x1)))
+      else:
+        x = self.actfn(self.spacenorm(self.space(
+            torch.cat([stoch, deter], -1))))
       for conv, norm in self.deconvs:
-        x = self.actfn(norm(conv(upsample(x))))
-      x = self.imgout(upsample(x))
+        x = self.actfn(norm(conv(x if self.strided else upsample(x))))
+      if not self.outer and not self.strided:
+        x = upsample(x)
+      x = self.imgout(x)
       if self.s2d:
         x = depth_to_space(x, self.s2d)
       x = torch.sigmoid(x)

@@ -47,6 +47,17 @@ def torch_dtype(dtype):
   return _NUMPY_DTYPES[np.dtype(dtype)]
 
 
+# Torch keeps '.' for its module scopes, so an entry whose JAX name holds a
+# '.' (the optimizer's per-parameter slots, 'rms.enc.cnn0.kernel') is
+# registered with NAME_DOT in its place; `store_path` puts it back.
+NAME_DOT = '\u00b7'
+
+
+def store_path(key):
+  """The store path of a `state_dict` key."""
+  return key.replace('.', '/').replace(NAME_DOT, '.')
+
+
 class Module(torch.nn.Module):
   """Base for layers. `name` is the module's scope in the JAX store."""
 
@@ -75,8 +86,9 @@ class Module(torch.nn.Module):
 
   def state(self, name, shape, init, dtype=torch.float32):
     """Create a buffer filled with `init`: state kept in the store but not
-    trained (`p.state` in JAX)."""
+    trained (`p.state` in JAX). `name` may hold '.' (NAME_DOT)."""
     shape = tuple(int(x) for x in shape)
+    name = name.replace('.', NAME_DOT)
     self.register_buffer(name, torch.full(shape, init, dtype=dtype))
     return getattr(self, name)
 
@@ -109,13 +121,13 @@ def init_params(root, seed):
 
 def store(root):
   """The module tree as a flat JAX-style store {path: tensor}."""
-  return {k.replace('.', '/'): v for k, v in root.state_dict().items()}
+  return {store_path(k): v for k, v in root.state_dict().items()}
 
 
 def entries(root):
   """The module tree's parameters and buffers themselves (not detached
   views) by store path."""
-  return {k.replace('.', '/'): v
+  return {store_path(k): v
           for k, v in root.state_dict(keep_vars=True).items()}
 
 
@@ -136,7 +148,7 @@ def load_store(root, values, strict=True):
   Every entry of the tree must be present, unless not `strict`: then the
   entries the store lacks keep their values."""
   params = dict(root.state_dict())
-  paths = {k.replace('.', '/'): k for k in params}
+  paths = {store_path(k): k for k in params}
   missing = sorted(set(paths) - set(values))
   if missing and strict:
     raise KeyError(f'Store lacks {len(missing)} entries: {missing[:5]}')

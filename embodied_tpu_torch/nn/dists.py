@@ -1,8 +1,10 @@
 """Output distributions with pred/sample/logp/entropy/kl/loss.
 
-Counterparts of embodied_tpu/nn/dists.py: MSE, Huber, Normal, Binary,
-Categorical, OneHot (straight-through samples), TwoHot (symexp bins, an
-exactly-zero prediction at uniform logits) and Agg. Categorical families
+Counterparts of embodied_tpu/nn/dists.py: the Pointwise regressions MSE and
+Huber, Normal, Binary, Categorical, OneHot (straight-through samples),
+TwoHot (symexp bins, an exactly-zero prediction at uniform logits), Agg,
+and the wrappers Frozen (no gradient through any result) and Concat
+(distributions side by side along an axis). Categorical families
 keep normalized log-probabilities (optionally mixed with the uniform
 distribution) as their parameter. Sampling takes an explicit
 `torch.Generator`, or the noise itself as a tensor (Gumbel noise for the
@@ -15,6 +17,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import core
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -42,9 +46,10 @@ class Dist:
     return -self.logp(target.detach())
 
 
-class MSE(Dist):
-  """Deterministic regression with a squared-error loss, the target
-  optionally squashed (symlog) first."""
+class Pointwise(Dist):
+  """Deterministic regression: the loss is a pointwise penalty of the
+  error against the target, the target optionally squashed (symlog)
+  first."""
 
   def __init__(self, mean, squash=None):
     self.mean = mean.float()
@@ -59,10 +64,16 @@ class MSE(Dist):
     return self._penalty(self.mean - target)
 
   def _penalty(self, err):
+    raise NotImplementedError
+
+
+class MSE(Pointwise):
+
+  def _penalty(self, err):
     return torch.square(err)
 
 
-class Huber(MSE):
+class Huber(Pointwise):
   """Regression with the Charbonnier (smooth Huber) penalty
   sqrt(err^2 + eps^2) - eps."""
 
@@ -72,6 +83,66 @@ class Huber(MSE):
 
   def _penalty(self, err):
     return torch.sqrt(torch.square(err) + self._eps ** 2) - self._eps
+
+
+class Frozen:
+  """Detaches every method result (and attribute) of the wrapped
+  distribution."""
+
+  def __init__(self, inner):
+    self._inner = inner
+
+  def __getattr__(self, name):
+    if name.startswith('__'):
+      raise AttributeError(name)
+    member = getattr(self._inner, name)
+    if not callable(member):
+      return _detach(member)
+    return lambda *args, **kwargs: _detach(member(*args, **kwargs))
+
+
+def _detach(tree):
+  return core.tree_map(
+      lambda x: x.detach() if isinstance(x, torch.Tensor) else x, tree)
+
+
+class Concat:
+  """Several distributions side by side along one event axis: a method
+  call slices its tensor arguments at the `midpoints` along `axis`, calls
+  each part on its slice and concatenates the results along `axis`."""
+
+  def __init__(self, outputs, midpoints, axis):
+    assert len(midpoints) + 1 == len(outputs), (len(outputs), len(midpoints))
+    self._parts = tuple(outputs)
+    self._edges = (None,) + tuple(midpoints) + (None,)
+    self._axis = axis
+
+  def _segment(self, i, tree):
+    index = (slice(None),) * self._axis + (
+        slice(self._edges[i], self._edges[i + 1]),)
+    return core.tree_map(
+        lambda x: x[index] if isinstance(x, torch.Tensor) else x, tree)
+
+  def __getattr__(self, name):
+    if name.startswith('__'):
+      raise AttributeError(name)
+    members = tuple(getattr(part, name) for part in self._parts)
+    def call(*args, **kwargs):
+      results = [
+          fn(*self._segment(i, args), **self._segment(i, kwargs))
+          for i, fn in enumerate(members)]
+      return _concat(results, self._axis)
+    return call
+
+
+def _concat(results, axis):
+  first = results[0]
+  if isinstance(first, dict):
+    return {k: _concat([r[k] for r in results], axis) for k in first}
+  if isinstance(first, (list, tuple)):
+    return type(first)(
+        _concat([r[i] for r in results], axis) for i in range(len(first)))
+  return torch.cat(results, axis)
 
 
 class Normal(Dist):

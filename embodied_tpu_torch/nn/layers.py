@@ -1,12 +1,15 @@
-"""Layers of the port: Linear, BlockLinear, Embed, Norm, Conv2D, DictConcat,
-DictEmbed, MLP, GRU.
+"""Layers of the port: Linear, BlockLinear, Embed, Norm, Conv2D, Conv3D,
+rope, Attention, DictConcat, DictEmbed, MLP, Transformer, GRU.
 
 Counterparts of embodied_tpu/nn/layers.py with the same parameter names,
 shapes and layouts: Linear kernels (in, out), BlockLinear kernels
-(groups, in/groups, out/groups), Conv2D kernels HWIO on NHWC inputs. Input
-widths are given at construction (JAX infers them at the first call).
-Matmuls run in the module's compute dtype on weights cast from float32.
+(groups, in/groups, out/groups), Conv2D kernels HWIO on NHWC inputs (HWOI
+when transposed), Conv3D kernels DHWIO on NDHWC inputs. Input widths are
+given at construction (JAX infers them at the first call). Matmuls run in
+the module's compute dtype on weights cast from float32.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -135,9 +138,71 @@ class Norm(Module):
     return y.to(dtype)
 
 
+def same_pads(sizes, kernel, stride):
+  """F.pad's list for TensorFlow-style SAME padding of the trailing
+  spatial dims `sizes`: the extra pixel of odd padding goes last."""
+  pads = []
+  for size in reversed(sizes):
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    pads += [total // 2, total - total // 2]
+  return pads
+
+
 class Conv2D(Module):
-  """NHWC convolution with an HWIO kernel and SAME padding. The kernel is
-  re-laid out to OIHW for F.conv2d inside the call."""
+  """NHWC convolution with SAME padding. The kernel is HWIO and re-laid
+  out to OIHW for F.conv2d inside the call. With `transp`, the kernel is
+  HWOI (K, K, depth, din) and the layer is JAX's
+  lax.conv_transpose(..., 'SAME', ('NHWC', 'HWOI', 'NHWC')): a correlation
+  of the unflipped kernel with the input dilated by `stride` and padded by
+  (a, b) = (ceil((K + s - 2) / 2), the rest) per dim (K - 1 before where
+  s > K - 1), giving `stride` times the input's size. It runs as
+  F.conv_transpose2d (the gradient of a convolution, which flips the
+  kernel) on the flipped kernel with padding K - 1 - a, and the output
+  cropped or padded at the end to that size."""
+
+  def __init__(self, din, depth, kernel, name, stride=1, transp=False,
+               bias=True, winit='trunc_normal_in', binit='zeros',
+               outscale=1.0, cdtype=core.COMPUTE_DTYPE):
+    super().__init__(name, cdtype)
+    self.depth = depth
+    self.ksize = kernel
+    self.stride = stride
+    self.transp = transp
+    self.use_bias = bias
+    shape = (depth, din) if transp else (din, depth)
+    self.param('kernel', (kernel, kernel, *shape), _winit(winit, outscale))
+    if bias:
+      self.param('bias', (depth,), _winit(binit))
+
+  def forward(self, x):
+    x = self.cast(x).permute(0, 3, 1, 2)
+    if self.transp:
+      y = self._transposed(x)
+    else:
+      x = F.pad(x, same_pads(x.shape[2:], self.ksize, self.stride))
+      w = self.cast(self.kernel).permute(3, 2, 0, 1)
+      y = F.conv2d(x, w, stride=self.stride)
+    y = y.permute(0, 2, 3, 1)
+    if self.use_bias:
+      y = y + self.cast(self.bias)
+    return y
+
+  def _transposed(self, x):
+    k, s = self.ksize, self.stride
+    before = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+    crop = k - 1 - before
+    size = (x.shape[2] - 1) * s + k - 2 * crop
+    extra = max(x.shape[2] * s - size, 0)
+    w = self.cast(self.kernel).permute(3, 2, 0, 1).flip(2, 3)
+    y = F.conv_transpose2d(x, w, stride=s, padding=crop,
+                           output_padding=extra)
+    return y[:, :, :x.shape[2] * s, :x.shape[3] * s]
+
+
+class Conv3D(Module):
+  """NDHWC convolution with a DHWIO kernel, SAME padding and a stride in
+  each of the three dims."""
 
   def __init__(self, din, depth, kernel, name, stride=1, bias=True,
                winit='trunc_normal_in', binit='zeros', outscale=1.0,
@@ -147,24 +212,110 @@ class Conv2D(Module):
     self.ksize = kernel
     self.stride = stride
     self.use_bias = bias
-    self.param('kernel', (kernel, kernel, din, depth), _winit(winit, outscale))
+    self.param('kernel', (kernel, kernel, kernel, din, depth),
+               _winit(winit, outscale))
     if bias:
       self.param('bias', (depth,), _winit(binit))
 
   def forward(self, x):
-    x = self.cast(x).permute(0, 3, 1, 2)
-    # TensorFlow-style SAME: the extra pixel of odd padding goes last.
-    pads = []
-    for size in reversed(x.shape[2:]):
-      out = -(-size // self.stride)
-      total = max((out - 1) * self.stride + self.ksize - size, 0)
-      pads += [total // 2, total - total // 2]
-    x = F.pad(x, pads)
-    w = self.cast(self.kernel).permute(3, 2, 0, 1)
-    y = F.conv2d(x, w, stride=self.stride).permute(0, 2, 3, 1)
+    x = self.cast(x).permute(0, 4, 1, 2, 3)
+    x = F.pad(x, same_pads(x.shape[2:], self.ksize, self.stride))
+    w = self.cast(self.kernel).permute(4, 3, 0, 1, 2)
+    y = F.conv3d(x, w, stride=self.stride).permute(0, 2, 3, 4, 1)
     if self.use_bias:
       y = y + self.cast(self.bias)
     return y
+
+
+def rope(x, positions, maxlen=10000):
+  """Rotary position embedding over the last axis, computed in float32:
+  the halves (x1, x2) turn by angles positions * maxlen^(-2i/D)."""
+  D = x.shape[-1]
+  assert D % 2 == 0, D
+  freqs = torch.exp(-math.log(maxlen) * torch.arange(
+      0, D, 2, dtype=torch.float32, device=x.device) / D)
+  angles = positions[..., None].float() * freqs
+  sin, cos = torch.sin(angles), torch.cos(angles)
+  x1, x2 = x.float().chunk(2, -1)
+  y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+  return y.to(x.dtype)
+
+
+class Attention(Module):
+  """Multi-head attention with grouped queries (`kvheads` key and value
+  heads), RoPE over positions and qk-norm (an rms Norm without scale over
+  each head's D). The logits come out of the product in the compute dtype,
+  are divided by sqrt(D), then masked (-1e30 where `mask` is False) and
+  softmaxed in float32, and the weights cast to the input's dtype, as the
+  JAX layer rounds. Plain products, no fused attention kernel.
+
+  impl='ring' is sequence-parallel ring attention over the process group
+  `ring_group` (None: the default group): each rank holds T_local of the
+  sequence, its RoPE positions start at rank * T_local, and key and value
+  blocks rotate around the ranks (ops/ring_attention.py). Only a causal
+  or a full mask is taken there."""
+
+  def __init__(self, din, units, heads, name, kvheads=0, qknorm=True,
+               pos='rope', bias=False, winit='trunc_normal_in',
+               outscale=1.0, dropout=0.0, impl='dense', ring_group=None,
+               causal=False, cdtype=core.COMPUTE_DTYPE):
+    super().__init__(name, cdtype)
+    assert impl in ('dense', 'ring'), impl
+    assert units % heads == 0
+    self.impl = impl
+    self.ring_group = ring_group
+    self.causal = causal
+    self.units = units
+    self.heads = heads
+    self.kvheads = kvheads or heads
+    assert heads % self.kvheads == 0
+    self.qknorm = qknorm
+    self.pos = pos
+    kv = units // heads * self.kvheads
+    kw = dict(bias=bias, winit=winit, cdtype=cdtype)
+    self.q = Linear(din, units, 'q', **kw)
+    self.k = Linear(din, kv, 'k', **kw)
+    self.v = Linear(din, kv, 'v', **kw)
+    self.out = Linear(units, units, 'out', outscale=outscale, **kw)
+    self.qn = Norm('rms', 'qnorm', units // heads, scale=False, cdtype=cdtype)
+    self.kn = Norm('rms', 'knorm', units // heads, scale=False, cdtype=cdtype)
+
+  def forward(self, x, mask=None, positions=None):
+    B, T, _ = x.shape
+    D = self.units // self.heads
+    q = self.q(x).reshape((B, T, self.heads, D))
+    k = self.k(x).reshape((B, T, self.kvheads, D))
+    v = self.v(x).reshape((B, T, self.kvheads, D))
+    if self.qknorm:
+      q, k = self.qn(q), self.kn(k)
+    if self.pos == 'rope':
+      if positions is None:
+        offset = 0
+        if self.impl == 'ring':
+          # T is the rank's shard: offset it so rotary phases are global.
+          offset = torch.distributed.get_rank(self.ring_group) * T
+        positions = (offset + torch.arange(T, device=x.device))[None].expand(
+            B, T)
+      q = rope(q.transpose(1, 2), positions[:, None]).transpose(1, 2)
+      k = rope(k.transpose(1, 2), positions[:, None]).transpose(1, 2)
+    repeat = self.heads // self.kvheads
+    if repeat > 1:
+      k = k.repeat_interleave(repeat, 2)
+      v = v.repeat_interleave(repeat, 2)
+    if self.impl == 'ring':
+      assert mask is None, 'ring attention takes causal or full masks only'
+      from ..ops import ring_attention
+      y = ring_attention.ring_attention(
+          q, k, v, self.ring_group, causal=self.causal)
+      return self.out(y.reshape((B, T, self.units)))
+    logits = torch.einsum('bthd,bshd->bhts', q, k) / math.sqrt(D)
+    logits = logits.float()
+    if mask is not None:
+      logits = torch.where(mask, logits, -1e30)
+    weights = torch.softmax(logits, -1).to(x.dtype)
+    dtype = torch.promote_types(weights.dtype, v.dtype)
+    y = torch.einsum('bhts,bshd->bthd', weights.to(dtype), v.to(dtype))
+    return self.out(y.reshape((B, T, self.units)))
 
 
 def _flat_width(space):
@@ -251,6 +402,45 @@ class MLP(Module):
     for linear, norm in self.layers:
       x = self.act(norm(linear(x)))
     return x
+
+
+class Transformer(Module):
+  """Pre-norm transformer blocks with an optional GLU feedforward and a
+  final norm (`outnorm`); the width stays `units` throughout. The
+  attention-only options (impl, ring_group, causal, kvheads, qknorm, pos,
+  dropout) go to the Attention alone, the rest to every Linear."""
+
+  def __init__(self, layers, units, heads, name, ffmult=4, glu=True,
+               act='silu', norm='rms', cdtype=core.COMPUTE_DTYPE, **kw):
+    super().__init__(name, cdtype)
+    akw = {k: kw.pop(k) for k in (
+        'impl', 'ring_group', 'causal', 'kvheads', 'qknorm', 'pos',
+        'dropout') if k in kw}
+    kw = dict(kw, cdtype=cdtype)
+    child = self.child
+    self.blocks = []
+    for i in range(layers):
+      self.blocks.append((
+          child(Attention(units, units, heads, f'attn{i}', **kw, **akw)),
+          child(Norm(norm, f'norm{i}a', units, cdtype=cdtype)),
+          child(Norm(norm, f'norm{i}b', units, cdtype=cdtype)),
+          child(Linear(units, ffmult * units, f'ff{i}a', **kw)),
+          child(Linear(units, ffmult * units, f'ff{i}gate', **kw))
+          if glu else None,
+          child(Linear(ffmult * units, units, f'ff{i}b', **kw))))
+    self.outnorm = Norm(norm, 'outnorm', units, cdtype=cdtype)
+    self.act = core.act(act)
+    self.glu = glu
+
+  def forward(self, x, mask=None, positions=None):
+    for attn, n1, n2, ff1, ffg, ff2 in self.blocks:
+      x = x + attn(n1(x), mask, positions)
+      h = n2(x)
+      y = self.act(ff1(h))
+      if self.glu:
+        y = y * ffg(h)
+      x = x + ff2(y)
+    return self.outnorm(x)
 
 
 class GRU(Module):

@@ -1,11 +1,14 @@
 """Optimizer with adaptive gradient clipping, RMS scaling and momentum.
 
-Counterpart of embodied_tpu/nn/opt.py in its default (fused) layout: the
-two moments are flat float32 vectors, `opt/rms_flat` and `opt/mom_flat`,
-over the trained parameters in sorted path order, beside `opt/step`. The
-port keeps them as buffers in that layout, so a JAX checkpoint resumes with
-its moments. Per step, as JAX: AGC per parameter, the RMS and momentum
-updates with bias correction over the flat vectors, weight decay on paths
+Counterpart of embodied_tpu/nn/opt.py in both its slot layouts. In the
+default (fused) one the two moments are flat float32 vectors,
+`opt/rms_flat` and `opt/mom_flat`, over the trained parameters in sorted
+path order, beside `opt/step`. With `fused=False` each parameter has its
+own slots of its shape, `opt/rms.<path>` and `opt/mom.<path>` (the path's
+'/' as '.'), as in JAX. The port keeps them as buffers in the same layout,
+so a JAX checkpoint resumes with its moments. Per step, as JAX: AGC per
+parameter, the RMS and momentum updates with bias correction over the
+flat vectors or per parameter, weight decay on paths
 matching a regex, the warmup and const/linear/cosine schedules, and, when
 the compute dtype is float16, dynamic loss scaling that skips steps whose
 gradients overflow. Parameters are updated in place under no_grad, after
@@ -22,11 +25,16 @@ data group spans ('d','f') only: ranks along 't' compute the same rows
 and are never averaged with each other, which would divide their
 gradient twice.
 
+In both layouts the gradients cross the data group as that one flat
+buffer, which the per-parameter update then reads in slices.
+
 On a sharded store (parallel/agent.py) the update sees the full
-parameters, which the Agent gathers before the step: the moments stay
-replicated flat vectors, as in the JAX fused layout, every rank updates
-all of them and every parameter, and AGC's norms are taken on full
-tensors, as in JAX; the Agent then keeps each rank's slices.
+parameters, which the Agent gathers before the step: the flat moments stay
+replicated, as in the JAX fused layout, and the per-parameter slots take
+their parameter's placement (meshes.resolve_rules, as JAX's rules place
+them) and are gathered whole with it, so every rank updates whole slots
+and every parameter, and AGC's norms are taken on full tensors, as in
+JAX; the Agent then keeps each rank's slices.
 """
 
 import contextlib
@@ -88,6 +96,12 @@ def group_cat(x):
   return torch.cat(parts, 0)
 
 
+def _full(x, device):
+  """A float32 scalar on `device`: a fill, not a copy from the host, which
+  would wait for the card."""
+  return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def scope_params(root, scopes):
   """The trained parameters of `root` under the store scopes `scopes`
   (paths such as 'worker/actor'), as {path: parameter}: what the JAX
@@ -110,8 +124,8 @@ class Optimizer(core.Module):
       scaling=False, **unused):
     """`params` maps store paths to the trained parameters."""
     super().__init__(name)
-    assert fused, 'the port keeps the flat (fused) slot layout only'
     assert params, 'no trainable parameters'
+    self.fused = fused
     # Plain references: the model registers the parameters.
     self.__dict__['params'] = dict(sorted(params.items()))
     self.lr = lr
@@ -128,14 +142,30 @@ class Optimizer(core.Module):
     self.anneal = anneal
     self.pmin = pmin
     self.scaling = scaling
-    total = sum(p.numel() for p in self.params.values())
     self.state('step', (), 0, torch.int32)
     if scaling:
       self.state('grad_scale', (), 1e4)
       self.state('good_steps', (), 0, torch.int32)
-    self.state('rms_flat', (total,), 0.0)
-    if momentum:
-      self.state('mom_flat', (total,), 0.0)
+    if fused:
+      total = sum(p.numel() for p in self.params.values())
+      self.state('rms_flat', (total,), 0.0)
+      if momentum:
+        self.state('mom_flat', (total,), 0.0)
+      return
+    for path, param in self.params.items():
+      self.state(self._slot('rms', path), param.shape, 0.0)
+      if momentum:
+        self.state(self._slot('mom', path), param.shape, 0.0)
+
+  @staticmethod
+  def _slot(kind, path):
+    """A parameter's slot name under JAX's per-parameter layout."""
+    return f'{kind}.{path.replace("/", ".")}'
+
+  def slot(self, kind, path):
+    """The `kind` ('rms' or 'mom') slot buffer of the parameter at `path`
+    (fused=False)."""
+    return getattr(self, self._slot(kind, path).replace('.', core.NAME_DOT))
 
   def forward(self, lossfn, *args, **kwargs):
     """Runs `lossfn(*args, **kwargs) -> (loss, aux)`, differentiates the
@@ -192,39 +222,59 @@ class Optimizer(core.Module):
         pnorm = torch.linalg.vector_norm(param)
         upper = self.agc * torch.clamp(pnorm, min=self.pmin)
         update.mul_(1 / torch.clamp(unorm / upper, min=1.0))
-    pvec = torch.cat([p.reshape(-1) for p in params])
-    # A fill, not a copy from the host, which would wait for the card.
-    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=vec.device)
-    self.rms_flat.copy_(
-        self.beta2 * self.rms_flat + (1 - self.beta2) * vec.square())
-    nu_hat = self.rms_flat / (1 - f32(self.beta2) ** (step + 1))
-    vec = vec / (torch.sqrt(nu_hat) + self.eps)
-    if self.momentum:
-      self.mom_flat.copy_(self.beta1 * self.mom_flat + (1 - self.beta1) * vec)
-      mu = self.mom_flat
-      if self.nesterov:
-        mu = self.beta1 * mu + (1 - self.beta1) * vec
-      vec = mu / (1 - f32(self.beta1) ** (step + 1))
-    if self.wd:
-      mask = torch.cat([
-          torch.full((p.numel(),), float(bool(self.wdpattern.search(k))),
-                     device=vec.device) for k, p in zip(paths, params)])
-      vec = vec + self.wd * mask * pvec
-    vec = -lr * vec
-    new = torch.where(finite, pvec + vec, pvec)
-    offset = 0
-    for param in params:
-      param.copy_(new[offset:offset + param.numel()].reshape(param.shape))
-      offset += param.numel()
+    if self.fused:
+      pvec = torch.cat([p.reshape(-1) for p in params])
+      vec = self._moments(
+          self.rms_flat, self.mom_flat if self.momentum else None, vec, step)
+      if self.wd:
+        mask = torch.cat([
+            torch.full((p.numel(),), float(bool(self.wdpattern.search(k))),
+                       device=vec.device) for k, p in zip(paths, params)])
+        vec = vec + self.wd * mask * pvec
+      vec = -lr * vec
+      new = torch.where(finite, pvec + vec, pvec)
+      offset = 0
+      for param in params:
+        param.copy_(new[offset:offset + param.numel()].reshape(param.shape))
+        offset += param.numel()
+      usq, psq = vec.square().sum(), pvec.square().sum()
+    else:
+      usq = psq = 0.0
+      offset = 0
+      for path, param in zip(paths, params):
+        update = vec[offset:offset + param.numel()].reshape(param.shape)
+        offset += param.numel()
+        update = self._moments(
+            self.slot('rms', path),
+            self.slot('mom', path) if self.momentum else None, update, step)
+        if self.wd and self.wdpattern.search(path):
+          update = update + self.wd * param
+        update = -lr * update
+        usq = usq + update.square().sum()
+        psq = psq + param.square().sum()
+        param.copy_(torch.where(finite, param + update, param))
     self.step.add_(finite.int())
-    count = pvec.numel()
+    count = vec.numel()
     metrics.update(
         loss=loss, updates=step + 1, grad_norm=torch.sqrt(gsq),
         grad_rms=torch.sqrt(gsq / count),
-        update_rms=torch.sqrt(vec.square().sum() / count),
-        param_rms=torch.sqrt(pvec.square().sum() / count),
-        param_count=f32(count), lr=lr)
+        update_rms=torch.sqrt(usq / count),
+        param_rms=torch.sqrt(psq / count),
+        param_count=_full(count, vec.device), lr=lr)
     return metrics
+
+  def _moments(self, nu, mu, update, step):
+    """The RMS moment `nu` and the momentum `mu` (or None) updated in place
+    from `update`, and the update they give, bias-corrected."""
+    nu.copy_(self.beta2 * nu + (1 - self.beta2) * update.square())
+    nu_hat = nu / (1 - _full(self.beta2, nu.device) ** (step + 1))
+    update = update / (torch.sqrt(nu_hat) + self.eps)
+    if mu is None:
+      return update
+    mu.copy_(self.beta1 * mu + (1 - self.beta1) * update)
+    if self.nesterov:
+      mu = self.beta1 * mu + (1 - self.beta1) * update
+    return mu / (1 - _full(self.beta1, nu.device) ** (step + 1))
 
   def _lr(self, step):
     lr = self.lr

@@ -309,7 +309,7 @@ class Agent(corelib.Agent):
     pattern = re.compile(self.model.policy_keys)
     tensors = dict(self.model.named_parameters())
     tensors.update(self.model.named_buffers())
-    copied = {k for k in tensors if pattern.search(k.replace('.', '/'))}
+    copied = {k for k in tensors if pattern.search(nn.core.store_path(k))}
     memo = {id(v): v for k, v in tensors.items() if k not in copied}
     self._policy_copy = copy.deepcopy(self.model, memo)
     mine = dict(self._policy_copy.named_parameters())

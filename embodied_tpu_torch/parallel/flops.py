@@ -28,6 +28,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from ..nn.core import store_path
+
 META = torch.device('meta')
 
 
@@ -64,7 +66,7 @@ def meta_copy(module, shapes=None):
   memo = {}
   named = itertools.chain(module.named_parameters(), module.named_buffers())
   for name, value in named:
-    shape = shapes.get(name.replace('.', '/'), value.shape)
+    shape = shapes.get(store_path(name), value.shape)
     meta = torch.empty(shape, dtype=value.dtype, device=META)
     if isinstance(value, torch.nn.Parameter):
       meta = torch.nn.Parameter(meta, requires_grad=value.requires_grad)

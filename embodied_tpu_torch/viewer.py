@@ -215,13 +215,14 @@ def render_profile(byrun, limit=8):
     polys = svg_stack(layers)
     body = ''.join(
         f'<polygon points="{pts}" fill="{_COLORS[j % len(_COLORS)]}" '
-        f'fill-opacity="0.7" stroke="none"><title>{name}</title></polygon>'
+        f'fill-opacity="0.7" stroke="none"><title>{html.escape(name)}</title>'
+        f'</polygon>'
         for j, (name, pts) in enumerate(polys))
     legend = ''.join(
-        f'<span style="color:{_COLORS[j % len(_COLORS)]}">{name} '
+        f'<span style="color:{_COLORS[j % len(_COLORS)]}">{html.escape(name)} '
         f'{100 * prof[name][1][-1]:.0f}%</span>'
         for j, name in enumerate(order[:limit]))
-    run = os.path.basename(rundir) or rundir
+    run = html.escape(os.path.basename(rundir) or rundir)
     charts.append(
         f'<div class="chart"><h4>profile · {run}</h4>'
         f'<svg width="560" height="120">{body}</svg>'
@@ -339,7 +340,7 @@ def render_trace(rundir, window_us=50000.0, toplanes=6, minfrac=1e-3):
     y = 14 + li * LH
     parts.append(
         f'<text x="2" y="{y + 12}" font-size="9" fill="#555">'
-        f'{lane.split("/")[-1][:28]}</text>')
+        f'{html.escape(lane.split("/")[-1][:28])}</text>')
     for name, start, dur in evs:
       x = (start - t0) / window_us * W
       w = dur / window_us * W
@@ -354,7 +355,7 @@ def render_trace(rundir, window_us=50000.0, toplanes=6, minfrac=1e-3):
   svg = (f'<svg width="{W}" height="{H}" '
          f'style="background:#fff;border:1px solid #ddd">'
          + ''.join(parts) + '</svg>')
-  src = os.path.relpath(paths[-1], rundir)
+  src = html.escape(os.path.relpath(paths[-1], rundir))
   return (f'<h4>trace · {src} · first {window_us / 1e3:.0f} ms</h4>'
           f'{svg}<div style="margin-top:8px">{table}</div>')
 
@@ -365,7 +366,7 @@ def render_trace_page(root):
   for rundir in runs:
     if not find_trace_files(rundir):
       continue
-    run = os.path.basename(rundir) or rundir
+    run = html.escape(os.path.basename(rundir) or rundir)
     sections.append(f'<div class="chart"><h4>{run}</h4>'
                     f'{render_trace(rundir)}</div>')
   if not sections:
@@ -406,7 +407,7 @@ def render_page(root, pattern):
                  if not k.startswith('timer/') and re.search(pattern, k)})
   legend = ''.join(
       f'<span style="color:{_COLORS[i % len(_COLORS)]}">'
-      f'{os.path.basename(r) or r}</span>'
+      f'{html.escape(os.path.basename(r) or r)}</span>'
       for i, (r, _) in enumerate(byrun))
   charts = []
   for key in keys:
@@ -422,11 +423,11 @@ def render_page(root, pattern):
           f'stroke="{color}" stroke-width="1.5"/>')
       latest = f'{ys[-1]:.4g}'
     charts.append(
-        f'<div class="chart"><h4>{key} · {latest}</h4>'
+        f'<div class="chart"><h4>{html.escape(key)} · {latest}</h4>'
         f'<svg width="560" height="120">{"".join(paths)}</svg></div>')
   charts.extend(render_profile(byrun))
   return _PAGE.format(
-      filter=pattern, nruns=len(runs), legend=legend,
+      filter=html.escape(pattern), nruns=len(runs), legend=legend,
       charts=''.join(charts))
 
 

@@ -18,6 +18,12 @@ stage also on int8 weights with column scales, kernel 9's products), and
 the window's backward, the int8 window and the 128-row stage are run
 twice for bit-equal results.
 
+The layers that no preset uses run on the card against the same module
+on the CPU: the transposed convolution and Attention (bf16 on the card
+against float32 on the CPU, the same weights); and one train step of
+size12m in each of the Encoder and Decoder's strided and outer modes, on
+the kernels.
+
 The Agent's data path runs on the card too: `agent.stream`'s pinned
 copies on the agent's copy stream (a train step on them gives what the
 numpy batch gives), the fetch pipeline's pinned copies behind an event,
@@ -34,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from embodied_tpu_torch import core
+from embodied_tpu_torch import core, nn
 from embodied_tpu_torch.models import common
 from embodied_tpu_torch.models.dreamerv3 import main
 from embodied_tpu_torch.ops import (
@@ -702,3 +708,79 @@ def test_train_step_on_the_defaults_never_waits_for_the_card(card):
   finally:
     torch.cuda.set_sync_debug_mode('default')
   assert all(np.isfinite(v) for v in mets.values())
+
+
+def card_and_cpu(card, make):
+  """`make(cdtype)` twice with the same weights: bf16 on the card and
+  float32 on the CPU."""
+  modules = []
+  for dtype in (torch.bfloat16, torch.float32):
+    module = make(dtype)
+    root = torch.nn.Module()
+    root.add_module(module.name, module)
+    nn.init_params(root, 0)
+    modules.append(module)
+  return modules[0].to(card), modules[1]
+
+
+def relnorm(got, want):
+  got, want = got.detach().float().cpu(), want.detach().float()
+  return float(torch.linalg.vector_norm(got - want) /
+               torch.linalg.vector_norm(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', [3, 5])
+def test_transposed_conv_on_the_card(card, kernel):
+  """Conv2D(transp=True), stride 2, in bf16 on the card against float32 on
+  the CPU: relative error in norm under 1e-2 (bf16 operands)."""
+  on_card, on_cpu = card_and_cpu(card, lambda dtype: nn.Conv2D(
+      32, 16, kernel, 'up', stride=2, transp=True, cdtype=dtype))
+  x = torch.randn((4, 8, 8, 32), generator=torch.Generator().manual_seed(1))
+  got = on_card(x.to(card))
+  assert got.shape == (4, 16, 16, 16) and got.dtype == torch.bfloat16
+  assert relnorm(got, on_cpu(x)) < 1e-2
+
+
+@pytest.mark.cuda
+def test_attention_on_the_card(card):
+  """Attention with grouped queries and a causal mask, bf16 on the card
+  against float32 on the CPU (relative error in norm under 2e-2: the
+  logits round to bf16 before the softmax, as in the JAX layer)."""
+  on_card, on_cpu = card_and_cpu(card, lambda dtype: nn.Attention(
+      256, 256, 8, 'attn', kvheads=2, cdtype=dtype))
+  x = torch.randn((2, 128, 256), generator=torch.Generator().manual_seed(2))
+  mask = torch.tril(torch.ones((128, 128), dtype=torch.bool))
+  got = on_card(x.to(card), mask.to(card))
+  assert relnorm(got, on_cpu(x, mask)) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('flags', [
+    ['strided', 'True', '--agent.dec.simple.bspace', '0'],
+    ['outer', 'True']], ids=['strided', 'outer'])
+def test_encoder_modes_train_on_the_kernels(card, flags):
+  """size12m in the Encoder and Decoder's strided (bspace 0) and outer
+  modes at s2d 0 and mults [2,3,4,4]: one train step with finite metrics,
+  on the window and rollout kernels."""
+  key, value, *rest = flags
+  argv = ['--configs', 'size12m', '--task', 'dummy_disc',
+          '--batch_size', '4', '--batch_length', '8',
+          '--torch.latent_slots', '0', '--torch.fetch_depth', '0',
+          '--torch.precompile', 'False'] + rest
+  for part in ('enc', 'dec'):
+    argv += [f'--agent.{part}.simple.s2d', '0',
+             f'--agent.{part}.simple.mults', '[2,3,4,4]',
+             f'--agent.{part}.simple.{key}', value]
+  config = common.assemble_config(main.CONFIGS, argv)
+  agent = main.make_agent(config)
+  assert agent.model.dyn._obs_seq_eligible()
+  wrappers = (observe_seq.observe_seq, observe_seq.observe_seq_bwd,
+              imagine_seq.imagine_seq)
+  before = [w.launches for w in wrappers]
+  data = batch(agent, config)
+  data['is_first'][:, 0] = True
+  _, _, mets = agent.train(agent.init_train(config.batch_size), data)
+  torch.cuda.synchronize()
+  assert all(np.isfinite(v) for v in mets.values())
+  assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]

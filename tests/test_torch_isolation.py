@@ -52,6 +52,25 @@ def module_names():
   return names
 
 
+def test_the_scans_cover_every_module_of_the_jax_package():
+  """Each module of the JAX package has its counterpart in the port, and
+  the import and AST scans below take each one (data/, nn/stacked.py and
+  ops/ring_attention.py among them)."""
+  jax_package = ROOT / 'embodied_tpu'
+  ported = {p.relative_to(PACKAGE) for p in PACKAGE.rglob('*.py')}
+  missing = sorted(str(p.relative_to(jax_package))
+                   for p in jax_package.rglob('*.py')
+                   if p.relative_to(jax_package) not in ported)
+  assert not missing, missing
+  names = module_names()
+  for name in ('embodied_tpu_torch.data', 'embodied_tpu_torch.data.bag',
+               'embodied_tpu_torch.nn.stacked',
+               'embodied_tpu_torch.ops.ring_attention'):
+    assert name in names, name
+  assert {PACKAGE / 'data' / 'bag.py',
+          PACKAGE / 'ops' / 'ring_attention.py'} <= set(sources())
+
+
 def test_importing_the_port_loads_no_jax():
   script = (
       'import importlib, sys\n'

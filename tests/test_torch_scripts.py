@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from embodied_tpu_torch import core, remote, run
+from embodied_tpu_torch import core, data, remote, run
 from embodied_tpu_torch.core import clock, streams
 from embodied_tpu_torch.envs import Dummy
 from embodied_tpu_torch.models import common
@@ -190,6 +190,67 @@ def test_pretrain_trains_and_resumes(tmp_path):
   assert stats['saves'] >= 1
   run.pretrain(make_model, _pretrain_stream(4, 8), _make_logger, args(120))
   assert agents[-1].stats()['loads'] == 1
+
+
+class _BagAgent(utils.TestAgent):
+  """The counting agent on random windows (which need not continue each
+  other), its batches prefetched as the port's Agent prefetches them."""
+
+  __test__ = False
+
+  def train(self, carry, data):
+    self.counters['replay_steps'] += data['count'].size
+    return carry, {}, {}
+
+  def stream(self, source):
+    return streams.Prefetch(source, amount=2)
+
+
+def test_pretrain_on_a_bag_sampler_continues_its_stream(tmp_path):
+  """run.pretrain on data.BagSampler windows over BagWriter shards: a
+  save after every step, then a resumed run whose sampler draws on from
+  the saved state, as one sampler of the same seed draws alone."""
+  writer = data.BagWriter(tmp_path / 'bag', shard_size=16)
+  batch = next(iter(_pretrain_stream(1, 40)(None, 'train')))
+  for i in range(40):
+    writer.append({k: v[0, i] for k, v in batch.items()})
+  writer.close()
+  drawn = []
+
+  class Sampler(data.BagSampler):
+
+    def __next__(self):
+      out = super().__next__()
+      drawn.append(out['count'][:, 0].tolist())
+      return out
+
+    def load(self, state):
+      drawn.append('load')
+      super().load(state)
+
+  def make_stream(_, mode):
+    if mode == 'train':
+      return Sampler(tmp_path / 'bag', 4, 8, seed=1)
+    return data.BagSampler(tmp_path / 'bag', 4, 4, seed=2)
+
+  def args(steps):
+    return Config(
+        steps=steps, batch_size=4, batch_length=8, log_every=-1,
+        report_every=0, save_every=-1, consec_report=1, report_batches=1,
+        replica=0, from_checkpoint='', logdir=str(tmp_path / 'run'),
+        duration=0, usage={'psutil': False})
+  env = _make_env(0)
+  agent = lambda: _BagAgent(env.obs_space, env.act_space)
+  run.pretrain(agent, make_stream, _make_logger, args(12))
+  first = list(drawn)
+  del drawn[:]
+  run.pretrain(agent, make_stream, _make_logger, args(20))
+  reference = data.BagSampler(tmp_path / 'bag', 4, 8, seed=1)
+  want = [next(reference)['count'][:, 0].tolist() for _ in range(40)]
+  assert 12 <= len(first) <= 15 and first == want[:len(first)]
+  # The prefetch began before the load; what it drew then is dropped.
+  resumed = drawn[drawn.index('load') + 1:]
+  assert len(resumed) >= 8 and resumed == want[12:12 + len(resumed)]
 
 
 def test_global_clock_is_local_for_one_replica(monkeypatch):

@@ -317,9 +317,36 @@ def test_slice_losses_and_grads_match_jax(jax_recorded, kernel, extra):
 
 
 def test_slice_train_step_matches_jax(jax_recorded):
-  rec = jax_recorded
-  jm = jax_model(SIZE)
-  agent = port_agent(SIZE)
+  train_step_against_jax(jax_recorded, SIZE)
+
+
+# The Encoder and Decoder's other modes at s2d 0 and mults (2, 3, 4, 4):
+# the strided stack with the decoder's `space` Linear (bspace 0), and the
+# outer (pooled) stack with the block-space projection.
+def enc_dec(*flags):
+  return [arg for part in ('enc', 'dec') for flag in flags + (
+      ('s2d', '0'), ('mults', '[2,3,4,4]')) for arg in (
+          f'--agent.{part}.simple.{flag[0]}', flag[1])]
+
+
+ENCODER_MODES = {
+    'strided bspace 0': enc_dec(('strided', 'True')) + [
+        '--agent.dec.simple.bspace', '0'],
+    'outer': enc_dec(('outer', 'True')),
+}
+
+
+@pytest.mark.parametrize('mode', list(ENCODER_MODES))
+def test_encoder_modes_train_step_matches_jax(jax_recorded, mode):
+  train_step_against_jax(jax_recorded, SIZE + ENCODER_MODES[mode])
+
+
+def train_step_against_jax(rec, argv):
+  """One train step of the JAX Model and of the port's from one store,
+  batch and noise: metrics, the store after the step and the replay
+  entries."""
+  jm = jax_model(argv)
+  agent = port_agent(argv)
   data = make_batch(agent, 8)
   store, meta = jax_store(jm, data, rec)
   rec.start(9)

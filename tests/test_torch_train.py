@@ -119,6 +119,50 @@ def test_onehot_straight_through_kl_and_entropy():
   close(agg.entropy(), jone.entropy(), 'entropy')
 
 
+def test_frozen_and_concat_match_jax():
+  """Frozen gives the inner values with no gradient; Concat slices its
+  arguments at the midpoints along the axis and concatenates the parts'
+  results, as the JAX wrappers do."""
+  rng = np.random.default_rng(4)
+  mean = rng.standard_normal((3, 7)).astype(np.float32)
+  std = np.exp(0.3 * rng.standard_normal((3, 7))).astype(np.float32)
+  value = rng.standard_normal((3, 7)).astype(np.float32)
+  x = t(mean).requires_grad_()
+  frozen = dists.Frozen(dists.Normal(x, t(std)))
+  jfrozen = jdists.Frozen(jdists.Normal(jnp.asarray(mean), jnp.asarray(std)))
+  for name in ('logp', 'loss'):
+    got = getattr(frozen, name)(t(value))
+    assert not got.requires_grad, name
+    close(got, getattr(jfrozen, name)(jnp.asarray(value)), name)
+  close(frozen.entropy(), jfrozen.entropy(), 'entropy')
+  assert not frozen.mean.requires_grad
+  assert dists.Normal(x, t(std)).logp(t(value)).requires_grad
+  parts = [dists.MSE(t(mean[:, :2])), dists.Huber(t(mean[:, 2:5]), eps=0.5),
+           dists.Normal(t(mean[:, 5:]), t(std[:, 5:]))]
+  jparts = [jdists.MSE(jnp.asarray(mean[:, :2])),
+            jdists.Huber(jnp.asarray(mean[:, 2:5]), eps=0.5),
+            jdists.Normal(jnp.asarray(mean[:, 5:]), jnp.asarray(std[:, 5:]))]
+  concat = dists.Concat(parts, [2, 5], 1)
+  jconcat = jdists.Concat(jparts, [2, 5], 1)
+  close(concat.pred(), jconcat.pred(), 'pred')
+  close(concat.loss(t(value)), jconcat.loss(jnp.asarray(value)), 'loss')
+  close(concat.loss(target=t(value)),
+        jconcat.loss(target=jnp.asarray(value)), 'keyword loss')
+
+
+def test_pointwise_losses_unchanged():
+  """MSE and Huber on the Pointwise base: bit for bit the squared error and
+  the Charbonnier penalty, the target squashed first."""
+  rng = np.random.default_rng(5)
+  mean, target = t(rng.standard_normal((4, 3))), t(rng.standard_normal(
+      (4, 3)))
+  assert isinstance(dists.Huber(mean), dists.Pointwise)
+  assert torch.equal(dists.MSE(mean, squash=nn.symlog).loss(target),
+                     torch.square(mean - nn.symlog(target)))
+  assert torch.equal(dists.Huber(mean, eps=0.5).loss(target), torch.sqrt(
+      torch.square(mean - target) + 0.25) - 0.5)
+
+
 # --- Decoder -----------------------------------------------------------------
 
 
@@ -160,6 +204,75 @@ def test_decoder_losses_match_jax(jax_f32):
     got = dist.loss(target)
     assert tuple(got.shape) == (B, T), (key, got.shape)
     close(got, want[key], key, tol=1e-3 if key == 'image' else TOL)
+
+
+MODES = {
+    'outer': dict(outer=True),
+    'strided': dict(strided=True),
+    'outer strided': dict(outer=True, strided=True),
+    'bspace 0': dict(bspace=0),
+    'strided bspace 0': dict(strided=True, bspace=0),
+}
+
+
+@pytest.mark.parametrize('mode', list(MODES))
+def test_encoder_and_decoder_modes_match_jax(jax_f32, mode):
+  """The Encoder's tokens and the Decoder's losses in the JAX modules'
+  other modes, at s2d 0 and mults (2, 3, 4, 4) on 64 x 64 images: the
+  strided stack (no pools, transposed deconvs), the outer stack (the first
+  layer at full resolution, imgout a stride-1 conv) and both, and the
+  decoder's `space` Linear of stoch and deter (bspace 0)."""
+  kw = MODES[mode]
+  rng = np.random.default_rng(3)
+  spaces = dict(image=(np.uint8, (64, 64, 3)), vector=(np.float32, (7,)))
+  common = dict(units=16, depth=4, mults=(2, 3, 4, 4), layers=1, s2d=0,
+                act='silu', norm='rms', outer=kw.get('outer', False),
+                strided=kw.get('strided', False))
+  deter, stoch, classes = 64, 4, 4
+  feat = dict(deter=rng.standard_normal((B, T, deter)).astype(np.float32),
+              stoch=np.eye(classes, dtype=np.float32)[
+                  rng.integers(0, classes, (B, T, stoch))])
+  obs = dict(image=rng.integers(0, 256, (B, T, 64, 64, 3)).astype(np.uint8),
+             vector=rng.standard_normal((B, T, 7)).astype(np.float32))
+  reset = np.zeros((B, T), bool)
+  jspaces = {k: JSpace(*v) for k, v in spaces.items()}
+  jenc = jrssm.Encoder(jspaces, 'enc', **common)
+  jdec = jrssm.Decoder(jspaces, 'dec', bspace=kw.get('bspace', 8), **common)
+
+  def fn(ctx, feat, obs):
+    _, _, tokens = jenc(ctx, {}, obs, reset, True)
+    _, _, recons = jdec(ctx, {}, feat, reset, True)
+    return tokens, {k: recons[k].loss(
+        obs[k].astype(jnp.float32) / 255 if k == 'image' else obs[k])
+        for k in recons}
+  store, meta = jnn.init(fn)(jax.random.PRNGKey(0), feat, obs)
+  _, (tokens, want) = jnn.pure(fn, meta)(
+      store, jax.random.PRNGKey(0), feat, obs)
+  pspaces = {k: Space(*v) for k, v in spaces.items()}
+  enc = rssm.Encoder(pspaces, 'enc', cdtype=torch.float32, **common)
+  dec = rssm.Decoder(pspaces, 'dec', feat_dims=(deter, stoch * classes),
+                     bspace=kw.get('bspace', 8), cdtype=torch.float32,
+                     **common)
+  grid = 8 if common['outer'] else 4
+  assert enc.token_dim == tokens.shape[-1] == 16 + grid * grid * 16
+  assert dec.minres == [grid, grid]
+  if 'bspace' in kw:
+    assert store['dec/space/kernel'].shape == (
+        stoch * classes + deter, grid * grid * 16)
+  root = torch.nn.Module()
+  root.add_module('enc', enc)
+  root.add_module('dec', dec)
+  assert not nn.load_store(root, convert.from_jax(store))
+  tobs = {k: torch.tensor(v) for k, v in obs.items()}
+  _, _, got = enc({}, tobs, torch.tensor(reset), True)
+  close(got, tokens, 'tokens')
+  _, _, recons = dec({}, {k: t(v) for k, v in feat.items()},
+                     torch.tensor(reset), True)
+  assert sorted(recons) == sorted(want)
+  for key, dist in recons.items():
+    target = tobs[key].float() / 255 if key == 'image' else tobs[key]
+    close(dist.loss(target), want[key], key,
+          tol=1e-3 if key == 'image' else TOL)
 
 
 def test_depth_to_space_inverts_space_to_depth():
@@ -299,7 +412,10 @@ OPT = dict(lr=1e-2, agc=0.3, eps=1e-20, beta1=0.9, beta2=0.999,
            warmup=2, anneal=6)
 
 
-def test_optimizer_steps_match_jax():
+def optimizer_steps(fused):
+  """Three updates of the port's Optimizer against the JAX one's on the
+  same parameters and gradients (the gradients growing tenfold a step, so
+  AGC clips the later ones): parameters, metrics and moments."""
   rng = np.random.default_rng(5)
   shapes = {'m/lin/kernel': (4, 3), 'm/lin/bias': (3,), 'm/norm/scale': (5,)}
   init = {k: rng.standard_normal(s).astype(np.float32)
@@ -317,12 +433,16 @@ def test_optimizer_steps_match_jax():
           sub = sub(part)
         total += (sub.param(name, shape, 0.0) * g[path]).sum()
       return total
-    return jnn.Optimizer(['m'], 'opt', **OPT)(ctx, lossfn)
+    return jnn.Optimizer(['m'], 'opt', fused=fused, **OPT)(ctx, lossfn)
   store, meta = jnn.init(fn)(jax.random.PRNGKey(0), grads[0])
   store.update({k: jnp.asarray(v) for k, v in init.items()})
 
   params = {k: torch.nn.Parameter(t(v)) for k, v in init.items()}
-  opt = nn.Optimizer(params, 'opt', **OPT)
+  opt = nn.Optimizer(params, 'opt', fused=fused, **OPT)
+  slots = {f'opt/{k}': v for k, v in nn.store(opt).items()}
+  assert sorted(slots) == sorted(k for k in store if k.startswith('opt/'))
+  for path, value in slots.items():
+    assert tuple(value.shape) == store[path].shape, path
   for g in grads:
     updates, want = jnn.pure(fn, meta)(store, jax.random.PRNGKey(0), g)
     store = {**store, **updates}
@@ -334,9 +454,25 @@ def test_optimizer_steps_match_jax():
       close(got[key], want[key], key)
     for path in shapes:
       close(params[path], store[path], path, tol=1e-6)
-    close(opt.rms_flat, store['opt/rms_flat'], 'rms_flat', tol=1e-6)
-    close(opt.mom_flat, store['opt/mom_flat'], 'mom_flat', tol=1e-6)
+    for path, value in nn.store(opt).items():
+      close(value, store[f'opt/{path}'], path, tol=1e-6)
     assert int(opt.step) == int(store['opt/step'])
+  return opt
+
+
+def test_optimizer_steps_match_jax():
+  opt = optimizer_steps(fused=True)
+  assert sorted(nn.store(opt)) == ['mom_flat', 'rms_flat', 'step']
+
+
+def test_perparam_optimizer_steps_match_jax():
+  """fused=False: each parameter's own slots, rms.<path> and mom.<path>
+  in the store as JAX names them, updated as JAX updates them."""
+  opt = optimizer_steps(fused=False)
+  assert sorted(nn.store(opt)) == [
+      'mom.m.lin.bias', 'mom.m.lin.kernel', 'mom.m.norm.scale',
+      'rms.m.lin.bias', 'rms.m.lin.kernel', 'rms.m.norm.scale', 'step']
+  assert opt.slot('rms', 'm/lin/kernel').shape == (4, 3)
 
 
 @pytest.mark.parametrize('op', ['core_step', 'obs_step'])

@@ -134,3 +134,34 @@ def test_server_answers_the_page_and_the_trace(logdir):
     server.server_close()
     thread.join(10)
   assert not thread.is_alive()
+
+
+def test_page_escapes_user_text(tmp_path):
+  """Run names, the filter, metric keys, profile and lane names and the
+  trace's path go into the page escaped (the JAX viewer puts them in
+  raw); plain names render as before (the parity cases above)."""
+  run = tmp_path / 'run<b>"x"'
+  step = Counter()
+  logger = Logger(step, [JSONLOutput(run, 'metrics.jsonl')])
+  for i in range(3):
+    step.increment(10)
+    logger.add({'loss/<i>"k"': float(i), 'timer/<s>"t"/frac': 0.5})
+    logger.write()
+  logger.close()
+  pattern = 'loss|"<q>"'
+  page = viewer.render_page(str(tmp_path), pattern)
+  for raw in ('<b>', '<i>', '<s>', '"<q>"', '"x"'):
+    assert raw not in page, raw
+  assert 'value="loss|&quot;&lt;q&gt;&quot;"' in page
+  assert 'run&lt;b&gt;&quot;x&quot;' in page
+  assert 'loss/&lt;i&gt;&quot;k&quot;' in page
+  assert '&lt;s&gt;&quot;t&quot;' in page
+  trace = run / 'profile<p>'
+  trace.mkdir()
+  with gzip.open(trace / 'h.pt.trace.json.gz', 'wt') as f:
+    json.dump({'traceEvents': [kernel('k', 1.0, 2.0, '<l>"7"')]}, f)
+  page = viewer.render_trace_page(str(tmp_path))
+  for raw in ('<b>', '<p>', '<l>', '"7"'):
+    assert raw not in page, raw
+  assert 'profile&lt;p&gt;/h.pt.trace.json.gz' in page
+  assert 'stream &lt;l&gt;&quot;7&quot;' in page

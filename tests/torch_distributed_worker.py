@@ -27,6 +27,12 @@ no JAX. Cases:
              the collectives the step and the policy calls made, the
              store bytes between calls, the grouped save, and the
              outputs of the policy copy on one observation and noise.
+  ring       tests/test_torch_ring.py: a gloo group of its own (no
+             agent); ring_attention_sharded on global q, k, v in float32
+             (full and causal) and bfloat16 (causal), the gradients of a
+             loss of its causal float32 output, and Attention(impl='ring')
+             and a ring-mode Transformer on the rank's block of x, from
+             stores that load their JAX parameters.
 """
 
 import importlib
@@ -199,6 +205,42 @@ def case_sharded(inputs, port):
   return out
 
 
+def case_ring(inputs, port):
+  import torch.distributed as dist
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.ops import ring_attention as ra
+  rank, world = int(os.environ['RANK']), int(os.environ['WORLD_SIZE'])
+  dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}',
+                          rank=rank, world_size=world)
+  tensor = lambda x, dtype=torch.float32: torch.tensor(x).to(dtype)
+  q, k, v = (tensor(inputs[n]) for n in 'qkv')
+  out = {}
+  for causal in (False, True):
+    out[f'f32 causal={causal}'] = ra.ring_attention_sharded(
+        q, k, v, causal=causal).numpy()
+  bf16 = [x.to(torch.bfloat16) for x in (q, k, v)]
+  out['bf16 causal=True'] = ra.ring_attention_sharded(
+      *bf16, causal=True).float().numpy()
+  leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+  ra.ring_attention_sharded(*leaves, causal=True).square().sum().backward()
+  out['grads'] = [x.grad.numpy() for x in leaves]
+  x = tensor(inputs['x']).chunk(world, 1)[rank]
+  for name, module in (
+      ('attn', nn.Attention(16, 16, 4, 'attn', kvheads=2, impl='ring',
+                            causal=True, cdtype=torch.float32)),
+      ('tf', nn.Transformer(2, 16, 4, 'tf', ffmult=2, kvheads=2,
+                            impl='ring', causal=True,
+                            cdtype=torch.float32))):
+    root = torch.nn.Module()
+    root.add_module(name, module)
+    assert not nn.load_store(root, inputs[f'{name}_store'])
+    y = module(x)
+    parts = [torch.empty_like(y) for _ in range(world)]
+    dist.all_gather(parts, y.detach().contiguous())
+    out[name] = torch.cat(parts, 1).numpy()
+  return out
+
+
 def main():
   case, rank, world, port, folder = sys.argv[1:]
   os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
@@ -207,7 +249,7 @@ def main():
   with open(os.path.join(folder, 'inputs.pkl'), 'rb') as f:
     inputs = pickle.load(f)
   out = {'step': case_step, 'multihost': case_multihost,
-         'sharded': case_sharded}[case](inputs, port)
+         'sharded': case_sharded, 'ring': case_ring}[case](inputs, port)
   with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
     pickle.dump(out, f)
   shutdown()
