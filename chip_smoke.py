@@ -76,6 +76,22 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            the actor's ms per call and lock wait, the RPC servers' stats,
            a logged report and finite train losses, no failed actor call
            or role, and no child process or thread left when it returns.
+  parallel_group
+           script=parallel at the default configuration on PinPad on a
+           process group of two ranks (two NCCL ranks on two cards, else
+           two gloo ranks on one), as a multi-host launcher starts them,
+           8 rows a rank on the '2,1,1' mesh, 4 train and 1 eval env a
+           rank, to a budget of 40 s from the first train step, when
+           rank 0 is interrupted: equal train calls on the ranks, each
+           launching kernels 5, 6 and 8 once, kernel 3 once an actor
+           call on each rank and against its plain version on rank 1's
+           last request, kernels 5, 6 and 8 against theirs at a rank's
+           shapes (8 rows, 512 rollout starts), reports and saves at the
+           same train-call
+           indices, saved stores equal bit for bit, no child on the card
+           and nothing left behind; per rank env steps/s, the replay
+           ratio, the actor's ms and lock wait, peak MB; the global train
+           frames/s and the collectives a train step makes.
   latents  the device-resident latent table at the default configuration
            and at size12m: the table's slots, bytes and regions; policy
            calls on the table path and on the host path (latents in the
@@ -520,12 +536,15 @@ def timings(torch, kernel, plain, flush, nbytes, flops, streamed=None):
   """Device, call and cold times of the kernel and its plain version, the
   bound, and with `streamed` (bytes) the streamed floor: the time to read
   those bytes once at the peak rate, for a kernel whose weights do not stay
-  in the L2 and are read again at every step."""
+  in the L2 and are read again at every step. The plain version is timed
+  on fewer calls: its thousands of launches a call make each profile and
+  call long, and its device times from 2 profiled calls came within 2.7%
+  of those from 5 (PERF.md, section 6)."""
   bound_ms, bound_by = bound(nbytes, flops)
   row = dict(ms=device_ms(torch, kernel, iters=5),
-             plain_ms=device_ms(torch, plain, iters=5),
+             plain_ms=device_ms(torch, plain, iters=2),
              call_ms=cuda_ms(torch, kernel, warmup=2, iters=10),
-             plain_call_ms=cuda_ms(torch, plain, warmup=2, iters=10),
+             plain_call_ms=cuda_ms(torch, plain, warmup=1, iters=5),
              ms_cold=cuda_ms(torch, kernel, warmup=1, iters=5, flush=flush),
              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
   if streamed is not None:
@@ -553,8 +572,13 @@ def agreement(onehot, logit, gumbel, C=CLASSES):
   return float((drawn.argmax(-1) == hard.argmax(-1)).float().mean())
 
 
-def check_row(name, row, problems):
+def check_row(name, row, problems, printed=True):
+  """The row of a kernel's check, printed, failing the phase kernels on a
+  problem; or, with `printed` false, returned with its problems for the
+  caller to report."""
   row['ok'] = not problems
+  if not printed:
+    return dict(row, name=name, problems=problems)
   emit(phase='kernel', name=name, **row)
   if problems:
     fail('kernels', f'{name}: ' + '; '.join(problems))
@@ -644,9 +668,11 @@ def imag_step_kernel(torch, gen, core, B, flush, D=2048, H=256, S=32):
 
 
 def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
-                   H=256, S=32, K=2304, C=CLASSES, config='size12m'):
+                   H=256, S=32, K=2304, C=CLASSES, config='size12m',
+                   timed=True):
   """The observe window's forward and backward kernels at a train step's
-  shapes, against the plain version replaying the kernel's samples."""
+  shapes, against the plain version replaying the kernel's samples; with
+  `timed` false, checked only, and returned unprinted (check_row)."""
   from embodied_tpu_torch.nn import dists
   from embodied_tpu_torch.ops import observe_seq as ops
   L = S * C
@@ -679,9 +705,9 @@ def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
     fwd = dict(config=config, batch=B, steps=T,
                max_abs_err=max(e for e, _ in errs),
                tol=TOL, sample_agreement=share, min_agreement=SAMPLE_AGREEMENT,
-               **timings(torch, kernel, plain, flush, *ops.work(*dims),
-                         streamed=T * tensor_bytes(params)))
-  rows = [check_row('observe_seq', fwd, problems)]
+               **(timings(torch, kernel, plain, flush, *ops.work(*dims),
+                          streamed=T * tensor_bytes(params)) if timed else {}))
+  rows = [check_row('observe_seq', fwd, problems, timed)]
 
   # The backward, with random upstream gradients of all three outputs.
   ups = [torch.randn(x.shape, generator=gen, device=DEV)
@@ -709,18 +735,20 @@ def window_kernels(torch, gen, params, flush, T=WINDOW, B=ENVS, D=2048,
       deter0, stoch0, sseq, acts, toks, keep, params, *ups_bf, C, UNIMIX)
   bwd = dict(config=config, batch=B, steps=T, max_abs_err=err,
              relative_errors=rel, rtol=GRAD_RTOL, bit_equal_calls=bit_equal,
-             **timings(torch, kernel, plain, flush, *ops.work_bwd(*dims),
-                       streamed=2 * T * tensor_bytes(params)))
-  rows.append(check_row('observe_seq_bwd', bwd, problems))
+             **(timings(torch, kernel, plain, flush, *ops.work_bwd(*dims),
+                        streamed=2 * T * tensor_bytes(params)) if timed
+                else {}))
+  rows.append(check_row('observe_seq_bwd', bwd, problems, timed))
   return rows
 
 
 def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
                    B=IMAG_STARTS, D=2048, H=256, S=32, U=256, npol=3,
-                   C=CLASSES, config='size12m'):
+                   C=CLASSES, config='size12m', timed=True):
   """The imagination rollout at a train step's shapes (15 steps from
   16 x 64 starts) for a categorical (5 actions) or bounded normal (6)
-  head, against the plain version replaying the kernel's samples."""
+  head, against the plain version replaying the kernel's samples; with
+  `timed` false, checked only, and returned unprinted (check_row)."""
   from embodied_tpu_torch.nn import dists
   from embodied_tpu_torch.ops import imagine_seq as ops
   L = S * C
@@ -795,9 +823,10 @@ def rollout_kernel(torch, gen, core, disc, flush, steps=IMAG_LENGTH,
                tol=TOL, sample_agreement=share, action_agreement=act_share,
                min_agreement=SAMPLE_AGREEMENT, logit_err_vs_f32=f32_replay,
                bit_equal_calls=bit_equal,
-               **timings(torch, kernel, plain, flush, *work,
-                         streamed=steps * tensor_bytes(params)))
-  return check_row('imagine_seq', row, problems)
+               **(timings(torch, kernel, plain, flush, *work,
+                          streamed=steps * tensor_bytes(params)) if timed
+                  else {}))
+  return check_row('imagine_seq', row, problems, timed)
 
 
 # The default configuration's dims (configs.yaml `defaults`, no preset):
@@ -2286,142 +2315,257 @@ def card_pids():
   return {int(line) for line in query.stdout.split() if line.isdigit()}
 
 
-def phase_parallel(torch, pinpad_speed):
-  """script=parallel in-process at the default configuration on PinPad
-  (PARALLEL), with the launch counts set to 0 before the run and read
-  after; the run ends PARALLEL_BUDGET seconds after its first train step.
-  While it runs, a watcher reads every 2 s which processes hold the card
-  (nvidia-smi's compute apps) and whether a child of this process has a
-  card's device node open. The run must launch kernels 3, 5, 6 and 8,
-  train (each Agent.train call one launch of kernels 5, 6 and 8, its
-  losses finite), report and log finite train losses into its metrics
-  log, write its three checkpoints, send RPC frames through the native
-  codec, and leave no child process and no thread behind; no child may
-  touch the card, no role may fail (a role that fails while the run goes
-  on raises out of main.main; the smoke also records every worker crash)
-  and no actor call may raise. Kernel 3 is then held against its plain
-  version on the actor's last request (batch actor_batch, the carry it
-  was acted on with). Prints env steps and env steps/s (train and eval
-  envs), train steps and train frames/s, the replayed-to-env step ratio
-  against run.train_ratio, the actor's calls with their ms (median, p90)
-  and its lock wait per call (timer section policy_lock_wait), the
-  episodes the actor saw end and those logged, the RPC servers' stats,
-  the peak memory, and `pinpad_speed`, the default PinPad train_eval
-  run's env steps/s in this call."""
-  import _thread
-  import shutil
+def card_watcher(done, before, seen):
+  """A thread that reads every 2 s, until the event `done`, which
+  processes hold the card (nvidia-smi's compute apps) into
+  seen['card_pids'], this process's children other than `before` into
+  seen['children'], and those of them with a card's device node open into
+  seen['touched']."""
   import threading
-  from embodied_tpu_torch import native, parallel
-  from embodied_tpu_torch.models.dreamerv3 import main as dmain
-  from embodied_tpu_torch.remote import proc
-  from embodied_tpu_torch.run import parallel_impl
-  from embodied_tpu_torch.utils import timer
-  wrappers = train_wrappers()
-  logdir = os.path.join(ROOT, 'build', 'chip_smoke_parallel')
-  shutil.rmtree(logdir, ignore_errors=True)
-  policy_ms, policy_span, train_calls, actors = [], [], [], []
-  steps = {'train': 0, 'eval': 0}
-  running, episodes = {}, {'train': [], 'eval': []}
-  timed, train_span, nonfinite = [], [], []
-  last, failures, crashes = {}, [], []
-  agent_policy, agent_train = parallel.Agent.policy, parallel.Agent.train
-  infer, forward = parallel_impl._Actor._infer, parallel_impl._Actor._forward
-  stats, record_error = timer.stats, proc._record_error
-  first_train, interrupted, done = (
-      threading.Event(), threading.Event(), threading.Event())
-
-  def policy(self, *args, **kwargs):
-    begin = time.perf_counter()
-    result = agent_policy(self, *args, **kwargs)
-    policy_ms.append((time.perf_counter() - begin) * 1e3)
-    policy_span.append(begin)
-    return result
-
-  def train(self, *args):
-    counts = {k: wrappers[k].launches for k in TRAIN_KERNELS}
-    begin = time.perf_counter()
-    result = agent_train(self, *args)
-    train_span.append((begin, time.perf_counter()))
-    train_calls.append(
-        {k: wrappers[k].launches - counts[k] for k in TRAIN_KERNELS})
-    first_train.set()
-    nonfinite.extend(k for k, v in result[2].items()
-                     if is_loss(k) and not math.isfinite(v))
-    return result
-
-  def actor_infer(self, request):
-    # The actor's view of each env's episodes and steps, and its last
-    # request with the carry it is acted on with.
-    if not actors:
-      actors.append(self)
-    last.update(carry=self.cache.gather(request['envid']), obs={
-        k: v for k, v in request.items()
-        if k not in ('envid', 'is_eval') and not k.startswith('log/')})
-    for i, envid in enumerate(request['envid']):
-      kind = 'eval' if request['is_eval'][i] else 'train'
-      steps[kind] += 1
-      if request['is_first'][i]:
-        running[int(envid)] = [0.0, 0]
-      score = running.setdefault(int(envid), [0.0, 0])
-      score[0] += float(request['reward'][i])
-      score[1] += 1
-      if request['is_last'][i]:
-        episodes[kind].append(tuple(running.pop(int(envid))))
-    return recorded(infer, self, request)
-
-  def actor_forward(self, tran):
-    return recorded(forward, self, tran)
-
-  def recorded(fn, actor, *args):
-    try:
-      return fn(actor, *args)
-    except Exception as e:
-      failures.append(dict(call=fn.__name__, error=repr(e),
-                           after_stop=actor.stop.is_set()))
-      raise
-
-  def crashed(name, exc):
-    crashes.append(f'{name}: {exc!r}')
-    record_error(name, exc)
-
-  def tee(reset=True, log=False):
-    result = stats(reset, log)
-    if reset:
-      timed.append(result)
-    return result
-
-  seen = {'card_pids': set(), 'children': set(), 'touched': set()}
 
   def watch():
     while not done.wait(2.0):
       seen['card_pids'] |= card_pids()
-      children = child_pids() - before_children
+      children = child_pids() - before
       seen['children'] |= children
       seen['touched'] |= {pid for pid in children if holds_card(pid)}
+  return threading.Thread(target=watch, name='card-watcher')
 
-  def end_run():
-    # As a user ends a run: an interrupt, which main.main's supervisor
-    # answers by stopping every role.
-    if first_train.wait(PARALLEL_SETUP) and not done.wait(PARALLEL_BUDGET):
-      interrupted.set()
-      _thread.interrupt_main()
 
-  for wrapper in wrappers.values():
-    wrapper.launches = 0
+class RunProbe:
+  """The instruments of one script=parallel run in this process (phases
+  parallel and parallel_group), a context manager around main.main. It
+  sets the launch counts to 0 and wraps Agent.policy (each call's ms and
+  kernel 3 launches), Agent.train (kernels 5, 6 and 8's launches each
+  call, its losses and, with `counts` from counted_collectives, the
+  collectives it made), the actor's requests (the env steps and episodes
+  it sees, its last request with the carry it was acted on with, failed
+  calls), the learner's reports and saves (the train-call index of each),
+  the timer's stats and the workers' crashes, and runs card_watcher. With
+  `budget`, it interrupts the main thread, as a user ends a run, `budget`
+  seconds after the first train step, if one came within PARALLEL_SETUP.
+  On leaving it puts everything back and reads the launches and what the
+  run left behind; `summary` gives the figures that both phases print."""
+
+  def __init__(self, budget=None, counts=None):
+    import threading
+    self.budget, self.counts = budget, counts
+    self.wrappers = train_wrappers()
+    self.policy_ms, self.policy_span, self.policy_launches = [], [], []
+    self.train_calls, self.train_span, self.collectives = [], [], []
+    self.losses, self.nonfinite = [], []
+    self.steps = {'train': 0, 'eval': 0}
+    self.running, self.episodes = {}, {'train': [], 'eval': []}
+    self.timed, self.last, self.failures, self.crashes = [], {}, [], []
+    self.actors, self.marks = [], {'report': [], 'save': []}
+    self.seen = {'card_pids': set(), 'children': set(), 'touched': set()}
+    self.first_train, self.interrupted, self.done = (
+        threading.Event(), threading.Event(), threading.Event())
+
+  def _patches(self):
+    """(owner, attribute, wrapper) of every wrapped function."""
+    import _thread
+    from embodied_tpu_torch import parallel
+    from embodied_tpu_torch.remote import proc
+    from embodied_tpu_torch.run import parallel_impl
+    from embodied_tpu_torch.utils import timer
+    probe, wrappers = self, self.wrappers
+    agent_policy, agent_train = parallel.Agent.policy, parallel.Agent.train
+    infer, forward = parallel_impl._Actor._infer, parallel_impl._Actor._forward
+    report, save = parallel_impl._Learner._report, parallel_impl._Learner._save
+    stats, record_error = timer.stats, proc._record_error
+
+    def policy(self, *args, **kwargs):
+      before = wrappers['obs_step'].launches
+      begin = time.perf_counter()
+      result = agent_policy(self, *args, **kwargs)
+      probe.policy_ms.append((time.perf_counter() - begin) * 1e3)
+      probe.policy_span.append(begin)
+      probe.policy_launches.append(wrappers['obs_step'].launches - before)
+      return result
+
+    def train(self, *args):
+      launched = {k: wrappers[k].launches for k in TRAIN_KERNELS}
+      counts = probe.counts or {}
+      made = {k: list(v) for k, v in counts.items()}
+      begin = time.perf_counter()
+      result = agent_train(self, *args)
+      probe.train_span.append((begin, time.perf_counter()))
+      probe.train_calls.append(
+          {k: wrappers[k].launches - launched[k] for k in TRAIN_KERNELS})
+      probe.collectives.append(
+          {k: [counts[k][i] - made[k][i] for i in (0, 1)]
+           for k in counts if counts[k] != made[k]})
+      probe.first_train.set()
+      probe.losses.append(sum(is_loss(k) for k in result[2]))
+      probe.nonfinite.extend(k for k, v in result[2].items()
+                             if is_loss(k) and not math.isfinite(v))
+      return result
+
+    def actor_infer(self, request):
+      # The actor's view of each env's episodes and steps, and its last
+      # request with the carry it is acted on with.
+      if not probe.actors:
+        probe.actors.append(self)
+      probe.last.update(carry=self.cache.gather(request['envid']), obs={
+          k: v for k, v in request.items()
+          if k not in ('envid', 'is_eval') and not k.startswith('log/')})
+      for i, envid in enumerate(request['envid']):
+        kind = 'eval' if request['is_eval'][i] else 'train'
+        probe.steps[kind] += 1
+        if request['is_first'][i]:
+          probe.running[int(envid)] = [0.0, 0]
+        score = probe.running.setdefault(int(envid), [0.0, 0])
+        score[0] += float(request['reward'][i])
+        score[1] += 1
+        if request['is_last'][i]:
+          probe.episodes[kind].append(tuple(probe.running.pop(int(envid))))
+      return recorded(infer, self, request)
+
+    def actor_forward(self, tran):
+      return recorded(forward, self, tran)
+
+    def recorded(fn, actor, *args):
+      try:
+        return fn(actor, *args)
+      except Exception as e:
+        probe.failures.append(dict(call=fn.__name__, error=repr(e),
+                                   after_stop=actor.stop.is_set()))
+        raise
+
+    def learner_report(self, *args):
+      probe.marks['report'].append(self.steps)
+      return report(self, *args)
+
+    def learner_save(self):
+      probe.marks['save'].append(self.steps)
+      return save(self)
+
+    def crashed(name, exc):
+      probe.crashes.append(f'{name}: {exc!r}')
+      record_error(name, exc)
+
+    def tee(reset=True, log=False):
+      result = stats(reset, log)
+      if reset:
+        probe.timed.append(result)
+      return result
+
+    def end_run():
+      if probe.first_train.wait(PARALLEL_SETUP) and not probe.done.wait(
+          probe.budget):
+        probe.interrupted.set()
+        _thread.interrupt_main()
+    self._end_run = end_run
+    return [(parallel.Agent, 'policy', policy),
+            (parallel.Agent, 'train', train),
+            (parallel_impl._Actor, '_infer', actor_infer),
+            (parallel_impl._Actor, '_forward', actor_forward),
+            (parallel_impl._Learner, '_report', learner_report),
+            (parallel_impl._Learner, '_save', learner_save),
+            (timer, 'stats', tee), (proc, '_record_error', crashed)]
+
+  def __enter__(self):
+    import threading
+    for wrapper in self.wrappers.values():
+      wrapper.launches = 0
+    self.before_threads = {t.ident for t in threading.enumerate()}
+    self.before_children = child_pids()
+    patches = self._patches()
+    self.originals = [(owner, name, getattr(owner, name))
+                      for owner, name, _ in patches]
+    for owner, name, fn in patches:
+      setattr(owner, name, fn)
+    self.helpers = [card_watcher(self.done, self.before_children, self.seen)]
+    if self.budget is not None:
+      self.helpers.append(threading.Thread(target=self._end_run,
+                                           name='run-ender'))
+    for helper in self.helpers:
+      helper.start()
+    self.start = time.perf_counter()
+    return self
+
+  def __exit__(self, *exc):
+    import threading
+    from embodied_tpu_torch.utils import timer
+    self.wall = time.perf_counter() - self.start
+    for owner, name, fn in self.originals:
+      setattr(owner, name, fn)
+    self.done.set()
+    for helper in self.helpers:
+      helper.join()
+    self.timed.append(timer.stats(reset=True))  # the last stats' window
+    self.launches = {k: self.wrappers[k].launches for k in PARALLEL_KERNELS}
+    self.left_threads = [t.name for t in threading.enumerate()
+                         if t.ident not in self.before_threads and
+                         t.is_alive()]
+    self.left_children = sorted(child_pids() - self.before_children)
+    return False
+
+  def summary(self):
+    """The run's figures, from the run's start (main.main's call)."""
+    waited = sum(t.get('policy_lock_wait/total', 0) for t in self.timed)
+    waits = sum(t['policy_lock_wait/total'] / t['policy_lock_wait/avg']
+                for t in self.timed if t.get('policy_lock_wait/avg'))
+    ordered, spans = sorted(self.policy_ms), self.train_span
+    return dict(
+        wall_s=self.wall, env_steps=self.steps,
+        env_steps_per_s=sum(self.steps.values()) / self.wall,
+        first_policy_s=(self.policy_span[0] - self.start
+                        if self.policy_span else None),
+        first_train_s=spans[0][0] - self.start if spans else None,
+        last_train_s=spans[-1][1] - self.start if spans else None,
+        train_steps=len(self.train_calls),
+        train_call_launches=sorted(
+            {tuple(c.values()) for c in self.train_calls}),
+        actor_calls=len(self.policy_ms),
+        policy_call_launches=sorted(set(self.policy_launches)),
+        policy_ms_median=statistics.median(ordered) if ordered else None,
+        policy_ms_p90=(ordered[int(0.9 * (len(ordered) - 1))]
+                       if ordered else None),
+        lock_wait_ms_per_call=waited / waits * 1e3 if waits else None,
+        lock_waits=round(waits), launches=self.launches,
+        losses_per_call=sorted(set(self.losses)),
+        nonfinite_train_losses=sorted(set(self.nonfinite)),
+        reports=self.marks['report'], saves=self.marks['save'],
+        actor_failures=self.failures, crashes=self.crashes,
+        card_pids=sorted(self.seen['card_pids']),
+        children_seen=len(self.seen['children']),
+        children_on_card=sorted(self.seen['touched']),
+        left_threads=self.left_threads, left_children=self.left_children)
+
+
+def phase_parallel(torch, pinpad_speed):
+  """script=parallel in-process at the default configuration on PinPad
+  (PARALLEL), instrumented by RunProbe (the launch counts set to 0 before
+  the run and read after; the card watcher; the run ended
+  PARALLEL_BUDGET seconds after its first train step). The run must
+  launch kernels 3, 5, 6 and 8, train (each Agent.train call one launch
+  of kernels 5, 6 and 8, its losses finite), report and log finite train
+  losses into its metrics log, write its three checkpoints, send RPC
+  frames through the native codec, and leave no child process and no
+  thread behind; no child may touch the card, no role may fail (a role
+  that fails while the run goes on raises out of main.main; the smoke
+  also records every worker crash) and no actor call may raise. Kernel 3
+  is then held against its plain version on the actor's last request
+  (batch actor_batch, the carry it was acted on with). Prints env steps
+  and env steps/s (train and eval envs), train steps and train frames/s,
+  the replayed-to-env step ratio against run.train_ratio, the actor's
+  calls with their ms (median, p90) and its lock wait per call (timer
+  section policy_lock_wait), the episodes the actor saw end and those
+  logged, the RPC servers' stats, the peak memory, and `pinpad_speed`,
+  the default PinPad train_eval run's env steps/s in this call."""
+  import shutil
+  from embodied_tpu_torch import native
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  from embodied_tpu_torch.utils import timer
+  logdir = os.path.join(ROOT, 'build', 'chip_smoke_parallel')
+  shutil.rmtree(logdir, ignore_errors=True)
+  probe = RunProbe(budget=PARALLEL_BUDGET)
   gc.collect()
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
-  before_threads = {t.ident for t in threading.enumerate()}
-  before_children = child_pids()
-  stats(reset=True)
-  parallel.Agent.policy, parallel.Agent.train = policy, train
-  parallel_impl._Actor._infer = actor_infer
-  parallel_impl._Actor._forward = actor_forward
-  timer.stats, proc._record_error = tee, crashed
-  helpers = [threading.Thread(target=watch, name='card-watcher'),
-             threading.Thread(target=end_run, name='run-ender')]
-  for helper in helpers:
-    helper.start()
+  timer.stats(reset=True)
   cap = PARALLEL_SETUP + PARALLEL_BUDGET + 30
   argv = [*PARALLEL, *NO_COUNT, '--logdir', logdir,
           '--run.steps', str(STEP_CAP),
@@ -2429,33 +2573,17 @@ def phase_parallel(torch, pinpad_speed):
           '--run.log_every', str(PARALLEL_LOG_EVERY),
           '--run.report_every', str(PARALLEL_EVERY),
           '--run.save_every', str(PARALLEL_EVERY)]
-  start = time.perf_counter()
-  try:
+  with probe:
     try:
       dmain.main(argv)
     except KeyboardInterrupt:
-      if not interrupted.is_set():
+      if not probe.interrupted.is_set():
         raise
-  finally:
-    wall = time.perf_counter() - start
-    parallel.Agent.policy, parallel.Agent.train = agent_policy, agent_train
-    parallel_impl._Actor._infer, parallel_impl._Actor._forward = (
-        infer, forward)
-    timer.stats, proc._record_error = stats, record_error
-    done.set()
-    for helper in helpers:
-      helper.join()
-  tee()
-  launches = {k: wrappers[k].launches for k in PARALLEL_KERNELS}
-  left_threads = [t.name for t in threading.enumerate()
-                  if t.ident not in before_threads and t.is_alive()]
-  left_children = sorted(child_pids() - before_children)
-  waited = sum(t.get('policy_lock_wait/total', 0) for t in timed)
-  waits = sum(t['policy_lock_wait/total'] / t['policy_lock_wait/avg']
-              for t in timed if t.get('policy_lock_wait/avg'))
+  run = probe.summary()
   lines, _, logged_episodes, losses = read_log(logdir)
   reports = sum(any(k.startswith('report/') for k in l) for l in lines)
-  actor = actors[0] if actors else None
+  actor = probe.actors[0] if probe.actors else None
+  last, steps = probe.last, probe.steps
   servers = {k: v for l in lines for k, v in l.items()
              if k.startswith(('server/', 'replay/', 'replay_eval/'))}
   plain_errs, same = None, None
@@ -2469,66 +2597,48 @@ def phase_parallel(torch, pinpad_speed):
     plain_errs, same = check_against_plain(torch, actor.agent, last)
   config = dmain.common.assemble_config(dmain.CONFIGS, argv)
   batch_steps = config.batch_size * config.batch_length
-  ntrain = len(train_calls)
-  span = train_span[-1][1] - train_span[0][0] if train_span else 0.0
-  policy_sorted = sorted(policy_ms)
+  ntrain = run['train_steps']
+  spans = probe.train_span
+  span = spans[-1][1] - spans[0][0] if spans else 0.0
   row = dict(
-      phase='parallel', argv=argv, wall_s=wall, budget_s=PARALLEL_BUDGET,
+      phase='parallel', argv=argv, budget_s=PARALLEL_BUDGET,
       budget_from='the first train step', codec=native.codec_status(),
       envs=config.run.envs, eval_envs=config.run.eval_envs,
       actor_batch=len(last['obs']['is_first']) if last else None,
-      env_steps=steps, env_steps_per_s=sum(steps.values()) / wall,
-      train_env_steps_per_s=steps['train'] / wall,
+      **run, train_env_steps_per_s=steps['train'] / run['wall_s'],
       pinpad_train_eval_env_steps_per_s=pinpad_speed,
-      first_policy_s=policy_span[0] - start if policy_span else None,
-      first_train_s=train_span[0][0] - start if train_span else None,
-      last_train_s=train_span[-1][1] - start if train_span else None,
-      train_steps=ntrain,
       train_frames_per_s=ntrain * batch_steps / span if span else 0.0,
-      train_call_launches=sorted({tuple(c.values()) for c in train_calls}),
       replay_ratio=ntrain * batch_steps / max(steps['train'], 1),
       train_ratio=config.run.train_ratio,
-      actor_calls=len(policy_ms),
-      policy_ms_median=statistics.median(policy_ms) if policy_ms else None,
-      policy_ms_p90=(policy_sorted[int(0.9 * (len(policy_sorted) - 1))]
-                     if policy_ms else None),
-      lock_wait_ms_per_call=waited / waits * 1e3 if waits else None,
-      lock_waits=round(waits),
-      launches=launches,
       obs_step_plain_max_abs_err=(
           {k: e for k, (e, _) in plain_errs.items()} if plain_errs else None),
       obs_step_sample_agreement=same,
       episodes={k: dict(count=len(v), scores=sorted({s for s, _ in v}),
                         lengths=sorted({n for _, n in v}))
-                for k, v in episodes.items()},
+                for k, v in probe.episodes.items()},
       logged_episodes=logged_episodes, log_lines=len(lines),
-      logged_reports=reports, logged_losses=losses,
-      nonfinite_train_losses=sorted(set(nonfinite)),
-      actor_failures=failures, crashes=crashes, rpc=servers,
+      logged_reports=reports, logged_losses=losses, rpc=servers,
       files={f: os.path.exists(os.path.join(logdir, f))
              for f in PARALLEL_FILES},
       peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
-      card_pids=sorted(seen['card_pids']), own_pid=os.getpid(),
-      children_seen=len(seen['children']),
-      children_on_card=sorted(seen['touched']),
-      left_threads=left_threads, left_children=left_children)
-  del actor
-  actors.clear()
-  last.clear()
+      own_pid=os.getpid())
+  launches, seen = probe.launches, probe.seen
+  interrupted = probe.interrupted.is_set()
+  del actor, probe
   problems = []
   if row['codec'] != 'native':
     problems.append(f'the codec did not build: {row["codec"]}')
-  if not interrupted.is_set():
+  if not interrupted:
     problems.append(f'no train step within {PARALLEL_SETUP} s')
   if not all(launches.values()):
     problems.append(f'kernels not launched: {launches}')
   if min(launches['observe_seq'], launches['imagine_seq']) <= ntrain:
     problems.append(f'no report launched kernels 5 and 8: {launches} in '
                     f'{ntrain} train steps')
-  if not ntrain or any(c[k] != 1 for c in train_calls for k in c):
+  if not ntrain or row['train_call_launches'] != [(1, 1, 1)]:
     problems.append(f'{ntrain} train steps, launches per call '
                     f'{row["train_call_launches"]}')
-  if nonfinite:
+  if row['nonfinite_train_losses']:
     problems.append(f'non-finite train losses {row["nonfinite_train_losses"]}')
   if not reports or not losses or not all(
       math.isfinite(v) for v in losses.values()):
@@ -2548,12 +2658,13 @@ def phase_parallel(torch, pinpad_speed):
                     f'device node {sorted(seen["touched"])}')
   if len(seen['children']) < config.run.envs + config.run.eval_envs + 2:
     problems.append(f'{len(seen["children"])} child processes ran')
-  if left_threads or left_children:
-    problems.append(f'left behind: threads {left_threads}, processes '
-                    f'{left_children}')
-  if not policy_ms or failures or crashes or servers.get('actor/errors'):
+  if row['left_threads'] or row['left_children']:
+    problems.append(f'left behind: threads {row["left_threads"]}, '
+                    f'processes {row["left_children"]}')
+  if not row['actor_calls'] or row['actor_failures'] or row['crashes'] or (
+      servers.get('actor/errors')):
     problems.append(f'the actor did not serve, or a call or a role failed: '
-                    f'{failures} {crashes}')
+                    f'{row["actor_failures"]} {row["crashes"]}')
   if not steps['train'] or not steps['eval']:
     problems.append(f'env steps {steps}')
   emit(**row, ok=not problems)
@@ -2563,6 +2674,272 @@ def phase_parallel(torch, pinpad_speed):
   gc.collect()
   torch.cuda.empty_cache()
   return launches
+
+
+# script=parallel on a process group of two ranks: the default
+# configuration on PinPad, each rank with its own envs (GROUP_CUTS, the
+# only cuts), replay and logger, 8 rows a rank on the '2,1,1' mesh.
+GROUP_RANKS = 2
+GROUP_ROWS = 8
+GROUP_CUTS = {'run.envs': 4, 'run.eval_envs': 1}  # a rank's; widths kept
+GROUP_ARGV = PARALLEL + NO_COUNT + [
+    '--batch_size', str(GROUP_ROWS), '--torch.mesh', '2,1,1',
+    *(x for k, v in GROUP_CUTS.items() for x in (f'--{k}', str(v)))]
+GROUP_JOIN = 240  # seconds a rank may take beyond its set-up and budget
+
+
+def group_kernels(torch, K, D=DEFAULT['D'], H=DEFAULT['H'], S=DEFAULT['S'],
+                  C=DEFAULT['C'], U=DEFAULT['U']):
+  """Kernels 5, 6 and 8 at the shapes that a rank of phase_parallel_group
+  gives them, each against its plain version as in phase kernels (random
+  weights and inputs from their own seed, checked, untimed): the window
+  of WINDOW steps of GROUP_ROWS rows with the encoder's token width `K`,
+  and the rollout of IMAG_LENGTH steps from GROUP_ROWS x WINDOW starts
+  with PinPad's 5 actions. Returns the rows with their problems."""
+  gen = torch.Generator(DEV).manual_seed(SEED + 2)
+  L = S * C
+  core, head = size12m_params(torch, gen, D=D, H=H, S=L, K=K, L=L)
+  rows = window_kernels(torch, gen, core + head, None, B=GROUP_ROWS, D=D,
+                        H=H, S=S, K=K, C=C, config='default', timed=False)
+  rows.append(rollout_kernel(
+      torch, gen, core, True, None, B=GROUP_ROWS * WINDOW, D=D, H=H, S=S,
+      U=U, C=C, config='default', timed=False))
+  return rows
+
+
+def group_rank_main(rank, port, folder, backend):
+  """One rank of phase_parallel_group (a spawned process): main.main on
+  GROUP_ARGV as a multi-host launcher starts a rank (RANK, WORLD_SIZE,
+  LOCAL_RANK, torch.coordinator_address), instrumented by RunProbe with
+  the collectives counted, and ended by an interrupt of rank 0
+  PARALLEL_BUDGET seconds after its first train step (every rank's learner
+  stops at rank 0's request). On one card the rank starts a gloo group
+  itself, which parallel.setup keeps (NCCL refuses two ranks on one
+  card), and runs without the sync guard (gloo waits on host copies of
+  CUDA tensors). Writes what it saw to folder/rank<rank>.pkl: the probe's
+  summary (the launch counts of kernels 3, 5, 6 and 8, set to 0 before
+  the run and read after it, the train-call indices of its reports and
+  saves, its env steps, the actor's times), the collectives, its saved
+  store's digests, the encoder's token width and, on rank 1, kernel 3
+  against its plain version on the actor's last request."""
+  import datetime
+  import hashlib
+  import pickle
+  import torch
+  import torch.distributed as dist
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  began = time.perf_counter()
+  local = rank if backend == 'nccl' else 0
+  os.environ.update(RANK=str(rank), WORLD_SIZE=str(GROUP_RANKS),
+                    LOCAL_RANK=str(local))
+  logdir = os.path.join(folder, 'logdir')
+  cap = PARALLEL_SETUP + PARALLEL_BUDGET + 60
+  argv = [*GROUP_ARGV, '--logdir', logdir, '--run.steps', str(STEP_CAP),
+          '--run.duration', str(cap),
+          '--run.log_every', str(PARALLEL_LOG_EVERY),
+          '--run.report_every', str(PARALLEL_EVERY),
+          '--run.save_every', str(PARALLEL_EVERY),
+          '--torch.coordinator_address', f'localhost:{port}']
+  if backend == 'gloo':
+    torch.cuda.set_device(local)
+    dist.init_process_group(
+        'gloo', init_method=f'tcp://localhost:{port}', rank=rank,
+        world_size=GROUP_RANKS, timeout=datetime.timedelta(seconds=600))
+    argv += ['--torch.transfer_guard', 'False']
+  counts, restore = counted_collectives(dist)
+  # Rank 0 alone is interrupted, as a user ends a run on one host: its
+  # learner asks, and every rank's learner stops at the next decision.
+  probe = RunProbe(budget=PARALLEL_BUDGET if rank == 0 else None,
+                   counts=counts)
+  error = None
+  try:
+    with probe:
+      dmain.main(argv)
+  except KeyboardInterrupt:
+    if not probe.interrupted.is_set():
+      error = 'an interrupt before the budget ended'
+  except Exception as e:  # written to the rank's file, failing the phase
+    error = repr(e)
+  finally:
+    restore()
+  mine = logdir if rank == 0 else os.path.join(logdir, f'rank{rank}')
+  digests, counters = {}, None
+  if os.path.exists(os.path.join(mine, 'agent.pkl')):
+    with open(os.path.join(mine, 'agent.pkl'), 'rb') as f:
+      saved = pickle.load(f)['agent']
+    counters = saved['counters']
+    digests = {k: hashlib.sha256(v.tobytes()).hexdigest() + str(v.dtype)
+               for k, v in saved['store'].items()}
+    del saved
+  lines, _, _, logged = read_log(mine)
+  plain_errs, same, token_dim = None, None, None
+  if probe.actors:
+    token_dim = probe.actors[0].agent.model.dyn.token_dim
+    if rank == 1 and probe.last:
+      plain_errs, same = check_against_plain(
+          torch, probe.actors[0].agent, probe.last)
+  spans, made = probe.train_span, probe.collectives
+  out = dict(
+      rank=rank, error=error, seconds=time.perf_counter() - began,
+      device=torch.cuda.get_device_name(local), **probe.summary(),
+      train_span=(spans[0][0], spans[-1][1]) if spans else None,
+      step_collectives=made[-1] if made else None,
+      step_collectives_differ=len({json.dumps(c, sort_keys=True)
+                                   for c in made[1:]}) > 1,
+      collectives={k: v for k, v in counts.items() if v[0]},
+      log_lines=len(lines), logged_losses=logged, counters=counters,
+      digests=digests, token_dim=token_dim,
+      plain_errs=({k: e for k, (e, _) in plain_errs.items()}
+                  if plain_errs else None),
+      plain_ok=(all(ok for _, ok in plain_errs.values())
+                if plain_errs else None), sample_agreement=same,
+      peak_mem_mb=torch.cuda.max_memory_allocated(local) / 2 ** 20)
+  with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
+    pickle.dump(out, f)
+
+
+def phase_parallel_group(torch):
+  """script=parallel on two ranks (group_rank_main): two NCCL ranks where
+  the machine has two cards, else two gloo ranks on one card. Both must
+  exit 0 with nothing left behind and no child on the card; make the same
+  number of train calls, each launching kernels 5, 6 and 8 once with
+  finite losses, and every actor call kernel 3 once; report and save at
+  the same train-call indices; and end with saved stores equal bit for
+  bit (the step is data parallel). Kernel 3 is held against its plain
+  version on rank 1's actor's last request, and kernels 5, 6 and 8
+  against theirs at a rank's shapes (group_kernels), after the ranks have
+  ended, so that no launch of theirs counts. Prints per rank its env
+  steps/s, the replayed-to-env ratio, the actor's ms per call (median,
+  p90), its lock wait per call and peak MB; the global train frames/s
+  (GROUP_RANKS x GROUP_ROWS x batch_length frames a train step); the
+  collectives a train step makes and their bytes. Returns each kernel's
+  launches on each rank."""
+  import multiprocessing
+  import pickle
+  import shutil
+  from embodied_tpu_torch.models.dreamerv3 import main as dmain
+  backend = 'nccl' if torch.cuda.device_count() >= GROUP_RANKS else 'gloo'
+  folder = os.path.join(ROOT, 'build', 'chip_smoke_parallel_group')
+  shutil.rmtree(folder, ignore_errors=True)
+  os.makedirs(folder)
+  port = free_port()
+  context = multiprocessing.get_context('spawn')
+  procs = [context.Process(target=group_rank_main,
+                           args=(r, port, folder, backend))
+           for r in range(GROUP_RANKS)]
+  began = time.perf_counter()
+  for proc in procs:
+    proc.start()
+  deadline = time.time() + PARALLEL_SETUP + PARALLEL_BUDGET + GROUP_JOIN
+  for proc in procs:
+    proc.join(max(1.0, deadline - time.time()))
+  for proc in procs:
+    if proc.is_alive():
+      proc.kill()
+      proc.join()
+  joined = time.perf_counter() - began
+  codes = [p.exitcode for p in procs]
+  ranks = []
+  for r in range(GROUP_RANKS):
+    path = os.path.join(folder, f'rank{r}.pkl')
+    if os.path.exists(path):
+      with open(path, 'rb') as f:
+        ranks.append(pickle.load(f))
+  shutil.rmtree(folder, ignore_errors=True)
+  if any(codes) or len(ranks) != GROUP_RANKS:
+    fail('parallel_group', f'ranks exited with {codes}, '
+         f'{len(ranks)} wrote their results')
+  config = dmain.common.assemble_config(dmain.CONFIGS, GROUP_ARGV)
+  frames = GROUP_RANKS * GROUP_ROWS * config.batch_length
+  ntrain = ranks[0]['train_steps']
+  span = ranks[0]['train_span']
+  span = span[1] - span[0] if span else 0.0
+  per_rank = ('error', 'wall_s', 'seconds', 'device', 'first_train_s',
+              'train_steps', 'train_call_launches', 'launches',
+              'actor_calls', 'policy_call_launches', 'env_steps',
+              'env_steps_per_s', 'policy_ms_median', 'policy_ms_p90',
+              'lock_wait_ms_per_call', 'reports', 'saves', 'counters',
+              'log_lines', 'logged_losses', 'losses_per_call',
+              'nonfinite_train_losses', 'actor_failures', 'crashes',
+              'peak_mem_mb', 'children_seen', 'children_on_card',
+              'card_pids', 'left_threads', 'left_children')
+  row = dict(
+      phase='parallel_group', backend=backend, ranks=GROUP_RANKS,
+      exit_codes=codes, ranks_ended_s=joined, argv=GROUP_ARGV,
+      cuts=GROUP_CUTS,
+      rows_per_rank=GROUP_ROWS, budget_s=PARALLEL_BUDGET,
+      budget_from='the first train step',
+      transfer_guard=backend == 'nccl',
+      train_frames_per_s=ntrain * frames / span if span else 0.0,
+      replay_ratio=[r['train_steps'] * GROUP_ROWS * config.batch_length /
+                    max(r['env_steps']['train'], 1) for r in ranks],
+      train_ratio=config.run.train_ratio,
+      collectives_per_train_step=ranks[0]['step_collectives'],
+      collectives_per_run=[r['collectives'] for r in ranks],
+      stores_equal=bool(ranks[0]['digests']) and (
+          ranks[0]['digests'] == ranks[1]['digests']),
+      obs_step_plain_max_abs_err=ranks[1]['plain_errs'],
+      obs_step_sample_agreement=ranks[1]['sample_agreement'],
+      per_rank=[{k: r[k] for k in per_rank} for r in ranks])
+  problems = []
+  for r in ranks:
+    name = f'rank {r["rank"]}'
+    if r['error']:
+      problems.append(f'{name}: {r["error"]}')
+    if not r['train_steps'] or r['train_call_launches'] != [(1, 1, 1)]:
+      problems.append(f'{name}: {r["train_steps"]} train calls, launches '
+                      f'per call {r["train_call_launches"]}')
+    if not r['actor_calls'] or r['policy_call_launches'] != [1]:
+      problems.append(f'{name}: {r["actor_calls"]} actor calls, kernel 3 '
+                      f'launches per call {r["policy_call_launches"]}')
+    # The train calls' own losses: the logger writes a line only when
+    # the env step moved, and the limiter holds the envs back while the
+    # learner samples the tokens that the replay banked while it filled
+    # (PERF.md, PR 17), so the log may hold no train line yet.
+    if r['nonfinite_train_losses'] or not r['losses_per_call'] or not min(
+        r['losses_per_call']):
+      problems.append(f'{name}: train calls with no or non-finite losses: '
+                      f'{r["losses_per_call"]} '
+                      f'{r["nonfinite_train_losses"]}')
+    if r['actor_failures'] or r['crashes']:
+      problems.append(f'{name}: failed {r["actor_failures"]} '
+                      f'{r["crashes"]}')
+    if r['children_on_card'] or r['left_threads'] or r['left_children']:
+      problems.append(f'{name}: children on the card '
+                      f'{r["children_on_card"]}, left threads '
+                      f'{r["left_threads"]}, processes {r["left_children"]}')
+    if r['step_collectives_differ']:
+      problems.append(f'{name}: train steps made different collectives')
+  if len({r['train_steps'] for r in ranks}) != 1:
+    problems.append(f'train calls {[r["train_steps"] for r in ranks]}')
+  for mark in ('reports', 'saves'):
+    if not ranks[0][mark] or any(r[mark] != ranks[0][mark] for r in ranks):
+      problems.append(f'{mark} at {[r[mark] for r in ranks]}')
+  if not row['stores_equal'] or len(
+      {r['counters']['train'] for r in ranks if r['counters']}) != 1:
+    problems.append(f'the saved stores differ: counters '
+                    f'{[r["counters"] for r in ranks]}')
+  if len(set().union(*(r['card_pids'] for r in ranks))) > GROUP_RANKS + 1:
+    problems.append(f'nvidia-smi listed {[r["card_pids"] for r in ranks]}')
+  if not ranks[1]['plain_ok']:
+    problems.append(f'kernel 3 at the actor batch disagrees with the plain '
+                    f'path: {ranks[1]["plain_errs"]}')
+  checked = (group_kernels(torch, ranks[1]['token_dim'])
+             if ranks[1]['token_dim'] else [])
+  row['kernels_at_rank_shapes'] = [
+      {k: c[k] for k in ('name', 'batch', 'steps', 'max_abs_err', 'ok',
+                         'sample_agreement', 'relative_errors',
+                         'bit_equal_calls') if k in c} for c in checked]
+  if len(checked) != 3 or not all(c['ok'] for c in checked):
+    problems.append('kernels 5, 6 and 8 at a rank\'s shapes: ' + '; '.join(
+        f'{c["name"]} at batch {c["batch"]}: {c["problems"]}'
+        for c in checked) if checked else 'no token width from rank 1')
+  emit(**row, ok=not problems)
+  if problems:
+    fail('parallel_group', '; '.join(problems))
+  gc.collect()
+  torch.cuda.empty_cache()
+  return {k: [r['launches'][k] for r in ranks] for k in PARALLEL_KERNELS}
 
 
 # The PPO and Director agents at their default configurations (each
@@ -4251,6 +4628,9 @@ def main():
   # The actor-learner script: kernel 3 in the actor's policy calls,
   # kernels 5, 6 and 8 in the learner's train steps.
   parallel_launches = timed(phase_parallel, torch, pinpad_speed)
+  # The same script on a process group of two ranks: kernel 3 in each
+  # rank's actor, kernels 5, 6 and 8 in each rank's learner.
+  group_launches = timed(phase_parallel_group, torch)
   bandit = start_bandit()  # beside phase script, read by phase ppo
   timed(phase_script, torch)
   timed(phase_ppo, torch, bandit)
@@ -4292,6 +4672,8 @@ def main():
           director[name])
     if name in parallel_launches:
       kernels[-1]['parallel_launches'] = parallel_launches[name]
+    if name in group_launches:
+      kernels[-1]['parallel_group_launches'] = group_launches[name]
     if name in distributed:
       kernels[-1]['distributed_launches'] = distributed[name]
     if name in sharded:

@@ -11,18 +11,25 @@ port has: `train`, `train_eval`, `eval_only`, the actor-learner script
 package.
 
 On a process group (`torch.coordinator_address`, see parallel/setup.py)
-every rank runs the script: `train`, `train_eval` and `eval_only` run
-there. Rank 0 writes to the logdir and rank k (RANK) to its subdirectory
-`rank<k>`, so no file has two writers. Under `torch.mock_devices: N` (N
-> 1) with no coordinator, `run_script` starts N gloo ranks on this host,
-each with batch_size / (d f) rows on a 'd,f,t' mesh, so the global batch
-stays batch_size, as in the JAX package's one process with N virtual
-devices.
+every rank runs the script: `train`, `train_eval`, `eval_only` and
+`parallel` run there (`pretrain` raises everywhere). Rank 0 writes to
+the logdir and rank k (RANK) to its subdirectory `rank<k>`, so no file
+has two writers. Under `torch.mock_devices: N` (N > 1) with no
+coordinator, `run_script` starts N gloo ranks on this host, each with
+batch_size / (d f) rows on a 'd,f,t' mesh, so the global batch stays
+batch_size, as in the JAX package's one process with N virtual devices;
+an interrupt reaches every rank. A rank of `parallel` runs its own envs,
+replay and logger, and the ranks' learners train, report, save and stop
+in lockstep (run/parallel_impl.py). The role scripts `parallel_env`,
+`parallel_envs` and `parallel_replay` run once, in this process, under
+either setting, with no group, as the JAX package runs them on any mesh.
 """
 
 import multiprocessing
 import os
+import signal
 import socket
+import time
 from functools import partial as bind
 
 import yaml
@@ -52,23 +59,14 @@ def assemble_config(configs_path, argv=None):
   return config
 
 
-# The scripts that run on a process group: no other script's collectives
-# would line up across ranks (their train calls follow wall clocks).
-GROUP_SCRIPTS = ('train', 'train_eval', 'eval_only')
+# The scripts that run on a process group: their collectives line up
+# across ranks (their reports, saves and stops are decided alike on every
+# rank). The role scripts of `parallel` make no group and spawn no rank.
+GROUP_SCRIPTS = ('train', 'train_eval', 'eval_only', 'parallel')
+ROLE_SCRIPTS = ('parallel_env', 'parallel_envs', 'parallel_replay')
 
 
-def run_script(config, make_agent_fn):
-  ranks = int(config.torch.mock_devices)
-  if ranks > 1 and not config.torch.coordinator_address:
-    return spawn_ranks(config, make_agent_fn, ranks)
-  if config.torch.coordinator_address:
-    if config.script not in GROUP_SCRIPTS:
-      raise NotImplementedError(
-          f'Script {config.script} on a process group: the port runs '
-          f'{", ".join(GROUP_SCRIPTS)} there')
-    rank = int(os.environ.get('RANK', 0))
-    if rank:  # Rank 0 writes the logdir, rank k its subdirectory.
-      config = config.update(logdir=str(Path(config.logdir) / f'rank{rank}'))
+def _run_script(config, make_agent_fn):
   print('Replica:', config.replica, '/', config.replicas)
   logdir = Path(config.logdir)
   print('Logdir:', logdir)
@@ -147,15 +145,51 @@ def run_script(config, make_agent_fn):
         args)
   else:
     raise NotImplementedError(config.script)
-  if config.torch.coordinator_address:
+
+
+def run_script(config, make_agent_fn):
+  """Run `config.script`, on N spawned gloo ranks under
+  `torch.mock_devices: N`, or as this process's rank of the group at
+  `torch.coordinator_address` (the role scripts run once, in this
+  process, either way). A rank of `script=parallel` answers an interrupt
+  as its duration: its learner stops with the others (run/parallel_impl.py),
+  the rank leaves the group and the interrupt goes on."""
+  ranks = int(config.torch.mock_devices)
+  role = config.script in ROLE_SCRIPTS
+  group = bool(config.torch.coordinator_address) and not role
+  if ranks > 1 and not group and not role:
+    return spawn_ranks(config, make_agent_fn, ranks)
+  if group:
+    if config.script not in GROUP_SCRIPTS:
+      raise NotImplementedError(
+          f'Script {config.script} on a process group: the port runs '
+          f'{", ".join(GROUP_SCRIPTS)} there')
+    rank = int(os.environ.get('RANK', 0))
+    if rank:  # Rank 0 writes the logdir, rank k its subdirectory.
+      config = config.update(logdir=str(Path(config.logdir) / f'rank{rank}'))
+  interrupted = False
+  try:
+    _run_script(config, make_agent_fn)
+  except KeyboardInterrupt:
+    if not (group and config.script == 'parallel'):
+      raise
+    interrupted = True
+  if group:
     shutdown()
+  if interrupted:
+    raise KeyboardInterrupt
+
+
+# Seconds that interrupted ranks have to end their runs.
+INTERRUPT_S = 120
 
 
 def spawn_ranks(config, make_agent_fn, ranks):
   """Run the script on `ranks` gloo ranks on this host, each a spawned
   process with batch_size / nbatch rows (nbatch: the mesh's ('d','f')
   size; ranks along 't' are replicas); returns when all have ended, and
-  raises (ending the rest) when one fails."""
+  raises (ending the rest) when one fails. An interrupt goes on to every
+  rank, and is raised again once they have ended."""
   d, f, _ = meshes.mesh_sizes(config.torch.mesh, ranks)
   if config.batch_size % (d * f):
     raise ValueError(f'batch_size {config.batch_size} does not divide over '
@@ -169,11 +203,23 @@ def spawn_ranks(config, make_agent_fn, ranks):
       for rank in range(ranks)]
   for proc in procs:
     proc.start()
+  interrupted = False
   try:
     while any(proc.is_alive() for proc in procs):
       if any(proc.exitcode for proc in procs):
         break
       procs[0].join(1)
+  except KeyboardInterrupt:
+    # Each rank ends its run (script=parallel's ranks stop together and
+    # leave the group). A terminal's interrupt has reached the ranks as
+    # well; each answers only the first (_interrupt_once).
+    interrupted = True
+    for proc in procs:
+      if proc.is_alive():
+        os.kill(proc.pid, signal.SIGINT)
+    deadline = time.time() + INTERRUPT_S
+    for proc in procs:
+      proc.join(max(0.0, deadline - time.time()))
   finally:
     for proc in procs:
       if proc.is_alive():
@@ -182,16 +228,31 @@ def spawn_ranks(config, make_agent_fn, ranks):
   failed = {rank: p.exitcode for rank, p in enumerate(procs) if p.exitcode}
   if failed:
     raise RuntimeError(f'Ranks failed with exit codes {failed}')
+  if interrupted:
+    raise KeyboardInterrupt
+
+
+def _interrupt_once(signum, frame):
+  """A rank's SIGINT handler: the first interrupt ends its run, and the
+  rank ignores any later one (a terminal's and spawn_ranks' both reach
+  it), so that no second interrupt cuts short the run's ending: the
+  learner's agreed stop, the roles' teardown and leaving the group."""
+  signal.signal(signal.SIGINT, signal.SIG_IGN)
+  raise KeyboardInterrupt
 
 
 def _run_rank(config, make_agent_fn, rank, ranks, nbatch, port):
+  signal.signal(signal.SIGINT, _interrupt_once)
   os.environ.update(RANK=str(rank), WORLD_SIZE=str(ranks),
                     LOCAL_RANK=str(rank))
   share_cores(ranks)
   config = config.update({
       'batch_size': config.batch_size // nbatch,
       'torch.coordinator_address': f'localhost:{port}'})
-  run_script(config, make_agent_fn)
+  try:
+    run_script(config, make_agent_fn)
+  except KeyboardInterrupt:
+    pass  # The run ended at the interrupt; spawn_ranks raises it on.
 
 
 def make_agent(config, model_cls, device=None):

@@ -9,6 +9,9 @@ world size come from its arguments, else from the RANK and WORLD_SIZE
 variables, as `jax.distributed.initialize` reads its cluster's. A failed
 start raises: there is no second try on another backend, and the group's
 timeout is finite, so a lost rank fails the run rather than hanging it.
+A process whose launcher started the default group itself keeps that
+group, if its rank and size are the ones given: two gloo ranks that
+share one card, which NCCL refuses, start so.
 
 `mock_devices: N` is the counterpart of the JAX package's N virtual CPU
 devices in one process: N gloo ranks on this host, which
@@ -42,7 +45,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from .guard import KNOBS
+from .guard import KNOBS, SYNCS
 
 _DONE = [False]
 _DEVICES = [None]  # What the first call returned.
@@ -82,7 +85,13 @@ def setup(device='cuda', compute_dtype='bfloat16', mock_devices=0,
   if mock_devices and device.type != 'cpu':
     raise ValueError('mock_devices runs gloo ranks on the CPU: set '
                      f'torch.device to cpu, not {device}')
-  if coordinator_address:
+  if coordinator_address and dist.is_initialized():
+    rank, world_size = _rank_and_size(rank, world_size)
+    if (dist.get_rank(), dist.get_world_size()) != (rank, world_size):
+      raise RuntimeError(
+          f'The process group already started is rank {dist.get_rank()} of '
+          f'{dist.get_world_size()}, not rank {rank} of {world_size}')
+  elif coordinator_address:
     init_group(device, coordinator_address, rank, world_size, timeout)
   devices = world_devices(device)
   if mock_devices and len(devices) != mock_devices:
@@ -102,9 +111,7 @@ def init_group(device, address, rank=None, world_size=None,
                timeout=TIMEOUT):
   """The default process group at `address` (host:port): nccl for a CUDA
   device, gloo for the CPU. Raises if it cannot start."""
-  rank = int(os.environ['RANK'] if rank is None else rank)
-  world_size = int(
-      os.environ['WORLD_SIZE'] if world_size is None else world_size)
+  rank, world_size = _rank_and_size(rank, world_size)
   device = torch.device(device)
   if device.type == 'cuda':
     if not torch.cuda.is_available():
@@ -115,6 +122,14 @@ def init_group(device, address, rank=None, world_size=None,
   dist.init_process_group(
       backend, init_method=f'tcp://{address}', rank=rank,
       world_size=world_size, timeout=datetime.timedelta(seconds=timeout))
+
+
+def _rank_and_size(rank=None, world_size=None):
+  """The arguments, or else the RANK and WORLD_SIZE variables."""
+  rank = int(os.environ['RANK'] if rank is None else rank)
+  world_size = int(
+      os.environ['WORLD_SIZE'] if world_size is None else world_size)
+  return rank, world_size
 
 
 def shutdown():
@@ -150,24 +165,38 @@ def agree(flag):
   """Rank 0's boolean `flag` on every rank (the flag itself without a
   process group): for decisions taken from a wall clock that every rank
   must take alike."""
-  return _decide(flag, lambda value: dist.broadcast(value, 0))
+  return decide(first=[flag])[0][0]
 
 
 def everyone(flag):
   """Whether every rank's boolean `flag` is true (the flag itself without
   a process group): for a collective that needs each rank's own data."""
-  return _decide(flag, lambda value: dist.all_reduce(
-      value, dist.ReduceOp.MIN))
+  return decide(every=[flag])[1][0]
 
 
-def _decide(flag, collective):
+def decide(first=(), every=(), some=()):
+  """Decisions that every rank takes alike, in one collective: rank 0's
+  value of each flag of `first` (a wall clock's), whether each flag of
+  `every` holds on every rank (a rank's own data), and whether each of
+  `some` holds on some rank (a rank's wish to stop). Returns the three
+  lists of bools; without a process group, the flags themselves."""
+  first, every, some = ([bool(f) for f in x] for x in (first, every, some))
   if not dist.is_initialized() or dist.get_world_size() == 1:
-    return bool(flag)
+    return first, every, some
+  # One all-reduce of the maxima: only rank 0 puts in its `first` flags,
+  # and `every` goes in negated (some rank's false is the maximum).
+  mine = first if dist.get_rank() == 0 else [False] * len(first)
+  flags = mine + [not f for f in every] + some
   nccl = dist.get_backend() == 'nccl'
-  value = torch.tensor([int(bool(flag))],
-                       device=rank_device('cuda' if nccl else 'cpu'))
-  collective(value)
-  return bool(value.item())
+  # An explicit crossing both ways: another thread of the process (the
+  # parallel script's actor) may hold the sync guard up.
+  with SYNCS.allowed():
+    value = torch.tensor(flags, dtype=torch.int32,
+                         device=rank_device('cuda' if nccl else 'cpu'))
+    dist.all_reduce(value, dist.ReduceOp.MAX)
+    got = [bool(v) for v in value.tolist()]
+  a, b = len(first), len(first) + len(every)
+  return got[:a], [not v for v in got[a:b]], got[b:]
 
 
 def share_cores(ranks):

@@ -4,7 +4,7 @@ The port of embodied_tpu/remote/proc.py: workers that propagate failures,
 a supervision loop that tears everything down when one worker dies, and
 crash files for external supervisors.
 
-Three differences from the JAX package:
+Five differences from the JAX package:
 - `Process` sends its target and arguments with the standard `pickle`
   into a `spawn` context, as the Driver's process transport does (not
   with `cloudpickle`): a parent with CUDA live needs `spawn`, and the
@@ -16,10 +16,18 @@ Three differences from the JAX package:
   with the run instead of outliving it.
 - `run` raises for a thread that failed while the run was ending, where
   the JAX one returns.
+- `run` also ends when an `until` event is set (the parallel script's
+  agent has left), and joins each thread it stops before it kills the
+  next worker.
+- A `Process` ignores interrupts: its supervisor ends it. A terminal's
+  interrupt reaches every process of its group, and a role that died of
+  it would end its learner's feed before the learners' agreed stop on a
+  process group.
 """
 
 import multiprocessing as mp
 import pickle
+import signal
 import sys
 import threading
 import time
@@ -103,6 +111,7 @@ def _pickled(fn, args, name):
 
 
 def _proc_main(payload):
+  signal.signal(signal.SIGINT, signal.SIG_IGN)
   fn, args = pickle.loads(payload)
   fn(*args)
 
@@ -149,10 +158,13 @@ class Process:
     self.proc.join(timeout)
 
 
-def run(workers, duration=None):
-  """Start workers and supervise: if one fails, kill all and raise. A
-  thread that failed as the run ended (after the last poll, or while it
-  was being stopped) fails the run too."""
+def run(workers, duration=None, until=None):
+  """Start workers and supervise: if one fails, kill all and raise. The
+  run ends when every worker has ended, when `duration` seconds have
+  passed, or when the event `until` is set; the workers are then killed
+  in their order, each thread joined before the next worker. A thread
+  that failed as the run ended (after the last poll, or while it was
+  being stopped) fails the run too."""
   for worker in workers:
     if not worker.running:
       try:
@@ -167,6 +179,8 @@ def run(workers, duration=None):
       if all(not w.running for w in workers):
         break
       if duration and time.time() - start > duration:
+        break
+      if until is not None and until.is_set():
         break
       time.sleep(0.3)
   finally:

@@ -24,23 +24,39 @@ Differences from the JAX package:
 - The carry cache fetches the policy carries with an explicit `.cpu()`
   and keeps them as host tensors (the carries may be bfloat16, which
   numpy lacks); `Agent.policy` puts them back on the device.
-- The actor and the learner stop when the run ends: both watch one stop
-  event that the supervisor sets, the learner closes its prefetching
-  streams, and every RPC endpoint of the agent process is closed.
+- The actor and the learner stop when the run ends: the supervisor's
+  request stops the learner, which then closes its prefetching streams
+  and sets the stop that ends the actor, and every RPC endpoint of the
+  agent process is closed; the supervisor ends the other roles only
+  after that.
+- On a process group (models/common.py) each rank runs this script with
+  its own envs, replay and logger, and its learner thread makes every
+  collective of the rank once make_agent has returned (the actor's
+  policy calls make none): the train steps', a sharded store's, the
+  saves' and one decision a learner iteration (setup.decide) that stops
+  every rank once some rank asks and fires reports, evaluations and
+  saves at rank 0's times. So every rank makes the same train calls and
+  stops at the same train-call index, and a rank's envs and replay keep
+  serving its learner until then. A fixed actor, replay or logger
+  address raises on a rank with LOCAL_RANK > 0 (rank 0 of its host binds
+  it). The latent table's slots stay in each rank's range, as in `train`.
 """
 
 import collections
+import os
 import pickle
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import core, native, remote
 from ..core import limiters as limiterlib
 from ..core import streams as streamlib
 from ..parallel.guard import SYNCS
+from ..parallel.setup import decide
 from ..utils import Agg, Checkpoint, Counter, FPS, Path, Usage, timer, tree
 
 
@@ -169,12 +185,12 @@ class _Actor:
 
 class _SampleFeed:
   """Prefetched sample_batch_* futures exposed as an iterator; raises
-  Disconnected once `stop` is set."""
+  Disconnected once `until` is set."""
 
-  def __init__(self, addr, source, stop, depth=2):
+  def __init__(self, addr, source, until, depth=2):
     self.client = remote.Client(addr, f'LearnerReplay{source}')
     self.method = f'sample_batch_{source}'
-    self.stop = stop
+    self.until = until
     self.depth = depth
     self.count = 0
     self._queue = None
@@ -191,19 +207,33 @@ class _SampleFeed:
           batch = future.result(timeout=0.5)
           break
         except TimeoutError:
-          if self.stop.is_set():
+          if self.until.is_set():
             raise remote.Disconnected('Disconnected: the run is stopping')
       self.count += 1
       yield batch
 
+  def close(self):
+    self.client.close()
+
 
 class _Learner:
-  """Owns the train loop, checkpointing, and report cadence."""
+  """Owns the train loop, checkpointing, and report cadence.
 
-  def __init__(self, agent, args, stop):
+  `request` is this rank's wish to stop (the run's duration, an
+  interrupt, a failed role). On a process group the learner makes every
+  collective of its rank after make_agent: the train step's, a sharded
+  store's gathers, the saves and one decision at the top of each
+  iteration (setup.decide), which stops every rank once some rank asks
+  and fires reports, evaluations and saves where rank 0's clocks say, so
+  that all ranks make the same calls at the same train-call index. The
+  `feeds` ({'train', 'report', 'eval'}: iterables that count the batches
+  they gave), `logger` and `updater` are the replay's and the logger's
+  RPC clients in the run (`_Learner.connect`)."""
+
+  def __init__(self, agent, args, request, feeds, logger, updater):
     self.agent = agent
     self.args = args
-    self.stop = stop
+    self.request = request
     self.agg = Agg()
     self.usage = Usage(**dict(args.usage))
     self.fps = FPS()
@@ -218,13 +248,23 @@ class _Learner:
       snapshot = pickle.loads(Path(args.from_checkpoint).read_bytes())
       agent.load(snapshot['agent'])
     self.ckpt.load_or_save()
-    self.logger = remote.Client(args.logger_addr, 'LearnerLogger', maxinflight=1)
-    self.updater = remote.Client(
-        args.replay_addr, 'LearnerReplayUpdater', maxinflight=8)
-    self.feeds = {
-        source: _SampleFeed(args.replay_addr, source, stop)
-        for source in ('train', 'report', 'eval')}
+    self.logger = logger
+    self.updater = updater
+    self.feeds = feeds
     self.streams = {}
+    self.steps = 0  # train calls made
+    self._ready = False  # every rank's report feed has given a batch
+
+  @classmethod
+  def connect(cls, agent, args, request, until):
+    """The learner of the run, on RPC clients of its replay and logger;
+    its feeds end at `until`."""
+    logger = remote.Client(args.logger_addr, 'LearnerLogger', maxinflight=1)
+    updater = remote.Client(
+        args.replay_addr, 'LearnerReplayUpdater', maxinflight=8)
+    feeds = {source: _SampleFeed(args.replay_addr, source, until)
+             for source in ('train', 'report', 'eval')}
+    return cls(agent, args, request, feeds, logger, updater)
 
   def _stream(self, source):
     feed = self.feeds[source]
@@ -241,6 +281,19 @@ class _Learner:
       scores.add(metrics)
     return scores.result()
 
+  def _decide(self):
+    """(stop, report, evaluate, save) alike on every rank. The report
+    clock skips while some rank's report feed has given nothing (known
+    as of the last decision: the counts only grow)."""
+    (report, save), (ready, evals), (stop,) = decide(
+        first=[self.clocks['report'](skip=not self._ready),
+               self.clocks['save']()],
+        every=[self.feeds['report'].count, self.feeds['eval'].count],
+        some=[self.request.is_set()])
+    self._ready = ready
+    report = report and ready
+    return stop, report, report and evals and self.args.eval_envs, save
+
   def run(self):
     args = self.args
     batch_steps = args.batch_size * args.batch_length
@@ -249,19 +302,24 @@ class _Learner:
     evals = self._stream('eval')
     carry = self.agent.init_train(args.batch_size)
     try:
-      while not self.stop.is_set():
+      while True:
+        stop, due_report, due_eval, due_save = self._decide()
+        if stop:
+          return
         with timer.section('learner_next'):
           batch = next(train)
         with timer.section('learner_train'):
           carry, outs, mets = self.agent.train(carry, batch)
+        self.steps += 1
         if 'replay' in outs:
           self.updater.call('update', outs['replay'])
         self.agg.add(mets)
         self.fps.step(batch_steps)
-        self._maybe_report(report, evals)
+        if due_report:
+          self._report(report, evals if due_eval else None)
         self._maybe_log()
-        if self.clocks['save']():
-          self.ckpt.save()
+        if due_save:
+          self._save()
     except (remote.Disconnected, RuntimeError) as e:
       # Replay/logger going away, or a feed ending at the stop, means the
       # run is shutting down.
@@ -270,13 +328,14 @@ class _Learner:
         return
       raise
 
-  def _maybe_report(self, report, evals):
-    if not self.clocks['report'](skip=not self.feeds['report'].count):
-      return
+  def _report(self, report, evals):
     with timer.section('learner_report'):
       self.logger.call('add', _tag(self._evaluate(report), 'report'))
-      if self.args.eval_envs and self.feeds['eval'].count:
+      if evals is not None:
         self.logger.call('add', _tag(self._evaluate(evals), 'eval'))
+
+  def _save(self):
+    self.ckpt.save()
 
   def _maybe_log(self):
     if not self.clocks['log']():
@@ -294,7 +353,7 @@ class _Learner:
   def close(self):
     """Stop the prefetch threads and close the RPC clients."""
     for feed in self.feeds.values():
-      feed.client.close()
+      feed.close()
     streamlib.close(*self.streams.values())
     self.logger.close()
     self.updater.close()
@@ -563,14 +622,26 @@ def combined(
   if args.actor_batch <= 0:
     args = args.update(actor_batch=max(1, args.envs // 2))
   assert args.actor_batch <= args.envs, (args.actor_batch, args.envs)
+  local = int(os.environ.get('LOCAL_RANK', 0))
   for key in ('actor_addr', 'replay_addr', 'logger_addr'):
     if '{auto}' in args[key]:
       args = args.update({key: args[key].format(auto=remote.free_port())})
+    elif local:
+      # Each rank of a host runs its own roles: a fixed address would be
+      # bound, or served, by rank 0's as well.
+      raise ValueError(
+          f'run.{key} is fixed ({args[key]}) on a rank with LOCAL_RANK '
+          f'{local}, which shares its host with rank 0\'s roles: give '
+          f"'host:{{auto}}' so that each rank binds its own port")
   native.codec()  # built once, here, before the workers that use it start
 
-  stop = threading.Event()
+  # `request` asks the agent to stop (the duration, an interrupt, a failed
+  # role); `stop` is set once its learner has left, and only then do the
+  # processes go, which its learner may wait on until every rank stops.
+  request, stop = threading.Event(), threading.Event()
   fleet = [remote.Thread(
-      parallel_agent, make_agent, args, stop, name='agent', stop=stop.set)]
+      parallel_agent, make_agent, args, request, stop, name='agent',
+      stop=request.set)]
   fleet.append(remote.Process(
       parallel_logger, make_logger, args, name='logger'))
   if not args.remote_envs:
@@ -582,17 +653,24 @@ def combined(
     fleet.append(remote.Process(
         parallel_replay, make_replay_train, make_replay_eval, make_stream,
         args, name='replay'))
-  remote.run(fleet, duration=args.duration or None)
+  remote.run(fleet, duration=args.duration or None, until=stop)
 
 
-def parallel_agent(make_agent, args, stop=None):
+def parallel_agent(make_agent, args, request=None, stop=None):
   """The agent role: the actor and learner threads share one agent on
   one device. The actor starts serving only after the learner finished
-  restoring the checkpoint. Both end when `stop` is set, by the caller or
-  when the run's duration ends or a thread fails."""
+  restoring the checkpoint. `request` (the caller's, the run's duration,
+  or a failed thread) asks the learner to stop; once it has left, it
+  sets `stop` and the actor ends. Without a process group the learner
+  leaves at the request; on one, at the first decision after some rank
+  asked (see _Learner), and its sample feeds wait for batches until then,
+  so the actor serves this rank's envs until its learner has left."""
+  request = request or threading.Event()
   stop = stop or threading.Event()
   agent = make_agent()
-  if stop.is_set():
+  group = dist.is_initialized() and dist.get_world_size() > 1
+  if request.is_set() and not group:
+    stop.set()
     return
   ready = threading.Event()
 
@@ -606,17 +684,21 @@ def parallel_agent(make_agent, args, stop=None):
       actor.close()
 
   def learner_thread():
-    learner = _Learner(agent, args, stop)
     try:
-      ready.set()
-      with timer.section('learner'):
-        learner.run()
+      learner = _Learner.connect(
+          agent, args, request, stop if group else request)
+      try:
+        ready.set()
+        with timer.section('learner'):
+          learner.run()
+      finally:
+        learner.close()
     finally:
-      learner.close()
+      stop.set()
 
   remote.run([
-      remote.Thread(actor_thread, name='actor', stop=stop.set),
-      remote.Thread(learner_thread, name='learner', stop=stop.set),
+      remote.Thread(learner_thread, name='learner', stop=request.set),
+      remote.Thread(actor_thread, name='actor', stop=request.set),
   ], duration=args.duration or None)
 
 

@@ -13,7 +13,8 @@ the process group's own timeout is finite. Held here:
   at rtol 1e-5 and atol 1e-6, since only the summation order differs;
 - the two-rank DreamerV3 step against the JAX model's step on a '2,1,1'
   mesh of the virtual CPU devices, on the JAX store and the JAX draws, at
-  tests/test_torch_slice.py's tolerances;
+  tests/test_torch_slice.py's tolerances, and so the step that the
+  parallel script's learners make on the two ranks;
 - shardmap mode: replicated placements, the default mode's numbers;
 - the percentile over two ranks' halves equals the whole batch's exactly;
 - two processes of batch_size 4 make a global batch of 8 and log the same
@@ -245,7 +246,7 @@ def dreamer_steps(rec, folder):
   ranks = launch('step', {'runs': [dict(
       family='dreamerv3', argv=DREAMER + HOST_PATH, local=LOCAL,
       store=start, batch=data, recorded=recorded, chunk_bytes=CHUNK,
-      shardmap=True, values=values)]}, folder)
+      shardmap=True, learner=True, values=values)]}, folder)
   return dict(
       ranks=[r[0] for r in ranks], mets=mets, outs=outs, after=after,
       agent=agent, data=data, values=values, meta=meta, jmets=jmets,
@@ -310,6 +311,14 @@ def test_two_ranks_match_the_jax_mesh_step(dreamer):
   assert dreamer['mesh_spec'] == (2, 1, 1)
   for got in dreamer['ranks']:
     assert_matches_jax_step(got, dreamer)
+
+
+def test_two_learners_match_the_jax_mesh_step(dreamer):
+  """The parallel script's _Learner on each rank, fed the rank's rows in
+  process, makes the same step: its logged train metrics, the store
+  after it and the replay updates it sent against the JAX mesh step."""
+  for got in dreamer['ranks']:
+    assert_matches_jax_step(got['learner'], dreamer)
 
 
 def assert_matches_jax_step(got, ref):

@@ -185,7 +185,7 @@ def test_scripts_stop_their_prefetch_threads(tmp_path, script):
 
 
 CHILD = '''
-import json, os, sys, threading, time
+import json, os, signal, sys, threading, time
 sys.path.insert(0, {root!r})
 from embodied_tpu_torch import parallel
 from embodied_tpu_torch.models.{family} import main
@@ -211,12 +211,21 @@ def children():
       pids.append(int(pid))
   return pids
 
-def seen(logdir, events):
+def seen(logdir, events, saved):
   """Whether the run has written its checkpoint files and metric lines
-  that hold each of `events` (a key, or a key whose value must be > 0)."""
+  that hold each of `events` (a key, or a key whose value must be > 0)
+  and, with `saved`, an agent checkpoint after some train step."""
   names = ('agent.pkl', 'replay.pkl', 'logger.pkl')
   if not all(os.path.exists(os.path.join(logdir, n)) for n in names):
     return False
+  if saved:
+    import pickle
+    try:
+      with open(os.path.join(logdir, 'agent.pkl'), 'rb') as f:
+        if not pickle.load(f)['agent']['counters']['train']:
+          return False
+    except (OSError, EOFError, pickle.UnpicklingError):
+      return False
   try:
     with open(os.path.join(logdir, 'metrics.jsonl')) as f:
       lines = [json.loads(l) for l in f if l.endswith('\\n')]
@@ -235,13 +244,18 @@ if __name__ == '__main__':
   ender, finished = None, threading.Event()
   if events:
     # End the run once the events are logged, as a user does: with an
-    # interrupt, which main's supervisor answers by stopping every role.
+    # interrupt, which main's supervisor answers by stopping every role;
+    # with `terminal`, a SIGINT to every process of this child's own
+    # process group, as a terminal's Ctrl-C reaches them.
     import _thread
 
     def end_run():
       while not finished.is_set():
-        if seen({logdir!r}, events):
-          _thread.interrupt_main()
+        if all(seen(d, events, {saved!r}) for d in {logdirs!r}):
+          if {terminal!r}:
+            os.killpg(os.getpgrp(), signal.SIGINT)
+          else:
+            _thread.interrupt_main()
           return
         time.sleep(0.3)
     ender = threading.Thread(target=end_run, daemon=True)
@@ -262,19 +276,28 @@ if __name__ == '__main__':
 '''
 
 
-def run_child(family, argv, timeout, logdir=None, events=()):
+def run_child(family, argv, timeout, logdir=None, events=(), saved=False,
+              terminal=False, clean=False):
   """`main.main(argv)` of a model family in a child interpreter; returns
   its Agent.train calls, and the threads and child processes still alive
   after it returned. With `events` ((metric key, whether its value must be
   > 0) pairs; a key ending in '/' is a prefix), an interrupt ends the run
-  once `logdir` holds its checkpoint files and metric lines with each of
-  them, else it ends on its budget."""
+  once `logdir` (or each of a list of them, one a rank) holds its
+  checkpoint files and metric lines with each of them and, with `saved`,
+  an agent checkpoint after a train step; else it ends on its budget. The
+  interrupt reaches the child's main thread, or with `terminal` every
+  process of the child's own process group, as a terminal's Ctrl-C. With
+  `clean`, no process of the run may print a traceback."""
+  logdirs = logdir if isinstance(logdir, (list, tuple)) else [logdir]
   code = CHILD.format(root=str(ROOT), family=family, argv=argv,
-                      logdir=str(logdir), events=list(events))
+                      logdirs=[str(d) for d in logdirs],
+                      events=list(events), saved=saved, terminal=terminal)
   proc = subprocess.run(
       [sys.executable, '-c', code], cwd=ROOT, capture_output=True,
-      text=True, timeout=timeout)
+      text=True, timeout=timeout, start_new_session=True)
   assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+  if clean:
+    assert 'Traceback' not in proc.stderr, proc.stderr[-3000:]
   return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -346,7 +369,7 @@ def test_parallel_replay_beside_remote_replay(tmp_path):
   argv = parallel_argv(tmp_path, '--run.duration', '40', *flags)
   replay_argv = [a if a != 'parallel' else 'parallel_replay' for a in argv]
   code = CHILD.format(root=str(ROOT), family='dreamerv3', argv=replay_argv,
-                      logdir=None, events=[])
+                      logdirs=[], events=[], saved=False, terminal=False)
   replay = subprocess.Popen(
       [sys.executable, '-c', code], cwd=ROOT, stdout=subprocess.DEVNULL,
       stderr=subprocess.DEVNULL)
