@@ -2688,21 +2688,22 @@ GROUP_ARGV = PARALLEL + NO_COUNT + [
 GROUP_JOIN = 240  # seconds a rank may take beyond its set-up and budget
 
 
-def group_kernels(torch, K, D=DEFAULT['D'], H=DEFAULT['H'], S=DEFAULT['S'],
-                  C=DEFAULT['C'], U=DEFAULT['U']):
-  """Kernels 5, 6 and 8 at the shapes that a rank of phase_parallel_group
-  gives them, each against its plain version as in phase kernels (random
-  weights and inputs from their own seed, checked, untimed): the window
-  of WINDOW steps of GROUP_ROWS rows with the encoder's token width `K`,
-  and the rollout of IMAG_LENGTH steps from GROUP_ROWS x WINDOW starts
-  with PinPad's 5 actions. Returns the rows with their problems."""
+def group_kernels(torch, K, B=GROUP_ROWS, D=DEFAULT['D'], H=DEFAULT['H'],
+                  S=DEFAULT['S'], C=DEFAULT['C'], U=DEFAULT['U']):
+  """Kernels 5, 6 and 8 at the shapes that a rank of B rows gives them
+  (GROUP_ROWS: phase_parallel_group's), each against its plain version
+  as in phase kernels (random weights and inputs from their own seed,
+  checked, untimed): the window of WINDOW steps of B rows with the
+  encoder's token width `K`, and the rollout of IMAG_LENGTH steps from B
+  x WINDOW starts with a categorical head of 5 actions. Returns the rows
+  with their problems."""
   gen = torch.Generator(DEV).manual_seed(SEED + 2)
   L = S * C
   core, head = size12m_params(torch, gen, D=D, H=H, S=L, K=K, L=L)
-  rows = window_kernels(torch, gen, core + head, None, B=GROUP_ROWS, D=D,
+  rows = window_kernels(torch, gen, core + head, None, B=B, D=D,
                         H=H, S=S, K=K, C=C, config='default', timed=False)
   rows.append(rollout_kernel(
-      torch, gen, core, True, None, B=GROUP_ROWS * WINDOW, D=D, H=H, S=S,
+      torch, gen, core, True, None, B=B * WINDOW, D=D, H=H, S=S,
       U=U, C=C, config='default', timed=False))
   return rows
 
@@ -3324,6 +3325,23 @@ def counted_collectives(dist):
   return counts, restore
 
 
+class AllowedDraws:
+  """Draws from `draws` inside the agent's explicit host crossing: the
+  recorded noise goes to the host, and recorded noise comes back to the
+  card, which the sync guard refuses elsewhere in a train call."""
+
+  def __init__(self, agent, draws):
+    self.agent, self.draws = agent, draws
+
+  def gumbel(self, shape):
+    with self.agent._allowed():
+      return self.draws.gumbel(shape)
+
+  def normal(self, shape):
+    with self.agent._allowed():
+      return self.draws.normal(shape)
+
+
 def fixed_draws(torch, agent, record=None):
   """Every train call of `agent` draws its noise from one generator seeded
   with DIST_SEED (recorded into `record`, a list, where given)."""
@@ -3337,7 +3355,7 @@ def fixed_draws(torch, agent, record=None):
       return inner
     recorder = RecordDraws(inner)
     recorder.recorded = record
-    return recorder
+    return AllowedDraws(agent, recorder)
   agent._draws = draws
 
 
@@ -3378,12 +3396,17 @@ def update_errors(torch, before, got, want):
 UPDATE_AGREEMENT = 0.99
 
 
-def two_rank_errors(torch, agent, before, got, want):
+def opt_layout(agent):
+  """{path: size} of the optimizer's parameters in its flat order."""
+  return {k: v.numel() for k, v in agent.model.opt.params.items()}
+
+
+def two_rank_errors(torch, layout, before, got, want):
   """(per trained tensor: the share of entries whose update agrees, the
-  relative error of |gradient|) of `got` against `want`."""
+  relative error of |gradient|) of `got` against `want`; `layout` is
+  opt_layout's."""
   agree, grads, offset = {}, {}, 0
-  for path, param in agent.model.opt.params.items():
-    n = param.numel()
+  for path, n in layout.items():
     if path in before:
       mine, theirs = got[path] - before[path], want[path] - before[path]
       agree[path] = float(((mine - theirs).abs() <= 1e-2 * theirs.abs())
@@ -3456,7 +3479,7 @@ def ranks_2(torch, agent, data, record, reference, mets, before_path):
   shutil.rmtree(folder, ignore_errors=True)
   shutil.rmtree(os.path.dirname(before_path), ignore_errors=True)
   agree, grads = two_rank_errors(
-      torch, agent, before, got[0]['params'],
+      torch, opt_layout(agent), before, got[0]['params'],
       {k: v.cpu() for k, v in reference.items()})
   losses, bad = check_losses(got[0]['mets'], mets)
   row = dict(losses=losses, update_agreement_min=min(agree.values()),
@@ -3493,7 +3516,8 @@ def rank_2_main(rank, port, folder):
   agent.model.opt.step.fill_(int(config.agent.opt.warmup))
   before = torch.load(inputs['before'])
   index = agent.mesh.data_index
-  draws = RankDraws(inputs['record'], index, 2, agent.device)
+  draws = AllowedDraws(
+      agent, RankDraws(inputs['record'], index, 2, agent.device))
   agent._draws = lambda kind, salt: draws
   _, _, mets = agent.train(
       agent.init_train(count), rows(inputs['data'], index, count))
@@ -3511,20 +3535,28 @@ def rank_2_main(rank, port, folder):
 # two ranks of 8 rows, torch.mesh '1,2,1' (each rank holds half of every
 # kernel and embedding) against '2,1,1' (replicated), from one seed's
 # store past the warm-up, on one batch: SHARD_STEPS train steps each, then
-# SHARD_CALLS policy calls and a save. Two NCCL ranks on two cards where
-# the machine has them, else two gloo ranks on one card: gloo stages a
-# CUDA tensor through host memory and waits for it, which the sync guard
-# refuses, so those ranks run with torch.transfer_guard False.
+# SHARD_CALLS policy calls and a save. Then '1,1,2': both ranks on all 16
+# rows, splitting the products of the kernels and embeddings that the
+# placements shard over 't' (parallel/tensor.py), under (a)'s noise. Two
+# NCCL ranks on two cards where the machine has them, else two gloo ranks
+# on one card: gloo stages a CUDA tensor through host memory and waits for
+# it, which the sync guard refuses, so those ranks run with
+# torch.transfer_guard False.
 SHARD_ARGV = DEFAULT_ARGV + HOST_PATH + NO_COUNT
-SHARD_MESHES = ('1,2,1', '2,1,1')
+SHARD_MESHES = ('1,2,1', '2,1,1', '1,1,2')
 SHARD_STEPS = 3  # the first is the warm-up, each is held against the other
 SHARD_CALLS = 5
-SHARD_ROWS = 8
+SHARD_ROWS = 8  # a rank's at '1,2,1' and '2,1,1'
+SPLIT_MESH = '1,1,2'
+SPLIT_ROWS = 2 * SHARD_ROWS  # (a)'s batch, on each rank at '1,1,2'
 
 
-def sharded_check(torch, data):
+def sharded_check(torch, data, reference):
   """Runs sharded_rank_main on two ranks; returns (row, problems, the
-  '1,2,1' run's launches of kernels 3, 5, 6 and 8)."""
+  launches of kernels 3, 5, 6 and 8 in the '1,2,1' and '1,1,2' runs).
+  `reference` is (a)'s one-rank step: its metrics (`mets`), the trained
+  tensors before it (`before`) and after it with the square moments
+  (`params`), and the optimizer's layout (`layout`)."""
   import multiprocessing
   import pickle
   import shutil
@@ -3556,29 +3588,27 @@ def sharded_check(torch, data):
   for r in range(2):
     with open(os.path.join(folder, f'rank{r}.pkl'), 'rb') as f:
       ranks.append(pickle.load(f))
+  first = torch.load(os.path.join(folder, 'split_first_step.pt'))
   shutil.rmtree(folder, ignore_errors=True)
   want = {mesh: default_bytes(mesh) for mesh in SHARD_MESHES}
+  per_rank = lambda key: {m: [r[m][key] for r in ranks]
+                          for m in SHARD_MESHES}
   row = dict(
       backend=backend, devices=[r['device'] for r in ranks],
       transfer_guard=backend == 'nccl',
       seconds_ranks=max(r['seconds'] for r in ranks),
-      store_bytes={mesh: [r[mesh]['bytes'] for r in ranks]
-                   for mesh in SHARD_MESHES},
+      store_bytes=per_rank('bytes'),
       store_bytes_expected={m: want[m]['placements'] for m in SHARD_MESHES},
-      collectives_per_step={m: ranks[0][m]['collectives']
-                            for m in SHARD_MESHES},
-      collective_bytes_per_step={m: ranks[0][m]['collective_bytes']
-                                 for m in SHARD_MESHES},
-      ms_per_train_step={m: [r[m]['ms'] for r in ranks]
-                         for m in SHARD_MESHES},
+      collectives_per_step=per_rank('collectives'),
+      collective_bytes_per_step=per_rank('collective_bytes'),
+      ms_per_train_step=per_rank('ms'),
       ms_per_train_step_median={m: statistics.median(
           t for r in ranks for t in r[m]['ms']) for m in SHARD_MESHES},
-      peak_mem_mb={m: [r[m]['peak_mem_mb'] for r in ranks]
-                   for m in SHARD_MESHES},
+      peak_mem_mb=per_rank('peak_mem_mb'),
       losses={m: ranks[0][m]['losses'] for m in SHARD_MESHES},
-      launches={m: ranks[0][m]['launches'] for m in SHARD_MESHES},
-      policy_launches=[r['1,2,1']['policy_launches'] for r in ranks],
-      policy_collectives=[r['1,2,1']['policy_collectives'] for r in ranks],
+      launches=per_rank('launches'),
+      policy_launches=per_rank('policy_launches'),
+      policy_collectives=per_rank('policy_collectives'),
       mets_differ=[r['mets_differ'] for r in ranks],
       store_differ=[r['store_differ'] for r in ranks],
       store_max_abs_diff=[r['store_max_abs_diff'] for r in ranks])
@@ -3589,13 +3619,13 @@ def sharded_check(torch, data):
       if total != held['placements'] or total != want[mesh]['placements']:
         problems.append(f'rank {rank} at {mesh} holds {held}, the '
                         f'placements give {want[mesh]["placements"]}')
-      copy = want[mesh]['policy_copy'] if mesh == '1,2,1' else 0
+      copy = want[mesh]['policy_copy'] if mesh != '2,1,1' else 0
       if held['policy_copy'] != copy:
         problems.append(f'rank {rank} at {mesh}: a policy copy of '
                         f'{held["policy_copy"]} B, not {copy}')
-  extra = dict(row['collectives_per_step']['2,1,1'])
+  extra = dict(row['collectives_per_step']['2,1,1'][0])
   extra['all_gather'] += 1
-  if row['collectives_per_step']['1,2,1'] != extra:
+  if row['collectives_per_step']['1,2,1'][0] != extra:
     problems.append(f'the sharded step made {row["collectives_per_step"]}')
   for rank in range(2):
     if row['mets_differ'][rank] or row['store_differ'][rank]:
@@ -3604,16 +3634,78 @@ def sharded_check(torch, data):
           f'{row["mets_differ"][rank][:5]}, store '
           f'{row["store_differ"][rank][:5]}')
   for mesh in SHARD_MESHES:
-    if row['launches'][mesh] != {k: SHARD_STEPS for k in TRAIN_KERNELS}:
+    if row['launches'][mesh] != [{k: SHARD_STEPS for k in TRAIN_KERNELS}] * 2:
       problems.append(f'{mesh}: launches {row["launches"][mesh]}')
-  if row['policy_launches'] != [SHARD_CALLS] * 2 or any(
-      row['policy_collectives']):
-    problems.append(f'policy calls on the copy: kernel 3 '
-                    f'{row["policy_launches"]}, collectives '
-                    f'{row["policy_collectives"]}')
-  launches = dict(ranks[0]['1,2,1']['launches'],
-                  obs_step=ranks[0]['1,2,1']['policy_launches'])
+  for mesh in ('1,2,1', SPLIT_MESH):
+    if row['policy_launches'][mesh] != [SHARD_CALLS] * 2 or any(
+        row['policy_collectives'][mesh]):
+      problems.append(f'{mesh}: policy calls on the copy: kernel 3 '
+                      f'{row["policy_launches"][mesh]}, collectives '
+                      f'{row["policy_collectives"][mesh]}')
+  row['split'], more = split_rows(torch, ranks, first, reference)
+  problems += more
+  launches = {mesh: dict(ranks[0][mesh]['launches'],
+                         obs_step=ranks[0][mesh]['policy_launches'])
+              for mesh in ('1,2,1', SPLIT_MESH)}
   return row, problems, launches
+
+
+def split_rows(torch, ranks, first, reference):
+  """The '1,1,2' run's rows and checks: each rank's FLOPs, split entries
+  and their share of the products; the ranks' metrics and saves equal
+  bit for bit; the first step against (a)'s one-rank step (losses at
+  LOSS_RTOL, updates and gradients as two_rank_errors says); kernels 5,
+  6 and 8 at a rank's shapes against their plain versions."""
+  got = [r[SPLIT_MESH] for r in ranks]
+  row = {key: [g[key] for g in got] for key in (
+      'train_flops', 'train_flops_one_rank', 'split_flops',
+      'split_entries', 'split_share')}
+  problems = []
+  for rank, g in enumerate(got):
+    t = len(ranks)
+    if g['train_flops'] != g['train_flops_one_rank'] - (
+        t - 1) * g['split_flops'] // t:
+      problems.append(f'rank {rank} counts {g["train_flops"]} FLOPs, one '
+                      f'rank {g["train_flops_one_rank"]}, the split '
+                      f'products {g["split_flops"]}')
+    if not g['split_entries'] or not 0 < g['split_share'] < 1:
+      problems.append(f'rank {rank}: {g["split_entries"]} split entries, '
+                      f'a share of {g["split_share"]}')
+  row['mets_equal'] = got[0]['mets'] == got[1]['mets']
+  row['saves_equal'] = got[0]['digests'] == got[1]['digests']
+  if not row['mets_equal'] or not row['saves_equal']:
+    problems.append(f'the {SPLIT_MESH} ranks differ: metrics equal '
+                    f'{row["mets_equal"]}, saves equal {row["saves_equal"]}')
+  row['losses_vs_one_rank'], bad = check_losses(
+      first['mets'], reference['mets'])
+  agree, grads = two_rank_errors(
+      torch, reference['layout'], reference['before'], first['params'],
+      reference['params'])
+  row.update(update_agreement_min=min(agree.values()),
+             grad_relerr_max=max(grads.values()))
+  low = sorted(k for k, a in agree.items() if not a >= UPDATE_AGREEMENT)
+  off = sorted(k for k, e in grads.items() if not e <= GRAD_RTOL)
+  if bad or low or off:
+    problems.append(f'{SPLIT_MESH} off one rank: losses {bad}, updates '
+                    f'{low[:5]}, grads {off[:5]}')
+  checked = group_kernels(torch, got[0]['token_dim'], B=SPLIT_ROWS)
+  row['kernels_at_rank_shapes'] = [
+      {k: c[k] for k in ('name', 'batch', 'steps', 'max_abs_err', 'ok',
+                         'sample_agreement', 'relative_errors',
+                         'bit_equal_calls') if k in c} for c in checked]
+  if len(checked) != 3 or not all(c['ok'] for c in checked):
+    problems.append(f'kernels 5, 6 and 8 at a {SPLIT_MESH} rank\'s shapes: '
+                    + '; '.join(f'{c["name"]} at batch {c["batch"]}: '
+                                f'{c["problems"]}' for c in checked))
+  return row, problems
+
+
+def digests(store):
+  """{key: crc32 of the array's bytes} of a saved store."""
+  import zlib
+  import numpy as np
+  return {k: zlib.crc32(np.ascontiguousarray(v).view(np.uint8))
+          for k, v in store.items()}
 
 
 def sharded_rank_main(rank, port, folder, backend):
@@ -3647,15 +3739,32 @@ def sharded_rank_main(rank, port, folder, backend):
   out = {'device': torch.cuda.get_device_name(local)}
   saves, mets_all = {}, {}
   for mesh in SHARD_MESHES:
+    split = mesh == SPLIT_MESH
+    count = SPLIT_ROWS if split else SHARD_ROWS
     config = common.assemble_config(dmain.CONFIGS, SHARD_ARGV + extra + [
-        '--batch_size', str(SHARD_ROWS), '--torch.mesh', mesh])
+        '--batch_size', str(count), '--torch.mesh', mesh])
     agent = dmain.make_agent(config)
     agent.model.opt.step.fill_(int(config.agent.opt.warmup))
-    batch = rows(data, agent.mesh.data_index, SHARD_ROWS)
+    batch = rows(data, agent.mesh.data_index, count)
+    row = {}
+    if split:
+      # (a)'s noise in every step, so that the first is (a)'s step.
+      fixed_draws(torch, agent)
+      cost = agent.train_cost()
+      held, agent._split = agent._split, frozenset()
+      whole = agent.train_cost()['flops']
+      agent._split = held
+      # The split products: t times the rank's parts.
+      split_flops = agent.mesh.t_count * cost['split_flops']
+      row.update(
+          train_flops=cost['flops'], train_flops_one_rank=whole,
+          split_flops=split_flops, split_entries=len(agent._split),
+          split_share=split_flops / whole,
+          token_dim=agent.model.dyn.token_dim)
     for wrapper in wrappers.values():
       wrapper.launches = 0
     torch.cuda.reset_peak_memory_stats(agent.device)
-    carry, times, mets_all[mesh] = agent.init_train(SHARD_ROWS), [], []
+    carry, times, mets_all[mesh] = agent.init_train(count), [], []
     for step in range(SHARD_STEPS):
       torch.cuda.synchronize(agent.device)
       start = time.perf_counter()
@@ -3668,7 +3777,18 @@ def sharded_rank_main(rank, port, folder, backend):
       else:
         times.append((time.perf_counter() - start) * 1e3)
       mets_all[mesh].append(mets)
-    row = dict(
+      if split and step == 0:
+        store = agent.save()['store']  # a collective: both ranks save
+        if rank == 0:
+          # Copies: the saved arrays are views of larger buffers.
+          torch.save(dict(mets={
+              k: float(v) for k, v in mets.items() if is_loss(k)}, params={
+              k: torch.from_numpy(v).clone() for k, v in store.items()
+              if k.split('/')[0] in TRAINED or k == 'opt/rms_flat'}),
+                     os.path.join(folder, 'split_first_step.pt'))
+        del store
+        dist.barrier()  # rank 1's next timed step waits for no write
+    row.update(
         ms=times, collectives={k: v[0] for k, v in counts.items()},
         collective_bytes={k: v[1] for k, v in counts.items()},
         bytes=agent.store_bytes(),
@@ -3679,7 +3799,7 @@ def sharded_rank_main(rank, port, folder, backend):
     observe.obs_step.launches = 0
     counts, restore = counted_collectives(dist)
     try:
-      policy = agent.init_policy(SHARD_ROWS)
+      policy = agent.init_policy(count)
       for _ in range(SHARD_CALLS):
         policy, _, _ = agent.policy(policy, obs)
     finally:
@@ -3688,6 +3808,9 @@ def sharded_rank_main(rank, port, folder, backend):
                policy_collectives={k: v[0] for k, v in counts.items()
                                    if v[0]})
     saves[mesh] = agent.save()['store']
+    if split:
+      row.update(mets=mets_all[mesh], digests=digests(saves[mesh]))
+      del saves[mesh]
     out[mesh] = row
     del agent, carry, policy
     gc.collect()
@@ -3699,7 +3822,8 @@ def sharded_rank_main(rank, port, folder, backend):
       [float(np.abs(got[k].astype(np.float64) - want[k]).max())
        for k in out['store_differ']] or [0.0])
   out['mets_differ'] = sorted(
-      f'{i}:{k}' for i, (a, b) in enumerate(zip(*mets_all.values()))
+      f'{i}:{k}' for i, (a, b) in enumerate(zip(
+          mets_all['1,2,1'], mets_all['2,1,1']))
       for k in b if not np.array_equal(a[k], b[k]))
   out['seconds'] = time.perf_counter() - began
   with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
@@ -3736,9 +3860,18 @@ def phase_distributed(torch):
       their bytes, ms per step; the metrics of every step and the saved
       (gathered) store at '1,2,1' equal to those at '2,1,1' bit for bit;
       kernels 5, 6 and 8 once a step, kernel 3 once a policy call on the
-      copy, which makes no collective.
+      copy, which makes no collective. Then '1,1,2' (row key `split`):
+      both ranks on all 16 rows, splitting the products over 't'
+      (parallel/tensor.py) under (a)'s noise: the same rows per rank,
+      and each rank's train FLOPs against the one-rank count, its split
+      entries and their share of the products; the two ranks' metrics
+      and saves equal bit for bit; the first step against (a)'s
+      one-rank step (losses at LOSS_RTOL, updates and gradients as
+      two_rank_errors says); kernels 5, 6 and 8 once a step and, at a
+      rank's shapes, against their plain versions; kernel 3 once a
+      policy call on the copy, with no collective.
   Returns the launches of kernels 3, 5, 6 and 8, and those of (d)'s
-  '1,2,1' run."""
+  '1,2,1' and '1,1,2' runs."""
   import importlib
   import numpy as np
   import torch.distributed as dist
@@ -3855,11 +3988,17 @@ def phase_distributed(torch):
   else:
     row['ranks_2'] = 'not run: 1 card'
   setuplib.shutdown()
-  del agent
+  reference = dict(
+      mets=mets_g, layout=opt_layout(agent),
+      before={k: v.cpu() for k, v in before.items()},
+      params={k: v.cpu() for k, v in params_g.items()})
+  del agent, before, params_g
   gc.collect()
   torch.cuda.empty_cache()
-  # (d) The sharded store: two ranks at '1,2,1' against '2,1,1'.
-  row['sharded'], more, sharded = sharded_check(torch, data)
+  # (d) The sharded store: two ranks at '1,2,1' against '2,1,1', then the
+  # split at '1,1,2' against (a)'s one-rank step.
+  row['sharded'], more, sharded = sharded_check(torch, data, reference)
+  del reference
   problems += more
   row['ok'] = not problems
   emit(**row)
@@ -4676,8 +4815,9 @@ def main():
       kernels[-1]['parallel_group_launches'] = group_launches[name]
     if name in distributed:
       kernels[-1]['distributed_launches'] = distributed[name]
-    if name in sharded:
-      kernels[-1]['sharded_launches'] = sharded[name]
+    if name in sharded['1,2,1']:
+      kernels[-1]['sharded_launches'] = sharded['1,2,1'][name]
+      kernels[-1]['split_launches'] = sharded[SPLIT_MESH][name]
     if name in diagnostics:
       kernels[-1]['diagnostics_launches'] = diagnostics[name]
     if name in encoder_modes[ENCODER_MODES[0][0]]:

@@ -12,7 +12,10 @@ Parameter or buffer object and swaps what it holds: `entries` gives the
 objects themselves and `assign` points them at other tensors, of another
 shape too. Between the Agent's calls a sharded entry holds the rank's
 slice, so `store` gives slices and `load_store` takes them; during a
-call that reads parameters it holds the full tensor.
+call that reads parameters it holds the full tensor. Within such a call
+on a mesh with t > 1, `Module.split` says whether a layer's kernel or
+embedding computes only the rank's part of its product
+(parallel/tensor.py).
 
 Parameters are float32. State that is not trained (normaliser statistics,
 the optimizer's step and moments, counters) is kept as buffers under the
@@ -25,6 +28,7 @@ order in which modules are built.
 """
 
 import math
+import threading
 import zlib
 
 import numpy as np
@@ -56,6 +60,13 @@ NAME_DOT = '\u00b7'
 def store_path(key):
   """The store path of a `state_dict` key."""
   return key.replace('.', '/').replace(NAME_DOT, '.')
+
+
+class _Split(threading.local):
+  active = None  # parallel.tensor.Split, set by parallel.tensor.split_over
+
+
+SPLIT = _Split()
 
 
 class Module(torch.nn.Module):
@@ -94,6 +105,14 @@ class Module(torch.nn.Module):
 
   def cast(self, xs, force=False):
     return cast(xs, self.cdtype, force)
+
+  def split(self, entry):
+    """The Split (parallel/tensor.py) under which this module's `entry`
+    ('kernel' or 'embed') computes split on this thread, else None."""
+    split = SPLIT.active
+    if split is not None and entry in split.entries.get(id(self), ()):
+      return split
+    return None
 
 
 def path_seed(seed, path):

@@ -7,6 +7,17 @@ shapes and layouts: Linear kernels (in, out), BlockLinear kernels
 when transposed), Conv3D kernels DHWIO on NDHWC inputs. Input widths are
 given at construction (JAX infers them at the first call). Matmuls run in
 the module's compute dtype on weights cast from float32.
+
+Under a split over the mesh's 't' ranks (parallel/tensor.py: the Agent's
+train and report where the placements shard a kernel or embedding over
+'t'), a layer whose entry splits takes the rank's part of the weight's
+last dimension, as GSPMD partitions the JAX layer: Linear, BlockLinear
+(the part of every group's columns), Conv2D, Conv3D and Embed compute
+their output columns or channels and gather them; the transposed Conv2D
+(HWOI, whose last dimension is the input channels) convolves the rank's
+input channels and sums the partial outputs. Biases are whole and are
+added once, to the joined output. GRU and Attention split through their
+Linears.
 """
 
 import math
@@ -15,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tensor
 from . import core
 from .core import Initializer, Module
 
@@ -39,7 +51,12 @@ class Linear(Module):
 
   def forward(self, x):
     x = self.cast(x)
-    y = x @ self.cast(self.kernel)
+    kernel = self.cast(self.kernel)
+    split = self.split('kernel')
+    if split is None:
+      y = x @ kernel
+    else:
+      y = tensor.columns(split, torch.matmul, x, kernel)
     if self.use_bias:
       y = y + self.cast(self.bias)
     if len(self.shape) > 1:
@@ -70,7 +87,13 @@ class BlockLinear(Module):
     g = self.groups
     lead = x.shape[:-1]
     xg = x.reshape((-1, g, x.shape[-1] // g))
-    y = torch.einsum('bgd,gdu->bgu', xg, self.cast(self.kernel))
+    kernel = self.cast(self.kernel)
+    product = lambda x, w: torch.einsum('bgd,gdu->bgu', x, w)
+    split = self.split('kernel')
+    if split is None:
+      y = product(xg, kernel)
+    else:  # Each group's part of its columns, gathered group by group.
+      y = tensor.columns(split, product, xg, kernel)
     y = y.reshape((*lead, self.units))
     if self.use_bias:
       y = y + self.cast(self.bias)
@@ -88,7 +111,11 @@ class Embed(Module):
     self.param('embed', (classes, units), _winit(winit, outscale))
 
   def forward(self, x):
-    return self.cast(self.embed)[x.long()]
+    table = self.cast(self.embed)
+    split = self.split('embed')
+    if split is None:
+      return table[x.long()]
+    return tensor.columns(split, lambda x, t: t[x.long()], x, table)
 
 
 def parse_norm(impl):
@@ -176,28 +203,38 @@ class Conv2D(Module):
       self.param('bias', (depth,), _winit(binit))
 
   def forward(self, x):
-    x = self.cast(x).permute(0, 3, 1, 2)
-    if self.transp:
-      y = self._transposed(x)
+    x, kernel = self.cast(x), self.cast(self.kernel)
+    product = self._transposed if self.transp else self._conv
+    split = self.split('kernel')
+    if split is None:
+      y = product(x, kernel)
+    elif self.transp:  # HWOI: the rank's input channels, partial sums.
+      y = tensor.inputs(split, product, x, kernel)
     else:
-      x = F.pad(x, same_pads(x.shape[2:], self.ksize, self.stride))
-      w = self.cast(self.kernel).permute(3, 2, 0, 1)
-      y = F.conv2d(x, w, stride=self.stride)
-    y = y.permute(0, 2, 3, 1)
+      y = tensor.columns(split, product, x, kernel)
     if self.use_bias:
       y = y + self.cast(self.bias)
     return y
 
-  def _transposed(self, x):
+  def _conv(self, x, kernel):
+    """NHWC x, HWIO kernel -> NHWC."""
+    x = x.permute(0, 3, 1, 2)
+    x = F.pad(x, same_pads(x.shape[2:], self.ksize, self.stride))
+    y = F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=self.stride)
+    return y.permute(0, 2, 3, 1)
+
+  def _transposed(self, x, kernel):
+    """NHWC x, HWOI kernel -> NHWC."""
+    x = x.permute(0, 3, 1, 2)
     k, s = self.ksize, self.stride
     before = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
     crop = k - 1 - before
     size = (x.shape[2] - 1) * s + k - 2 * crop
     extra = max(x.shape[2] * s - size, 0)
-    w = self.cast(self.kernel).permute(3, 2, 0, 1).flip(2, 3)
+    w = kernel.permute(3, 2, 0, 1).flip(2, 3)
     y = F.conv_transpose2d(x, w, stride=s, padding=crop,
                            output_padding=extra)
-    return y[:, :, :x.shape[2] * s, :x.shape[3] * s]
+    return y[:, :, :x.shape[2] * s, :x.shape[3] * s].permute(0, 2, 3, 1)
 
 
 class Conv3D(Module):
@@ -218,13 +255,22 @@ class Conv3D(Module):
       self.param('bias', (depth,), _winit(binit))
 
   def forward(self, x):
-    x = self.cast(x).permute(0, 4, 1, 2, 3)
-    x = F.pad(x, same_pads(x.shape[2:], self.ksize, self.stride))
-    w = self.cast(self.kernel).permute(4, 3, 0, 1, 2)
-    y = F.conv3d(x, w, stride=self.stride).permute(0, 2, 3, 4, 1)
+    x, kernel = self.cast(x), self.cast(self.kernel)
+    split = self.split('kernel')
+    if split is None:
+      y = self._conv(x, kernel)
+    else:
+      y = tensor.columns(split, self._conv, x, kernel)
     if self.use_bias:
       y = y + self.cast(self.bias)
     return y
+
+  def _conv(self, x, kernel):
+    """NDHWC x, DHWIO kernel -> NDHWC."""
+    x = x.permute(0, 4, 1, 2, 3)
+    x = F.pad(x, same_pads(x.shape[2:], self.ksize, self.stride))
+    y = F.conv3d(x, kernel.permute(4, 3, 0, 1, 2), stride=self.stride)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def rope(x, positions, maxlen=10000):

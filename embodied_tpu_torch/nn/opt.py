@@ -28,6 +28,18 @@ gradient twice.
 In both layouts the gradients cross the data group as that one flat
 buffer, which the per-parameter update then reads in slices.
 
+Under a split over the mesh's 't' ranks (parallel/tensor.py), a split
+entry's gradient is right only in the rank's part of its last dimension:
+the part's product ran on this rank alone, and a whole use of the same
+weight (a kernel's wrapper, which reads it in full) gave the same
+gradient on every 't' rank. Every other entry's gradient is whole and
+the same on every 't' rank. Before the data group's all-reduce, the loss
+scale's check and AGC's norms, each rank keeps its parts and, at 't'
+index 0 only, the other entries, zeroes the rest of the flat buffer, and
+one all-reduce over 't' joins it: the parts side by side, the other
+entries as the first 't' rank has them (summed over 't' they would count
+t times).
+
 On a sharded store (parallel/agent.py) the update sees the full
 parameters, which the Agent gathers before the step: the flat moments stay
 replicated, as in the JAX fused layout, and the per-parameter slots take
@@ -94,6 +106,25 @@ def group_cat(x):
   parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
   dist.all_gather(parts, x, group=group)
   return torch.cat(parts, 0)
+
+
+def join_parts(vec, paths, params, split):
+  """The flat gradient `vec` of `params` (at `paths`) joined over the
+  split's 't' group in place (see the module's docstring)."""
+  if not split.paths.intersection(paths):
+    return
+  offset = 0
+  for path, param in zip(paths, params):
+    view = vec[offset:offset + param.numel()].view(param.shape)
+    offset += param.numel()
+    if path in split.paths:
+      start, width = split.part(param.shape[-1])
+      view[..., :start] = 0
+      view[..., start + width:] = 0
+    elif split.index:
+      view.zero_()
+  if vec.device.type != 'meta':
+    dist.all_reduce(vec, group=split.group)
 
 
 def _full(x, device):
@@ -184,6 +215,9 @@ class Optimizer(core.Module):
         torch.zeros(p.numel(), device=p.device) if g is None
         else g.reshape(-1).float() for p, g in zip(params, grads)])
     del grads
+    split = core.SPLIT.active
+    if split is not None:
+      join_parts(vec, paths, params, split)
     group = DATA_GROUP[0]
     if group is not None:
       dist.all_reduce(vec, group=group)

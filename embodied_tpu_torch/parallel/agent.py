@@ -56,8 +56,8 @@ own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
 - a train step averages the gradients (one flat all-reduce in the
   optimizer), the normalizers' statistics and the scalar metrics over the
   data group, and folds the rank's data index into its draws; ranks along
-  't' train on the rows of their data index's first rank, which the step
-  broadcasts to them;
+  't' train and report on the rows of their data index's first rank,
+  which the call broadcasts to them;
 - every rank starts from rank 0's store and keeps it in step through the
   reduced gradients. The model's `partition_rules` place each entry on
   the mesh (`shardings`, parallel/meshes.py), as the JAX agent's
@@ -67,12 +67,22 @@ own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
   optimizer moments. A call that reads the parameters (`train`, `report`,
   `save`, `load`) first gathers the full tensors over each entry's shard
   group and keeps only the slices again when it ends, so on a sharded
-  store those calls are collectives that every rank makes alike. A train
-  step then computes what the replicated step computes, bit for bit: the
-  gradients are averaged over the data group only (never over 't'),
-  every rank updates the whole flat moments and parameters, and keeps
-  its slices. `torch.shardmap` makes every placement replicated
-  (`use_shardmap`, as the JAX shard_map mode);
+  store those calls are collectives that every rank makes alike. Every
+  rank updates the whole flat moments and parameters and keeps its
+  slices. Where no placement names 't' (t = 1) a train step computes
+  what the replicated step computes, bit for bit: the gradients are
+  averaged over the data group only;
+- on a mesh with t > 1, `train` and `report` split the products over
+  't' as GSPMD splits the JAX step (parallel/tensor.py): each layer whose
+  kernel or embedding the placements shard over 't' (`split_paths`)
+  computes the rank's part of its product from the gathered full weight
+  and joins the parts over the 't' group, and the optimizer joins the
+  split entries' gradient parts over 't' before the data group's
+  average (nn/opt.py). The kernels' wrappers read the full weights and
+  split nothing. The 't' ranks of a data index stay equal bit for bit;
+  against one rank, the split reorders float32 sums. `torch.shardmap`
+  makes every placement replicated (`use_shardmap`, as the JAX
+  shard_map mode), so nothing splits;
 - policy calls take the rank's rows alone, with no collective, so that
   the run loop may call them on each rank's own clock (an evaluation's
   episodes end at different calls on different ranks). So the policy acts
@@ -81,9 +91,10 @@ own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
   sharded store. On a sharded store each train step refreshes the copy
   from the full parameters it holds after the update; under the split
   alone each train step marks it stale and the next policy call
-  refreshes it. The device lock stays. The latent table is off under the
-  split and under shardmap, as in the JAX agent; on a mesh each process's
-  table holds the slot range that it allocates from.
+  refreshes it. The device lock stays, and no policy call splits: the
+  split is the learner thread's alone. The latent table is off under the
+  policy/train split and under shardmap, as in the JAX agent; on a mesh
+  each process's table holds the slot range that it allocates from.
 """
 
 import collections
@@ -111,6 +122,7 @@ from . import flops as flopslib
 from . import guard as guardlib
 from . import latents as latentslib
 from . import meshes
+from . import tensor as tensorlib
 
 
 def resolve_device(device):
@@ -189,6 +201,7 @@ class Agent(corelib.Agent):
     shapes = {k: v.shape for k, v in nn.store(model).items()}
     self.shardings = meshes.resolve_rules(shapes, rules, self.mesh)
     self._shards = meshes.Shards(shapes, self.shardings, self.mesh)
+    self._split = meshes.split_paths(self.shardings, self.mesh)
     self._sync_store()
     self._policy_copy = None
     if self.policy_mesh is not None or self._shards:
@@ -270,19 +283,22 @@ class Agent(corelib.Agent):
     return self.model.init_report(batch_size)
 
   def train_cost(self):
-    """{'flops': F}, the products of one train step, forward and backward,
-    at the rows this process feeds (config.batch_size: the whole batch on
-    one process) and batch_length + replay_context steps. They are counted
-    on a meta copy of the model (parallel/flops.py): the plain path's
-    products whatever runs the step (`kernel: auto` and `off` give one
-    number), alike on the CPU and on the card, and the agent is left as
-    it was (store, optimizer state, normalizers, counters and so the
-    draws, the latent table and the fetch queue). The batch carries its
-    latents (the host path): the table's gather and scatter do no
-    products. F counts products only (2 M N K a product), where XLA's
-    cost analysis of the JAX step also counts elementwise ops and, on the
-    TPU, counts a Pallas call as zero. JAX's 'bytes accessed' has no
-    counterpart here."""
+    """{'flops': F, 'split_flops': S}, the products of one train step, forward
+    and backward, at the rows this process feeds (config.batch_size: the
+    whole batch on one process) and batch_length + replay_context steps. On
+    a mesh with t > 1 they are this rank's, as XLA counts one device's work
+    of the partitioned JAX step: each split layer's product counts at 1/t, S
+    counts the rank's parts of those products (0 where nothing splits), and
+    so F is the one-rank count less (t - 1) S. They are counted on a meta
+    copy of the model (parallel/flops.py): the plain path's products
+    whatever runs the step (`kernel: auto` and `off` give one number), alike
+    on the CPU and on the card, and the agent is left as it was (store,
+    optimizer state, normalizers, counters and so the draws, the latent
+    table and the fetch queue). The batch carries its latents (the host
+    path): the table's gather and scatter do no products. F counts products
+    only (2 M N K a product), where XLA's cost analysis of the JAX step also
+    counts elementwise ops and, on the TPU, counts a Pallas call as zero.
+    JAX's 'bytes accessed' has no counterpart here."""
     rows = self.config.batch_size
     length = self.batch_length + self.replay_context
     data = self._example_batch(rows, length, spaces=self.model.ext_space)
@@ -290,9 +306,9 @@ class Agent(corelib.Agent):
             for k, v in data.items()}
     model = flopslib.meta_copy(self.model, self._shards.shapes)
     carry = model.init_train(rows)
-    with flopslib.FlopCounter() as counter:
+    with flopslib.FlopCounter() as counter, self._splitting(model):
       model.train_step(carry, data, nn.dists.Draws(None, flopslib.META))
-    return {'flops': counter.flops}
+    return {'flops': counter.flops, 'split_flops': counter.split}
 
   def _precompile(self):
     """Print the train step's FLOPs (torch.precompile; JAX's AOT compile
@@ -445,8 +461,9 @@ class Agent(corelib.Agent):
 
     On a mesh, `data` holds the rank's rows and the step reduces over the
     data group (see the module's docstring); a rank along 't' trains on
-    the rows of its data index's first rank and returns no replay
-    updates, since its own replay did not give them."""
+    the rows of its data index's first rank, splits the products over
+    't' with it, and returns no replay updates, since its own replay did
+    not give them."""
     with self._device_lock, self._checked():
       data = self._take_batch(data)
       carry = nn.core.tree_map(self._to_device, carry)
@@ -461,7 +478,8 @@ class Agent(corelib.Agent):
         replica = self._replicate(data)
         if use_table:
           valid = data.pop('latents/valid')
-        with nn.opt.reduce_over(self.data_group), self._full_store():
+        with nn.opt.reduce_over(self.data_group), self._full_store(), \
+            self._splitting(self.model):
           carry, outs, mets = self.model.train_step(
               carry, data, self._draws('train', 2_000_003))
           carry = nn.core.tree_map(lambda x: x.detach(), carry)
@@ -516,11 +534,20 @@ class Agent(corelib.Agent):
         data['is_first'] = isf
     return data, slots, gens, valid
 
+  def _splitting(self, model):
+    """Within: `model`'s split entries compute split over 't' on this
+    thread (nothing where t = 1)."""
+    if not self._split:
+      return contextlib.nullcontext()
+    return tensorlib.split_over(
+        self.mesh.t_group, self._split, model, self.mesh.t_index,
+        self.mesh.t_count)
+
   def _replicate(self, data):
     """Where t > 1: the tensors of `data` replaced in place by those of
     the first rank along 't' that shares this rank's data index. Returns
     whether this rank is such a replica (not the first)."""
-    group = self.mesh.replica_group
+    group = self.mesh.t_group
     if group is None:
       return False
     members = dist.get_process_group_ranks(group)
@@ -544,15 +571,17 @@ class Agent(corelib.Agent):
   def report(self, carry, data):
     """Metrics of a (B, T + replay_context) batch without updates (see
     Model.report): scalars as host floats, videos as uint8 numpy arrays.
-    On a mesh, the rank's own rows' metrics; on a sharded store a
-    collective (the parameters' gather)."""
+    On a mesh, the rank's own rows' metrics (a rank along 't' those of
+    its data index's first rank, splitting the products with it); on a
+    sharded store a collective (the parameters' gather)."""
     with self._device_lock, self._checked():
       data = self._take_batch(data)
       carry = nn.core.tree_map(self._to_device, carry)
       self._counters['report'] += 1
       if self._latents is not None and 'slot' in data:
         data = self.inject_latents(data)[0]
-      with self._full_store():
+      self._replicate(data)
+      with self._full_store(), self._splitting(self.model):
         carry, mets = self.model.report(
             carry, data, self._draws('report', 3_000_003))
       carry = nn.core.tree_map(lambda x: x.detach(), carry)

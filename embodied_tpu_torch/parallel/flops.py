@@ -11,6 +11,12 @@ through hooks, and those hooks fail where a module is called under
 no_grad on a leaf that requires grad, as the imagination rollout's first
 step is; this mode keeps the formulas and leaves out the attribution.
 
+Under a split over 't' (parallel/tensor.py) a counter also counts, as
+`split`, the products of the split layers' parts: forward within
+`split_region`, and backward in the autograd nodes between a part's
+output and its inputs, which `mark_split` hooks (on the thread that
+counts, where the backward of CPU and meta tensors runs).
+
 `meta_copy` copies a module with every parameter and buffer on the meta
 device: tensors with shapes and no memory, on which no op computes or
 launches. The kernel wrappers take their plain versions for a meta
@@ -21,8 +27,10 @@ counted module's state as it was. The wrappers' `work()` and
 includes the recompute.
 """
 
+import contextlib
 import copy
 import itertools
+import threading
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -33,14 +41,32 @@ from ..nn.core import store_path
 META = torch.device('meta')
 
 
+class _Counting(threading.local):
+  counter = None
+
+
+_COUNTING = _Counting()
+
+
 class FlopCounter(TorchDispatchMode):
-  """Counts the products of the ops it sees: `flops` in all and `by_op`
-  ({op name: flops})."""
+  """Counts the products of the ops it sees: `flops` in all, `by_op`
+  ({op name: flops}) and `split`, those of split layers' parts."""
 
   def __init__(self):
     super().__init__()
     self.flops = 0
     self.by_op = {}
+    self.split = 0
+    self.inside = 0  # split regions and hooked nodes now running
+    self._outer = None
+
+  def __enter__(self):
+    self._outer, _COUNTING.counter = _COUNTING.counter, self
+    return super().__enter__()
+
+  def __exit__(self, *exc):
+    _COUNTING.counter = self._outer
+    return super().__exit__(*exc)
 
   def __torch_dispatch__(self, func, types, args=(), kwargs=None):
     kwargs = kwargs or {}
@@ -49,9 +75,51 @@ class FlopCounter(TorchDispatchMode):
     if formula is not None:
       flops = int(formula(*args, **kwargs, out_val=out))
       self.flops += flops
+      if self.inside:
+        self.split += flops
       name = func._overloadpacket.__name__
       self.by_op[name] = self.by_op.get(name, 0) + flops
     return out
+
+
+@contextlib.contextmanager
+def split_region():
+  """Within: the products that the active counter sees are a split
+  layer's part's (nothing without a counter on this thread)."""
+  counter = _COUNTING.counter
+  if counter is None:
+    yield
+    return
+  counter.inside += 1
+  try:
+    yield
+  finally:
+    counter.inside -= 1
+
+
+def mark_split(y, x):
+  """Where a counter is active: the autograd nodes from the part `y`
+  back to its input `x` (whose own node is not) and to the parameters
+  count their backward products as split."""
+  counter = _COUNTING.counter
+  if counter is None or y.grad_fn is None:
+    return
+
+  def enter(grads):
+    counter.inside += 1
+
+  def leave(grads_in, grads_out):
+    counter.inside -= 1
+  stack, seen = [y.grad_fn], set()
+  while stack:
+    node = stack.pop()
+    if (node is None or node is x.grad_fn or node in seen or
+        type(node).__name__ == 'AccumulateGrad'):
+      continue
+    seen.add(node)
+    node.register_prehook(enter)
+    node.register_hook(leave)
+    stack.extend(n for n, _ in node.next_functions)
 
 
 def meta_copy(module, shapes=None):

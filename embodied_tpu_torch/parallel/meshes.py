@@ -6,7 +6,9 @@ devices: -1 takes the remainder, and a fixed spec may take the first
 d * f * t ranks only. Batches are split over ('d','f'): `data_group` is
 the process group of the ranks that share this rank's 't' coordinate, and
 `nbatch` its size. Ranks that share a ('d','f') coordinate (along 't')
-are replicas that compute the same rows.
+compute the same rows, and split the products whose weights the
+placements shard over 't' (`split_paths`, parallel/tensor.py) over their
+`t_group`, as GSPMD splits them on the JAX mesh.
 
 `resolve_rules` gives each store path its placement as the JAX package's
 `PartitionSpec` entries: a tuple of axis names (or tuples of them) and
@@ -40,8 +42,10 @@ class Mesh:
   data_group: the ('d','f') group of this rank's 't' (the default group
     on a world of one); None without a process group or where this rank
     lies outside the mesh.
-  replica_group: the ranks along 't' that share this rank's ('d','f'),
-    where t > 1.
+  t_group: the group of the ranks along 't' that share this rank's
+    ('d','f'), in 't' order, where t > 1 (else None): the rows'
+    broadcast and the split products' collectives go over it.
+  t_index, t_count: this rank's index along 't' and the ranks there.
   data_index: this rank's index over ('d','f') (0 without a group).
   coords: this rank's (d, f, t) coordinate (None outside the mesh)."""
 
@@ -51,7 +55,9 @@ class Mesh:
     self.nbatch = sizes[0] * sizes[1]
     self.device_mesh = None
     self.data_group = None
-    self.replica_group = None
+    self.t_group = None
+    self.t_count = sizes[2]
+    self.t_index = 0
     self.data_index = 0
     self.coords = (0, 0, 0)
     self._groups = {}
@@ -74,11 +80,12 @@ class Mesh:
       for members in self.ranks.reshape(self.nbatch, sizes[2]).tolist():
         group = dist.new_group(members)
         if rank in members:
-          self.replica_group = group
+          self.t_group = group
     where = np.argwhere(self.ranks == rank)
     self.data_index = (int(where[0][0] * sizes[1] + where[0][1])
                        if len(where) else None)
     self.coords = tuple(int(x) for x in where[0]) if len(where) else None
+    self.t_index = self.coords[2] if self.coords else 0
     self._groups = {}
 
   def members(self, axes, coords=None):
@@ -202,6 +209,23 @@ def _fit_spec(spec, shape, axis_sizes):
     else:
       fitted.append(None)
   return tuple(fitted)
+
+
+def split_paths(placements, mesh):
+  """The store paths whose products split over 't' (parallel/tensor.py):
+  the kernels and embeddings whose placement shards their last dimension
+  over axes that name 't', on a mesh with t > 1. An axis that the
+  placement dropped (it does not divide the dimension) leaves the entry
+  whole, as in JAX."""
+  if mesh.shape['t'] < 2:
+    return frozenset()
+  paths = set()
+  for path, spec in placements.items():
+    dim = sharded_dim(spec)
+    if (path.rsplit('/', 1)[-1] in ('kernel', 'embed') and
+        dim == len(spec) - 1 and 't' in spec_axes(spec[dim])):
+      paths.add(path)
+  return frozenset(paths)
 
 
 def sharded_dim(spec):

@@ -95,6 +95,23 @@ def _wait(event, stop, poll=0.5):
   return True
 
 
+def _connected(clients, until):
+  """Connect each RPC client that is not connected yet, waiting for its
+  server for as long as the run lasts; False if `until` is set first.
+  The roles of a run start together, each in a process of its own, and
+  on a loaded host a role may take longer to start serving than a
+  client's connect deadline (60 s)."""
+  for client in clients:
+    while client.sock is None:
+      if until.is_set():
+        return False
+      try:
+        client.connect(timeout=1)
+      except remote.Disconnected:
+        pass
+  return True
+
+
 class _CarryCache:
   """Per-env policy carries, gathered into batches by env id."""
 
@@ -257,13 +274,19 @@ class _Learner:
 
   @classmethod
   def connect(cls, agent, args, request, until):
-    """The learner of the run, on RPC clients of its replay and logger;
-    its feeds end at `until`."""
+    """The learner of the run, on RPC clients of its replay and logger,
+    once both serve (see _connected); its feeds end at `until`. None if
+    `until` is set before they serve."""
     logger = remote.Client(args.logger_addr, 'LearnerLogger', maxinflight=1)
     updater = remote.Client(
         args.replay_addr, 'LearnerReplayUpdater', maxinflight=8)
     feeds = {source: _SampleFeed(args.replay_addr, source, until)
              for source in ('train', 'report', 'eval')}
+    clients = [logger, updater, *(feed.client for feed in feeds.values())]
+    if not _connected(clients, until):
+      for client in clients:
+        client.close()
+      return None
     return cls(agent, args, request, feeds, logger, updater)
 
   def _stream(self, source):
@@ -426,6 +449,10 @@ class _ReplayService:
     save_clock = core.LocalClock(self.args.save_every)
     log_clock = core.LocalClock(self.args.log_every)
     self.server.start(block=False)
+    # The logger starts beside this role (see _connected); the
+    # supervisor ends this process with the run.
+    if self.logger.sock is None:
+      self.logger.connect(timeout=None)
     while True:
       if save_clock() and self.activity > 0:
         self.activity.load(0)
@@ -571,7 +598,10 @@ class _EnvPump:
           args.logger_addr, f'{self.name}Logger', maxinflight=1)
       self.usage = Usage(**dict(args.usage))
     self.actor = remote.Client(args.actor_addr, self.name, autoconn=False)
-    self.actor.connect()
+    # The actor serves once the agent is built and its learner reaches
+    # the replay, which may take longer than the client's deadline on a
+    # loaded host; the env's supervisor ends it with the run.
+    self.actor.connect(timeout=None)
 
   def _null_action(self):
     action = {k: v.sample() for k, v in self.env.act_space.items()}
@@ -687,6 +717,8 @@ def parallel_agent(make_agent, args, request=None, stop=None):
     try:
       learner = _Learner.connect(
           agent, args, request, stop if group else request)
+      if learner is None:  # The run ended before its replay served.
+        return
       try:
         ready.set()
         with timer.section('learner'):

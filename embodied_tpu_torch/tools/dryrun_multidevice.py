@@ -1,10 +1,11 @@
 """The port's distributed stack on n gloo ranks of this host's CPU.
 
-    python -m embodied_tpu_torch.tools.dryrun_multidevice [n]
+    python -m embodied_tpu_torch.tools.dryrun_multidevice [n] [d,f,t]
 
 The counterpart of `dryrun_multichip` in the JAX package's
 __graft_entry__.py. n is factored into a ('d','f','t') mesh as the JAX
-dry run factors its devices: n/4,2,2, else n/2,2,1, else n,1,1. A
+dry run factors its devices: n/4,2,2, else n/2,2,1, else n,1,1; or the
+spec given (such as 1,1,n) lays the n ranks out. A
 DreamerV3 agent at the debug size (float32, the latent table on) makes
 one train step here, on one rank, on a global batch of at least 4 rows
 that divide over ('d','f'); then n spawned ranks, each on its data
@@ -19,11 +20,16 @@ K context steps, whose slots the first step did not write), and the
 reloaded store must give the same policy output. On a mesh with 'f' or
 't' above 1 the ranks hold their slices of the sharded entries: the
 stores compared are the ranks' gathered saves, and each rank's resident
-store bytes between calls must equal what the placements give it. Prints
-each rank's store bytes (sharded, replicated, the placements' sum, the
-policy copy's own), the same for the default configuration on the same
-mesh and on '1,2,1', counted on the meta device (no memory, no agent),
-and one line of the checks; exits 0, or raises.
+store bytes between calls must equal what the placements give it. On a
+mesh with t > 1 the ranks split the products of the kernels and
+embeddings that the placements shard over 't' (parallel/tensor.py): the
+stores then agree with the one-rank store at the tolerances above, and
+equal each other bit for bit. Prints each rank's store bytes (sharded,
+replicated, the placements' sum, the policy copy's own), the same for
+the default configuration on the same mesh and on '1,2,1', counted on
+the meta device (no memory, no agent), where t > 1 the split paths,
+their share of the step's product FLOPs and a rank's FLOPs
+(Agent.train_cost), and one line of the checks; exits 0, or raises.
 
 `RecordDraws` and `RankDraws` hand ranks their rows of one run's noise;
 the tests use them too. `default_bytes(spec)` is the default
@@ -119,12 +125,13 @@ def build(argv):
   return main.make_agent(config, device='cpu'), config
 
 
-def reference(n):
+def reference(n, spec=None):
   """The one-rank step on the global batch: (initial store, batch,
   recorded noise, metrics, store after)."""
   from .. import nn
-  spec = mesh_spec(n)
-  d, f, _ = (int(x) for x in spec.split(','))
+  from ..parallel.meshes import mesh_sizes
+  spec = spec or mesh_spec(n)
+  d, f, _ = mesh_sizes(spec, n)
   local = max(1, -(-max(4, d * f) // (d * f)))
   agent, config = build(['--batch_size', str(local * d * f)])
   store = agent.save()
@@ -163,6 +170,8 @@ def run_rank(rank, n, port, ref, out):
     carry, _, mets = agent.train(carry, data)
     assert draws.used_all(), (draws.calls, len(draws.recorded))
     held = agent.store_bytes()
+    cost = dict(agent.train_cost(), split=sorted(agent._split),
+                t=agent.mesh.t_count)
     store = agent.save(chunk_bytes=4096)['store']
     agent._draws = lambda kind, salt: RankDraws(
         ref['recorded'], index, agent.nbatch)
@@ -177,15 +186,15 @@ def run_rank(rank, n, port, ref, out):
     shutdown()
     out.put((rank, dict(
         loss=mets['opt/loss'], store=store, act=act, again=again,
-        valid=mets2['latents/valid'], bytes=held, window=(
+        valid=mets2['latents/valid'], bytes=held, cost=cost, window=(
             config.batch_length, config.replay_context))))
   except BaseException as e:
     out.put((rank, e))
     raise
 
 
-def dryrun(n):
-  ref = reference(n)
+def dryrun(n, spec=None):
+  ref = reference(n, spec)
   with socket.socket() as sock:
     sock.bind(('localhost', 0))
     port = sock.getsockname()[1]
@@ -226,10 +235,25 @@ def dryrun(n):
   for spec in sorted({ref['spec'], '1,2,1'}):
     print(f'default configuration on mesh {spec}, per rank: '
           f'{bytes_line(default_bytes(spec))}', flush=True)
+  cost = results[0]['cost']
+  if cost['t'] > 1:
+    print(split_line(cost), flush=True)
   print(f'dryrun_multidevice({n}): mesh {ref["spec"]}, gloo ranks, '
         f'train+policy+save/load ok, loss={want:.6f} on every rank and '
         f'on one rank, latents/valid={results[0]["valid"]:.4f}',
         flush=True)
+
+
+def split_line(cost):
+  """The split over 't' of a rank's train_cost (with its split paths and
+  t): the paths, the split products' share of the one-rank step's
+  product FLOPs, and the rank's FLOPs."""
+  t, part = cost['t'], cost['split_flops']
+  whole = cost['flops'] + (t - 1) * part
+  return (f'split over t={t}: {len(cost["split"])} paths '
+          f'({", ".join(cost["split"])}); split products '
+          f'{t * part:,} of the one-rank {whole:,} FLOPs a step '
+          f'({t * part / whole:.1%}); a rank counts {cost["flops"]:,}')
 
 
 def bytes_line(held):
@@ -273,7 +297,8 @@ def default_bytes(spec):
 
 
 def main():
-  dryrun(int(sys.argv[1]) if len(sys.argv) > 1 else 4)
+  dryrun(int(sys.argv[1]) if len(sys.argv) > 1 else 4,
+         sys.argv[2] if len(sys.argv) > 2 else None)
 
 
 if __name__ == '__main__':

@@ -321,12 +321,12 @@ def test_two_learners_match_the_jax_mesh_step(dreamer):
     assert_matches_jax_step(got['learner'], dreamer)
 
 
-def assert_matches_jax_step(got, ref):
-  """A rank's step (metrics, store after it, replay outputs of its rows)
-  against the JAX mesh step in `ref` (jmets, jafter, meta, jouts) at
-  test_slice_train_step_matches_jax's tolerances: values 1e-4; a first
-  update of lr * sign(g) (2 lr apart where |g| is near zero, 99% within
-  1e-6); the square moments 1e-3 relative in norm."""
+def assert_matches_jax_step(got, ref, rows=LOCAL):
+  """A rank's step (metrics, store after it, replay outputs of its
+  `rows` rows) against the JAX mesh step in `ref` (jmets, jafter, meta,
+  jouts) at test_slice_train_step_matches_jax's tolerances: values 1e-4;
+  a first update of lr * sign(g) (2 lr apart where |g| is near zero, 99%
+  within 1e-6); the square moments 1e-3 relative in norm."""
   jmets, jafter, meta = ref['jmets'], ref['jafter'], ref['meta']
   assert sorted(got['mets']) == sorted(jmets)
   for key, value in got['mets'].items():
@@ -351,7 +351,7 @@ def assert_matches_jax_step(got, ref):
   index = got['data_index']
   for key, value in got['outs']['replay'].items():
     want = np.asarray(ref['jouts']['replay'][key])[
-        index * LOCAL:(index + 1) * LOCAL]
+        index * rows:(index + 1) * rows]
     assert value.shape == want.shape, key
     assert np.abs(value.astype(int) - want.astype(int)).max() <= (
         1 if key == 'dyn/deter' else 0), key

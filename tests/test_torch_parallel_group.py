@@ -19,8 +19,9 @@ host's CPU (run/parallel_impl.py, models/common.py).
   indices, end soon after the request, and no thread but the learner's
   calls a collective.
 - The Agent's other threads make no collective: policy calls (on the
-  replicated store, on a '1,2,1' sharded store's copy, under the
-  policy/train split) and the prefetch thread of `Agent.stream` run
+  replicated store, on a '1,2,1' sharded store's copy, on a '1,1,2'
+  store's copy while the learner splits its products over 't', under
+  the policy/train split) and the prefetch thread of `Agent.stream` run
   beside a learner thread's train steps and saves, and only that thread
   calls one.
 - A rank whose launcher started the default group itself (gloo ranks
@@ -98,7 +99,8 @@ def test_learners_keep_lockstep(tmp_path):
 
 
 def test_only_the_learner_thread_makes_collectives(tmp_path):
-  placements = [('2,1,1', ''), ('1,2,1', ''), ('2,1,1', '1,1,1')]
+  placements = [('2,1,1', ''), ('1,2,1', ''), ('2,1,1', '1,1,1'),
+                ('1,1,2', '')]
   ranks = launch('threads', dict(
       argv=DREAMER + HOST_PATH + ['--batch_size', '4'],
       placements=placements, steps=3), tmp_path)
@@ -106,8 +108,10 @@ def test_only_the_learner_thread_makes_collectives(tmp_path):
     for (mesh, split), got in zip(placements, rank):
       assert got['threads'] == ['learner'], (mesh, split, got)
       assert got['trains'] == 3 and got['policy_calls'] > 0, got
-      assert got['sharded'] == (mesh == '1,2,1'), got
-      assert got['policy_copy'] == (mesh == '1,2,1' or bool(split)), got
+      sharded = mesh in ('1,2,1', '1,1,2')
+      assert got['sharded'] == sharded, got
+      assert got['policy_copy'] == (sharded or bool(split)), got
+      assert got['split'] == (mesh == '1,1,2'), got
 
 
 def test_setup_keeps_a_group_of_its_rank(tmp_path):

@@ -14,7 +14,10 @@ each making several agents on one process group of two ranks. Held here:
 - the step, bit for bit (DreamerV3 at small widths, float32, the host
   path, each rank on its rows of one recorded noise): two ranks at
   '1,2,1' against two at '2,1,1' (metrics, replay outputs, the gathered
-  save, the slices), and two at '1,1,2' against one rank on the same rows;
+  save, the slices); two at '1,1,2', which split the products over 't'
+  (tests/test_torch_tensor_parallel.py), equal each other bit for bit
+  and one rank on the same rows at tests/test_torch_slice.py's
+  tolerances, since the split reorders float32 sums;
 - the '1,2,1' step against the JAX model's step on a '1,2,1' mesh of the
   virtual devices, with its store under the rules' NamedShardings, at
   tests/test_torch_slice.py's tolerances;
@@ -242,17 +245,20 @@ def test_sharded_step_equals_replicated_step(sharded):
 
 
 def test_t_replicas_equal_one_rank(sharded):
-  """'1,1,2': both ranks compute rank 0's rows, as one rank does on the
-  same rows and noise, bit for bit; the replica returns no replay
+  """'1,1,2': both ranks compute rank 0's rows and split the products
+  over 't'; they equal each other bit for bit, and one rank on the same
+  rows and noise at test_slice_train_step_matches_jax's tolerances (the
+  split reorders float32 sums); the replica returns no replay
   updates."""
   ranks = steps_of(sharded, '1,1,2')
-  for rank, got in enumerate(ranks):
-    for key, value in sharded['mets'].items():
-      np.testing.assert_array_equal(got['mets'][key], value, err_msg=key)
-    for key, value in sharded['after'].items():
-      np.testing.assert_array_equal(got['save'][key], value, err_msg=key)
-  for key, value in sharded['outs']['replay'].items():
-    np.testing.assert_array_equal(ranks[0]['outs']['replay'][key], value)
+  one = dict(jmets=sharded['mets'], jafter=sharded['after'],
+             meta=sharded['meta'], jouts=sharded['outs'])
+  assert_matches_jax_step(dict(ranks[0], store=ranks[0]['save']), one,
+                          rows=B)
+  for key, value in ranks[0]['mets'].items():
+    np.testing.assert_array_equal(ranks[1]['mets'][key], value, err_msg=key)
+  for key, value in ranks[0]['save'].items():
+    np.testing.assert_array_equal(ranks[1]['save'][key], value, err_msg=key)
   assert 'replay' not in ranks[1]['outs']
 
 

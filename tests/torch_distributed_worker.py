@@ -49,6 +49,16 @@ no JAX. Cases:
              rank starts itself, as a launcher does for ranks that share
              one card; the devices of setup on it, and the errors of
              setup with another rank or world size than the group's.
+  tensor_parallel
+             tests/test_torch_tensor_parallel.py, on two ranks at '1,1,2':
+             for each of `steps`, a step as in `sharded` of a family's
+             agent; for each of `costs`, a family's train_cost; then for
+             each layer of `split_layers`, its output and gradients
+             (inputs' whole, kernels' and embeddings' this rank's and
+             joined over 't' by nn.opt.join_parts) under split_over the
+             two ranks, and the gradients joined by `planted_join`,
+             which also sums the replicated entries over 't'; and the
+             MLP's `optimizer_step` in each slot layout under it.
   ring       tests/test_torch_ring.py: a gloo group of its own (no
              agent); ring_attention_sharded on global q, k, v in float32
              (full and causal) and bfloat16 (causal), the gradients of a
@@ -353,7 +363,7 @@ def case_threads(inputs, port):
     restore()
     counts.update(threads=sorted(threads), policy_calls=calls[0],
                   trains=agent._counters['train'],
-                  sharded=bool(agent._shards),
+                  sharded=bool(agent._shards), split=bool(agent._split),
                   policy_copy=agent._policy_copy is not None)
     out.append(counts)
   return out
@@ -426,7 +436,6 @@ def host(tensors):
 
 def case_sharded(inputs, port):
   from embodied_tpu_torch import nn
-  from embodied_tpu_torch.tools.dryrun_multidevice import RankDraws, rows
   coordinator = ['--torch.coordinator_address', f'localhost:{port}']
   out = {'placements': [], 'steps': {}}
   for run in inputs['placements']:
@@ -442,43 +451,190 @@ def case_sharded(inputs, port):
         shardmap=dict(shardings=other.shardings, bytes=other.store_bytes(),
                       flops=count(other))))
   for run in inputs['steps']:
-    argv = run['argv'] + [
-        '--batch_size', str(run['local']), '--torch.mesh', run['mesh'],
-        *coordinator]
-    agent, _ = make('dreamerv3', argv)
-    agent.load({'store': run['store']})
-    index = agent.mesh.data_index
-    draws = RankDraws(run['recorded'], index, agent.nbatch)
-    agent._draws = lambda kind, salt: draws
-    counts = {}
-    restore = counting(counts)
-    try:
-      _, outs, mets = agent.train(
-          agent.init_train(run['local']),
-          rows(run['batch'], index, run['local']))
-    finally:
-      restore()
-    assert draws.used_all(), (draws.calls, len(draws.recorded))
-    got = dict(
-        mets=mets, outs=outs, store=host(nn.store(agent.model)),
-        step_collectives=counts, bytes=agent.store_bytes(),
-        data_index=index, coords=agent.mesh.coords,
-        save=agent.save(chunk_bytes=run['chunk_bytes'])['store'])
-    counts = {}
-    restore = counting(counts)
-    try:
-      gen = torch.Generator().manual_seed(5)
-      obs = {k: torch.as_tensor(v) for k, v in run['obs'].items()}
-      count = len(obs['is_first'])
-      with torch.inference_mode():
-        _, act, pouts = agent._policy_model().policy(
-            agent.init_policy(count), obs, 'train', gen)
-      agent.policy(agent.init_policy(count), run['obs'])
-    finally:
-      restore()
-    got.update(policy_collectives=counts, act=host(act),
-               policy_outs=host(pouts))
-    out['steps'][run['label']] = got
+    out['steps'][run['label']] = mesh_step(run, coordinator)
+  return out
+
+
+def mesh_step(run, coordinator):
+  """A step as in `step` of a family's agent (default DreamerV3) on the
+  mesh `run['mesh']`: the collectives the step and the policy calls
+  made, the store bytes between calls, the grouped save, and the
+  outputs of the policy copy on one observation and noise."""
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.tools.dryrun_multidevice import RankDraws, rows
+  argv = run['argv'] + [
+      '--batch_size', str(run['local']), '--torch.mesh', run['mesh'],
+      *coordinator]
+  agent, _ = make(run.get('family', 'dreamerv3'), argv)
+  agent.load({'store': run['store']})
+  index = agent.mesh.data_index
+  draws = RankDraws(run['recorded'], index, agent.nbatch)
+  agent._draws = lambda kind, salt: draws
+  counts = {}
+  restore = counting(counts)
+  try:
+    _, outs, mets = agent.train(
+        agent.init_train(run['local']),
+        rows(run['batch'], index, run['local']))
+  finally:
+    restore()
+  assert draws.used_all(), (draws.calls, len(draws.recorded))
+  got = dict(
+      mets=mets, outs=outs, store=host(nn.store(agent.model)),
+      step_collectives=counts, bytes=agent.store_bytes(),
+      data_index=index, coords=agent.mesh.coords,
+      save=agent.save(chunk_bytes=run['chunk_bytes'])['store'])
+  if 'obs' not in run:
+    return got
+  counts = {}
+  restore = counting(counts)
+  try:
+    gen = torch.Generator().manual_seed(5)
+    obs = {k: torch.as_tensor(v) for k, v in run['obs'].items()}
+    count = len(obs['is_first'])
+    with torch.inference_mode():
+      _, act, pouts = agent._policy_model().policy(
+          agent.init_policy(count), obs, 'train', gen)
+    agent.policy(agent.init_policy(count), run['obs'])
+  finally:
+    restore()
+  got.update(policy_collectives=counts, act=host(act),
+             policy_outs=host(pouts))
+  return got
+
+
+def split_layers():
+  """{name: (module, inputs)}: one module of each layer kind that splits
+  over 't' (float32, seeded, every kernel and embedding's last dimension
+  even) and numpy inputs for `apply_layer`."""
+  from embodied_tpu_torch import nn
+  f32 = dict(cdtype=torch.float32)
+  rng = np.random.default_rng(0)
+  x = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+  layers = {
+      'linear': (nn.Linear(6, 8, 'linear', **f32), [x(3, 5, 6)]),
+      'linear_tuple': (nn.Linear(6, (4, 2), 'linear', **f32), [x(3, 6)]),
+      'blocklinear': (nn.BlockLinear(8, 8, 2, 'block', **f32), [x(3, 8)]),
+      'conv2d': (nn.Conv2D(3, 4, 3, 'conv', stride=2, **f32),
+                 [x(2, 6, 6, 3)]),
+      'conv2d_transp': (nn.Conv2D(4, 3, 4, 'conv', stride=2, transp=True,
+                                  **f32), [x(2, 3, 3, 4)]),
+      'conv3d': (nn.Conv3D(2, 4, 3, 'conv', stride=1, **f32),
+                 [x(2, 4, 4, 4, 2)]),
+      'embed': (nn.Embed(5, 6, 'embed', **f32),
+                [rng.integers(0, 5, (3, 4)).astype(np.int32)]),
+      'gru': (nn.GRU(3, 4, 'gru', **f32),
+              [x(2, 4), x(2, 3, 3), rng.random((2, 3)) < 0.3]),
+      'attention': (nn.Attention(8, 8, 2, 'attn', kvheads=1, **f32),
+                    [x(2, 5, 8)]),
+      'mlp': (nn.MLP(6, 2, 8, 'mlp', **f32), [x(3, 6)]),
+  }
+  for seed, (module, _) in enumerate(layers.values()):
+    nn.init_params(module, seed)
+  return layers
+
+
+def apply_layer(name, module, args):
+  if name == 'gru':
+    return module(*args)[1]
+  return module(*args)
+
+
+def split_entries(module):
+  """The store paths of `module`'s kernels and embeddings."""
+  from embodied_tpu_torch import nn
+  return sorted(k for k in nn.store(module)
+                if k.rsplit('/', 1)[-1] in ('kernel', 'embed'))
+
+
+def layer_grads(name, module, arrays):
+  """`module`'s output on `arrays` and the gradients of a seeded
+  weighting of it: ({'y', 'inputs': [float inputs' gradients], 'paths':
+  the parameters' store paths, sorted, 'params': {path: gradient},
+  'flat': the gradients flat in path order}, the parameters in path
+  order)."""
+  from embodied_tpu_torch import nn
+  args = [torch.tensor(a, requires_grad=a.dtype == np.float32)
+          for a in arrays]
+  y = apply_layer(name, module, args)
+  weight = torch.tensor(np.random.default_rng(1).standard_normal(
+      tuple(y.shape)).astype(np.float32))
+  params = {nn.core.store_path(k): v for k, v in module.named_parameters()}
+  paths = sorted(params)
+  floats = [a for a in args if a.requires_grad]
+  grads = torch.autograd.grad((y * weight).sum(), floats + [
+      params[p] for p in paths])
+  out = dict(y=y.detach().numpy(), paths=paths,
+             inputs=[g.numpy() for g in grads[:len(floats)]],
+             params={p: g.numpy() for p, g in zip(paths, grads[len(floats):])})
+  out['flat'] = torch.cat([g.reshape(-1) for g in grads[len(floats):]])
+  return out, [params[p] for p in paths]
+
+
+def optimizer_step(module, arrays, fused):
+  """`module`'s parameters and optimizer state after one Optimizer step
+  (the flat moments, or with `fused` False the per-parameter slots) on
+  a seeded weighting of its output on `arrays`, past the warm-up."""
+  from embodied_tpu_torch import nn
+  params = {nn.core.store_path(k): v for k, v in module.named_parameters()}
+  opt = nn.Optimizer(params, lr=1e-3, warmup=0, fused=fused)
+  x = torch.tensor(arrays[0])
+  weight = torch.tensor(np.random.default_rng(2).standard_normal(
+      tuple(module(x).shape)).astype(np.float32))
+  opt(lambda: ((module(x) * weight).sum(), {}))
+  store = {k: v.detach().numpy().copy() for k, v in params.items()}
+  store.update({f'opt/{k}': v.numpy().copy()
+                for k, v in nn.store(opt).items()})
+  return store
+
+
+def planted_join(vec, paths, params, split):
+  """nn.opt.join_parts with a planted fault: the replicated entries are
+  summed over 't' as well."""
+  import torch.distributed as dist
+  offset = 0
+  for path, param in zip(paths, params):
+    view = vec[offset:offset + param.numel()].view(param.shape)
+    offset += param.numel()
+    if path in split.paths:
+      start, width = split.part(param.shape[-1])
+      view[..., :start] = 0
+      view[..., start + width:] = 0
+  dist.all_reduce(vec, group=split.group)
+
+
+def case_tensor_parallel(inputs, port):
+  import torch.distributed as dist
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.parallel import tensor
+  rank, world = int(os.environ['RANK']), int(os.environ['WORLD_SIZE'])
+  # The agents' setup keeps this group (as a launcher's).
+  dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}',
+                          rank=rank, world_size=world)
+  coordinator = ['--torch.coordinator_address', f'localhost:{port}']
+  out = {'steps': {}, 'costs': {}, 'layers': {}, 'optimizer': {}}
+  for run in inputs['steps']:
+    out['steps'][run['label']] = mesh_step(run, coordinator)
+  for family, argv in inputs['costs'].items():
+    agent, _ = make(family, argv + ['--torch.mesh', '1,1,2'] + coordinator)
+    out['costs'][family] = dict(agent.train_cost(), split=sorted(
+        agent._split), t=agent.mesh.t_count)
+  group = dist.group.WORLD
+  for name, (module, arrays) in split_layers().items():
+    with tensor.split_over(group, split_entries(module), module, rank,
+                           world) as split:
+      got, params = layer_grads(name, module, arrays)
+      joined, planted = got['flat'].clone(), got.pop('flat')
+      nn.opt.join_parts(joined, got['paths'], params, split)
+      planted_join(planted, got['paths'], params, split)
+    got.update(joined=joined.numpy(), planted=planted.numpy(),
+               index=split.index, count=split.count)
+    out['layers'][name] = got
+  for fused in (True, False):
+    module, arrays = split_layers()['mlp']
+    with tensor.split_over(group, split_entries(module), module, rank,
+                           world):
+      out['optimizer'][fused] = optimizer_step(module, arrays, fused)
   return out
 
 
@@ -529,7 +685,8 @@ def main():
   out = {'step': case_step, 'multihost': case_multihost,
          'sharded': case_sharded, 'ring': case_ring,
          'lockstep': case_lockstep, 'kept': case_kept,
-         'threads': case_threads}[case](inputs, port)
+         'threads': case_threads,
+         'tensor_parallel': case_tensor_parallel}[case](inputs, port)
   with open(os.path.join(folder, f'rank{rank}.pkl'), 'wb') as f:
     pickle.dump(out, f)
   shutdown()
