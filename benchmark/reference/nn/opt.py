@@ -1,0 +1,228 @@
+"""Optimizer with adaptive gradient clipping, RMS scaling and momentum.
+
+A frozen copy of the port's nn/opt.py on one process: AGC per parameter,
+the RMS and momentum updates with bias correction over flat float32
+moments (`opt/rms_flat`, `opt/mom_flat`) or per parameter, weight decay on
+paths matching a regex, the warmup and const/linear/cosine schedules, and
+dynamic loss scaling under float16. Parameters are updated in place under
+no_grad. The group reductions of the port are the identity here, since
+the reference runs on one process.
+"""
+
+import math
+import re
+
+import torch
+
+from . import core
+
+
+def group_mean(x):
+  return x
+
+
+def group_min(x):
+  return x
+
+
+def group_max(x):
+  return x
+
+
+def group_cat(x):
+  return x
+
+
+def _full(x, device):
+  """A float32 scalar on `device`: a fill, not a copy from the host, which
+  would wait for the card."""
+  return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def scope_params(root, scopes):
+  """The trained parameters of `root` under the store scopes `scopes`
+  (paths such as 'worker/actor'), as {path: parameter}: what the JAX
+  Optimizer's scope list selects."""
+  out = {}
+  for name, param in root.named_parameters():
+    path = name.replace('.', '/')
+    if param.requires_grad and any(
+        path == s or path.startswith(s + '/') for s in scopes):
+      out[path] = param
+  return out
+
+
+class Optimizer(core.Module):
+
+  def __init__(
+      self, params, name='opt', lr=4e-5, agc=0.3, eps=1e-20, beta1=0.9,
+      beta2=0.999, momentum=True, nesterov=False, wd=0.0, wdregex=r'/kernel$',
+      schedule='const', warmup=1000, anneal=0, pmin=1e-3, fused=True,
+      scaling=False, **unused):
+    """`params` maps store paths to the trained parameters."""
+    super().__init__(name)
+    assert params, 'no trainable parameters'
+    self.fused = fused
+    # Plain references: the model registers the parameters.
+    self.__dict__['params'] = dict(sorted(params.items()))
+    self.lr = lr
+    self.agc = agc
+    self.eps = eps
+    self.beta1 = beta1
+    self.beta2 = beta2
+    self.momentum = momentum
+    self.nesterov = nesterov
+    self.wd = wd
+    self.wdpattern = re.compile(wdregex) if wd else None
+    self.schedule = schedule
+    self.warmup = warmup
+    self.anneal = anneal
+    self.pmin = pmin
+    self.scaling = scaling
+    self.state('step', (), 0, torch.int32)
+    if scaling:
+      self.state('grad_scale', (), 1e4)
+      self.state('good_steps', (), 0, torch.int32)
+    if fused:
+      total = sum(p.numel() for p in self.params.values())
+      self.state('rms_flat', (total,), 0.0)
+      if momentum:
+        self.state('mom_flat', (total,), 0.0)
+      return
+    for path, param in self.params.items():
+      self.state(self._slot('rms', path), param.shape, 0.0)
+      if momentum:
+        self.state(self._slot('mom', path), param.shape, 0.0)
+
+  @staticmethod
+  def _slot(kind, path):
+    """A parameter's slot name under JAX's per-parameter layout."""
+    return f'{kind}.{path.replace("/", ".")}'
+
+  def slot(self, kind, path):
+    """The `kind` ('rms' or 'mom') slot buffer of the parameter at `path`
+    (fused=False)."""
+    return getattr(self, self._slot(kind, path).replace('.', core.NAME_DOT))
+
+  def forward(self, lossfn, *args, **kwargs):
+    """Runs `lossfn(*args, **kwargs) -> (loss, aux)`, differentiates the
+    float32 scalar loss with respect to the parameters, and updates them.
+    Returns (metrics, aux)."""
+    loss, aux = lossfn(*args, **kwargs)
+    assert loss.dtype == torch.float32 and loss.shape == (), (
+        loss.dtype, loss.shape)
+    paths = list(self.params)
+    params = [self.params[k] for k in paths]
+    scaled = loss * self.grad_scale if self.scaling else loss
+    grads = torch.autograd.grad(scaled, params, allow_unused=True)
+    # One flat float32 buffer: the loss scale's check and AGC work on it
+    # in place.
+    vec = torch.cat([
+        torch.zeros(p.numel(), device=p.device) if g is None
+        else g.reshape(-1).float() for p, g in zip(params, grads)])
+    del grads
+    metrics = self._update(paths, params, vec, loss.detach())
+    return {f'{self.name}/{k}': v for k, v in metrics.items()}, aux
+
+  @torch.no_grad()
+  def _update(self, paths, params, vec, loss):
+    """Update `params` from their flat gradient `vec` (changed in place)."""
+    metrics = {}
+    finite = torch.ones((), dtype=torch.bool, device=loss.device)
+    if self.scaling:
+      scale = self.grad_scale.clone()
+      loss = loss / scale
+      vec.div_(scale)
+      finite = torch.isfinite(vec.square().sum())
+      good = self.good_steps
+      keep = finite & (good < 1000)
+      incr = finite & (good >= 1000)
+      self.good_steps.copy_(torch.where(finite, good + 1, 0))
+      self.grad_scale.copy_(torch.clamp(torch.where(
+          incr, scale * 2, torch.where(keep, scale, scale / 2)), 1e-4, 1e5))
+      vec = torch.where(finite, vec, torch.zeros_like(vec))
+      metrics['grad_scale'] = scale
+      metrics['grad_overflow'] = (~finite).float()
+    step = self.step.float()
+    lr = self._lr(step)
+    gsq = vec.square().sum()
+    if self.agc:
+      offset = 0
+      for param in params:
+        update = vec[offset:offset + param.numel()]
+        offset += param.numel()
+        unorm = torch.linalg.vector_norm(update)
+        pnorm = torch.linalg.vector_norm(param)
+        upper = self.agc * torch.clamp(pnorm, min=self.pmin)
+        update.mul_(1 / torch.clamp(unorm / upper, min=1.0))
+    if self.fused:
+      pvec = torch.cat([p.reshape(-1) for p in params])
+      vec = self._moments(
+          self.rms_flat, self.mom_flat if self.momentum else None, vec, step)
+      if self.wd:
+        mask = torch.cat([
+            torch.full((p.numel(),), float(bool(self.wdpattern.search(k))),
+                       device=vec.device) for k, p in zip(paths, params)])
+        vec = vec + self.wd * mask * pvec
+      vec = -lr * vec
+      new = torch.where(finite, pvec + vec, pvec)
+      offset = 0
+      for param in params:
+        param.copy_(new[offset:offset + param.numel()].reshape(param.shape))
+        offset += param.numel()
+      usq, psq = vec.square().sum(), pvec.square().sum()
+    else:
+      usq = psq = 0.0
+      offset = 0
+      for path, param in zip(paths, params):
+        update = vec[offset:offset + param.numel()].reshape(param.shape)
+        offset += param.numel()
+        update = self._moments(
+            self.slot('rms', path),
+            self.slot('mom', path) if self.momentum else None, update, step)
+        if self.wd and self.wdpattern.search(path):
+          update = update + self.wd * param
+        update = -lr * update
+        usq = usq + update.square().sum()
+        psq = psq + param.square().sum()
+        param.copy_(torch.where(finite, param + update, param))
+    self.step.add_(finite.int())
+    count = vec.numel()
+    metrics.update(
+        loss=loss, updates=step + 1, grad_norm=torch.sqrt(gsq),
+        grad_rms=torch.sqrt(gsq / count),
+        update_rms=torch.sqrt(usq / count),
+        param_rms=torch.sqrt(psq / count),
+        param_count=_full(count, vec.device), lr=lr)
+    return metrics
+
+  def _moments(self, nu, mu, update, step):
+    """The RMS moment `nu` and the momentum `mu` (or None) updated in place
+    from `update`, and the update they give, bias-corrected."""
+    nu.copy_(self.beta2 * nu + (1 - self.beta2) * update.square())
+    nu_hat = nu / (1 - _full(self.beta2, nu.device) ** (step + 1))
+    update = update / (torch.sqrt(nu_hat) + self.eps)
+    if mu is None:
+      return update
+    mu.copy_(self.beta1 * mu + (1 - self.beta1) * update)
+    if self.nesterov:
+      mu = self.beta1 * mu + (1 - self.beta1) * update
+    return mu / (1 - _full(self.beta1, nu.device) ** (step + 1))
+
+  def _lr(self, step):
+    lr = self.lr
+    if self.schedule == 'const':
+      sched = torch.full_like(step, lr)
+    elif self.schedule in ('linear', 'cosine'):
+      frac = torch.clamp(
+          (step - self.warmup) / max(1, self.anneal - self.warmup), 0, 1)
+      if self.schedule == 'linear':
+        sched = lr * (1 - 0.9 * frac)
+      else:
+        sched = 0.1 * lr + 0.45 * lr * (1 + torch.cos(math.pi * frac))
+    else:
+      raise NotImplementedError(self.schedule)
+    if self.warmup:
+      ramp = torch.clamp(step / self.warmup, 0, 1)
+      sched = torch.where(step < self.warmup, lr * ramp, sched)
+    return sched
