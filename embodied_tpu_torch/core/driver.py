@@ -27,7 +27,7 @@ from multiprocessing import shared_memory
 
 import numpy as np
 
-from ..utils import tree
+from ..utils import timer, tree
 
 _SHM_TOKEN = '__shm__'
 
@@ -238,13 +238,16 @@ class Driver:
       done_episodes += finished
 
   def _tick(self, policy):
-    """One lockstep round: step envs, run the policy, fire callbacks."""
-    rows = self.transport.step([
-        {key: col[i] for key, col in self.acts.items()}
-        for i in range(self.length)])
-    batch = {
-        key: np.stack([row[key] for row in rows])
-        for key in rows[0].keys()}
+    """One lockstep round: step envs, run the policy, fire callbacks (the
+    first and the last in the timer's sections `driver/envs` and
+    `driver/callbacks`)."""
+    with timer.section('driver/envs'):
+      rows = self.transport.step([
+          {key: col[i] for key, col in self.acts.items()}
+          for i in range(self.length)])
+      batch = {
+          key: np.stack([row[key] for row in rows])
+          for key in rows[0].keys()}
     logs = {k: batch.pop(k) for k in list(batch) if k.startswith('log/')}
     self.carry, acts, extras = policy(self.carry, batch, **self.kwargs)
     overlap = set(acts) & set(extras)
@@ -259,10 +262,11 @@ class Driver:
           for key, value in acts.items()}
     self.acts = dict(acts, reset=ending.copy())
     merged = {**batch, **acts, **extras, **logs}
-    for i in range(self.length):
-      row = tree.tree_map(lambda col: col[i], merged)
-      for callback in self.callbacks:
-        callback(row, i, **self.kwargs)
+    with timer.section('driver/callbacks'):
+      for i in range(self.length):
+        row = tree.tree_map(lambda col: col[i], merged)
+        for callback in self.callbacks:
+          callback(row, i, **self.kwargs)
     return int(ending.sum())
 
   def close(self):

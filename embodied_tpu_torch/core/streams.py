@@ -17,7 +17,7 @@ import threading
 
 import numpy as np
 
-from ..utils import tree
+from ..utils import timer, tree
 from . import base
 
 
@@ -129,7 +129,8 @@ class Prefetch(base.Stream):
   def __next__(self):
     self._ensure_started()
     while True:
-      item = self.buffer.get()
+      with timer.section('stream/wait'):
+        item = self.buffer.get()
       if isinstance(item, BaseException):
         raise RuntimeError(str(item)) from item
       epoch, data, state = item

@@ -57,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from . import core
+from ..utils import timer
 
 # The process group that a train step's batch rows are split over, or
 # None: parallel.meshes.data_group, set by the Agent through reduce_over.
@@ -201,28 +202,33 @@ class Optimizer(core.Module):
   def forward(self, lossfn, *args, **kwargs):
     """Runs `lossfn(*args, **kwargs) -> (loss, aux)`, differentiates the
     float32 scalar loss with respect to the parameters, and updates them.
-    Returns (metrics, aux)."""
-    loss, aux = lossfn(*args, **kwargs)
+    Returns (metrics, aux). The three phases run in the timer's sections
+    `train/loss`, `train/backward` (the gradients, their flat buffer and
+    its joins over 't' and the data group) and `train/update`."""
+    with timer.section('train/loss'):
+      loss, aux = lossfn(*args, **kwargs)
     assert loss.dtype == torch.float32 and loss.shape == (), (
         loss.dtype, loss.shape)
     paths = list(self.params)
     params = [self.params[k] for k in paths]
-    scaled = loss * self.grad_scale if self.scaling else loss
-    grads = torch.autograd.grad(scaled, params, allow_unused=True)
-    # One flat float32 buffer: the data group's all-reduce, the loss
-    # scale's check and AGC work on it in place.
-    vec = torch.cat([
-        torch.zeros(p.numel(), device=p.device) if g is None
-        else g.reshape(-1).float() for p, g in zip(params, grads)])
-    del grads
-    split = core.SPLIT.active
-    if split is not None:
-      join_parts(vec, paths, params, split)
-    group = DATA_GROUP[0]
-    if group is not None:
-      dist.all_reduce(vec, group=group)
-      vec.div_(dist.get_world_size(group))
-    metrics = self._update(paths, params, vec, loss.detach())
+    with timer.section('train/backward'):
+      scaled = loss * self.grad_scale if self.scaling else loss
+      grads = torch.autograd.grad(scaled, params, allow_unused=True)
+      # One flat float32 buffer: the data group's all-reduce, the loss
+      # scale's check and AGC work on it in place.
+      vec = torch.cat([
+          torch.zeros(p.numel(), device=p.device) if g is None
+          else g.reshape(-1).float() for p, g in zip(params, grads)])
+      del grads
+      split = core.SPLIT.active
+      if split is not None:
+        join_parts(vec, paths, params, split)
+      group = DATA_GROUP[0]
+      if group is not None:
+        dist.all_reduce(vec, group=group)
+        vec.div_(dist.get_world_size(group))
+    with timer.section('train/update'):
+      metrics = self._update(paths, params, vec, loss.detach())
     return {f'{self.name}/{k}': v for k, v in metrics.items()}, aux
 
   @torch.no_grad()

@@ -16,8 +16,9 @@ backward calls `core_step_bwd`, which launches the backward kernel (plain
 version `reference_step_bwd`, autograd of `reference_step`). Without a
 gradient to take (under torch.no_grad, or on inputs that need none) the
 kernel runs alone and keeps nothing. Each wrapper counts its launches in
-`.launches`, and each launch runs in a profiler range named after its
-wrapper, by which a trace of the card counts them.
+`.launches`, and while the profiler records, each launch runs in a
+profiler range named after its wrapper (`timer.range`), by which a trace
+of the card counts them.
 
 Weight layout (as rssm.RSSM's parameters; FIELDS order):
   w0 (D, H),  b0 (H),  s0 (H)    dynin0 + rms scale     (deter proj)
@@ -35,6 +36,7 @@ import functools
 import torch
 
 from . import build
+from ..utils import timer
 
 FIELDS = ('w0', 'b0', 's0', 'w1', 'b1', 's1',
           'wblk', 'bblk', 'win', 'sh', 'wg', 'bg')
@@ -248,7 +250,7 @@ def core_step_bwd(deter, stoch_flat, actfeat, params, dout, eps=1e-4):
   it does not take."""
   if takes_plain(deter):
     return reference_step_bwd(deter, stoch_flat, actfeat, params, dout, eps)
-  with torch.profiler.record_function('core_step_bwd'):
+  with timer.range('core_step_bwd'):
     out = launch_bwd(deter, stoch_flat, actfeat, params, dout, eps)
   core_step_bwd.launches += 1
   return out
@@ -280,7 +282,7 @@ def core_step(deter, stoch_flat, actfeat, params, eps=1e-4):
   gradients, and raise on what the kernels do not take."""
   if takes_plain(deter):
     return reference_step(deter, stoch_flat, actfeat, params, eps)
-  with torch.profiler.record_function('core_step'):
+  with timer.range('core_step'):
     if needs_grad(deter, stoch_flat, actfeat, *params):
       out = _CoreStep.apply(deter, stoch_flat, actfeat, eps, *params)
     else:

@@ -36,6 +36,7 @@ import functools
 import torch
 
 from . import blockgru, build
+from ..utils import timer
 from .blockgru import _rms, _silu
 from .observe_seq import group_probs, gumbel_max, straight_through
 
@@ -146,7 +147,7 @@ def imag_step(deter, stoch_flat, actfeat, gum, params, C, unimix=0.01,
   if blockgru.takes_plain(deter):
     return reference_imag_step(deter, stoch_flat, actfeat, gum, params, C,
                                unimix, eps)
-  with torch.profiler.record_function('imag_step'):
+  with timer.range('imag_step'):
     if blockgru.needs_grad(deter, stoch_flat, actfeat, *params):
       out = _ImagStep.apply(deter, stoch_flat, actfeat, gum,
                             (C, unimix, eps), *params)

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import blockgru, build, imagine
+from ..utils import timer
 from .blockgru import _rms, _silu
 from .imagine import PRIOR_FIELDS, _layer, _mm
 
@@ -238,7 +239,7 @@ def imagine_seq(deter0, stoch0, gumbel, noise, params, npol, disc, C,
         deter0, stoch0, params, npol, disc, C, unimix, minstd, maxstd, eps,
         gumbel=gumbel, noise=noise)
   spec = (npol, disc, C, unimix, minstd, maxstd, eps)
-  with torch.profiler.record_function('imagine_seq'):
+  with timer.range('imagine_seq'):
     out = _ImagineSeq.apply(deter0, stoch0, gumbel, noise, spec, *params)
   imagine_seq.launches += 1
   return out

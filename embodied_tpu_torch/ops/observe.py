@@ -29,6 +29,7 @@ import functools
 import torch
 
 from . import blockgru, build
+from ..utils import timer
 from .blockgru import _rms, _silu
 
 FIELDS = blockgru.FIELDS + ('wo', 'bo', 'so', 'wl', 'bl')
@@ -148,7 +149,7 @@ def obs_step_bwd(deter, stoch_flat, actfeat, tokens, params, dout, dlogit,
   if blockgru.takes_plain(deter):
     return reference_obs_step_bwd(
         deter, stoch_flat, actfeat, tokens, params, dout, dlogit, eps)
-  with torch.profiler.record_function('obs_step_bwd'):
+  with timer.range('obs_step_bwd'):
     out = launch_bwd(deter, stoch_flat, actfeat, tokens, params, dout,
                      dlogit, eps)
   obs_step_bwd.launches += 1
@@ -186,7 +187,7 @@ def obs_step(deter, stoch_flat, actfeat, tokens, params, eps=1e-4):
   what the kernels do not take."""
   if blockgru.takes_plain(deter):
     return reference_obs_step(deter, stoch_flat, actfeat, tokens, params, eps)
-  with torch.profiler.record_function('obs_step'):
+  with timer.range('obs_step'):
     if blockgru.needs_grad(deter, stoch_flat, actfeat, tokens, *params):
       out = _ObsStep.apply(deter, stoch_flat, actfeat, tokens, eps, *params)
     else:

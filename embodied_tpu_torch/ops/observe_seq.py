@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import blockgru, build, observe
+from ..utils import timer
 from .blockgru import _rms, _silu
 
 FIELDS = observe.FIELDS
@@ -214,7 +215,7 @@ def observe_seq_bwd(deter0, stoch0, deter_seq, stoch_seq, acts, toks, keep,
     return reference_observe_seq_bwd(
         deter0, stoch0, stoch_seq, acts, toks, keep, params, ddeter, dstoch,
         dlogit, C, unimix, eps)
-  with torch.profiler.record_function('observe_seq_bwd'):
+  with timer.range('observe_seq_bwd'):
     out = launch_bwd(deter0, stoch0, deter_seq, stoch_seq, acts, toks, keep,
                      params, ddeter, dstoch, dlogit, C, unimix, eps)
   observe_seq_bwd.launches += 1
@@ -256,7 +257,7 @@ def observe_seq(deter0, stoch0, acts, toks, keep, gumbel, params, C,
   if blockgru.takes_plain(deter0):
     return reference_observe_seq(deter0, stoch0, acts, toks, keep, params,
                                  C, unimix, eps, gumbel=gumbel)
-  with torch.profiler.record_function('observe_seq'):
+  with timer.range('observe_seq'):
     out = _ObserveSeq.apply(deter0, stoch0, acts, toks, keep, gumbel, C,
                             unimix, eps, *params)
   observe_seq.launches += 1

@@ -39,6 +39,7 @@ import functools
 import torch
 
 from . import blockgru, build, observe_seq
+from ..utils import timer
 from .blockgru import _rms, _silu
 
 FIELDS = observe_seq.FIELDS  # core 12 + wo, bo, so, wl, bl
@@ -215,7 +216,7 @@ def qobs_window(deter0, stoch0, acts, toks, keep, gumbel, qparams, scales, C,
   if blockgru.takes_plain(deter0):
     return reference_qobs_window(deter0, stoch0, acts, toks, keep, qparams,
                                  scales, C, unimix, eps, nch, gumbel=gumbel)
-  with torch.profiler.record_function('qobs_window'):
+  with timer.range('qobs_window'):
     out = launch(deter0, stoch0, acts, toks, keep, gumbel, qparams, scales,
                  C, unimix, eps)
   qobs_window.launches += 1

@@ -42,8 +42,10 @@ Diagnostics, as in the JAX agent:
 - `torch.profiler` turns on the profiler window: train updates 100 to 119
   are traced into `<logdir>/profile/*.pt.trace.json.gz` (read it with
   `python -m embodied_tpu_torch.viewer <logdir> --serve PORT`, page
-  `/trace`); each train step runs in the profiler range `train#<step>`
-  and each kernel launch in one named after its wrapper.
+  `/trace`); each train step runs in the profiler range `train#<step>`,
+  each kernel launch in one named after its wrapper, and the phases of
+  `train` and `policy` in the timer's sections (below), which open
+  profiler ranges of their names while the profiler records.
 
 On a process group (parallel.setup) every rank is one process with its
 own agent, laid out on the ('d','f','t') mesh of `torch.mesh`
@@ -424,19 +426,21 @@ class Agent(corelib.Agent):
             index=self.rank if self.nprocs > 1 else None))
         model = self._policy_model()
         with torch.inference_mode():
-          carry, act, out = model.policy(carry, obs, mode, gen)
+          with timer.section('policy/step'):
+            carry, act, out = model.policy(carry, obs, mode, gen)
           out = dict(out)
           if self._latents is not None:
             # Slots are allocated on the host; the packed latents go into
             # the table and only the slot ids come back.
-            slots, gens = self._latents.alloc(
-                len(obs['is_first']), 'eval' if mode == 'eval' else 'train')
-            values = {k: out[k] if self._latents_in_replay else out.pop(k)
-                      for k in self._latent_keys}
-            self._latents.scatter(
-                self._to_device(slots),
-                self._to_device(latentslib.device_gens(gens)), values)
-          with self._allowed():
+            with timer.section('policy/latents'):
+              slots, gens = self._latents.alloc(
+                  len(obs['is_first']), 'eval' if mode == 'eval' else 'train')
+              values = {k: out[k] if self._latents_in_replay else out.pop(k)
+                        for k in self._latent_keys}
+              self._latents.scatter(
+                  self._to_device(slots),
+                  self._to_device(latentslib.device_gens(gens)), values)
+          with self._allowed(), timer.section('policy/fetch_wait'):
             act = {k: v.cpu().numpy() for k, v in act.items()}
             out = {k: v.cpu().numpy() for k, v in out.items()}
         if self._latents is not None:
@@ -465,47 +469,56 @@ class Agent(corelib.Agent):
     't' with it, and returns no replay updates, since its own replay did
     not give them."""
     with self._device_lock, self._checked():
-      data = self._take_batch(data)
-      carry = nn.core.tree_map(self._to_device, carry)
       self._counters['train'] += 1
       step = self._counters['train']
       self._maybe_profile(step)
+      with timer.range(f'train#{step}'):
+        carry, outs, mets = self._train_step(carry, data)
+    return carry, outs, mets
+
+  def _train_step(self, carry, data):
+    """The body of `train`, under its lock, in the timer's sections
+    `train/batch`, `train/latents` and `train/fetch_wait` (the optimizer
+    adds `train/loss`, `train/backward` and `train/update`)."""
+    with timer.section('train/batch'):
+      data = self._take_batch(data)
+      carry = nn.core.tree_map(self._to_device, carry)
       use_table = self._latents is not None and 'slot' in data
-      with torch.profiler.record_function(f'train#{step}'):
-        if use_table:
-          data, slots, gens, valid = self.inject_latents(data)
-          data['latents/valid'] = valid
-        replica = self._replicate(data)
-        if use_table:
-          valid = data.pop('latents/valid')
-        with nn.opt.reduce_over(self.data_group), self._full_store(), \
-            self._splitting(self.model):
-          carry, outs, mets = self.model.train_step(
-              carry, data, self._draws('train', 2_000_003))
-          carry = nn.core.tree_map(lambda x: x.detach(), carry)
-          outs, mets = dict(outs), dict(mets)
-          if use_table:
-            mets['latents/valid'] = valid.float().mean()
-          mets = self._group_mean_scalars(mets)
-          self._trained()
-        if replica:
-          outs.pop('replay', None)
-        elif use_table:
-          K = self.replay_context
-          if self._latents_in_replay:
-            upd = outs.get('replay')
-          else:
-            upd = outs.pop('replay', None)
-          if upd is not None:
-            self._latents.scatter(slots[:, K:], gens[:, K:], upd)
-      queue = self._pending_train
-      with self._allowed():
-        queue.append(self._start_fetch(outs, mets))
-        if len(queue) > self._fetch_depth:
-          self._fetched_train = self._finish_fetch(queue.popleft())
-        elif self._fetched_train is None:
-          self._fetched_train = self._finish_fetch(queue[0])
-      outs, mets = self._fetched_train
+      if use_table:
+        data, slots, gens, valid = self.inject_latents(data)
+        data['latents/valid'] = valid
+    replica = self._replicate(data)
+    if use_table:
+      valid = data.pop('latents/valid')
+    with nn.opt.reduce_over(self.data_group), self._full_store(), \
+        self._splitting(self.model):
+      carry, outs, mets = self.model.train_step(
+          carry, data, self._draws('train', 2_000_003))
+      carry = nn.core.tree_map(lambda x: x.detach(), carry)
+      outs, mets = dict(outs), dict(mets)
+      if use_table:
+        mets['latents/valid'] = valid.float().mean()
+      mets = self._group_mean_scalars(mets)
+      self._trained()
+    if replica:
+      outs.pop('replay', None)
+    elif use_table:
+      K = self.replay_context
+      if self._latents_in_replay:
+        upd = outs.get('replay')
+      else:
+        upd = outs.pop('replay', None)
+      if upd is not None:
+        with timer.section('train/latents'):
+          self._latents.scatter(slots[:, K:], gens[:, K:], upd)
+    queue = self._pending_train
+    with self._allowed():
+      queue.append(self._start_fetch(outs, mets))
+      if len(queue) > self._fetch_depth:
+        self._fetched_train = self._finish_fetch(queue.popleft())
+      elif self._fetched_train is None:
+        self._fetched_train = self._finish_fetch(queue[0])
+    outs, mets = self._fetched_train
     return carry, outs, mets
 
   def inject_latents(self, data):
@@ -666,8 +679,9 @@ class Agent(corelib.Agent):
   def _finish_fetch(self, pending):
     """Wait for one step's copies and return (outs, metrics) on the host."""
     numbers, scalars, host, event = pending
-    if event is not None:
-      event.synchronize()
+    with timer.section('train/fetch_wait'):
+      if event is not None:
+        event.synchronize()
     outs, mets = {}, dict(numbers)
     for (key, k), value in host.items():
       if key == 'scalars':
