@@ -33,6 +33,22 @@ PyTorch built for CUDA. Phases, each printing one JSON line:
            each shape class of the default window's products, in int8
            with column scales and in bf16 on the same values, its weight
            bytes' rate as a share of the memory rate.
+  optim    the optimizer's update (ops/optim.py) on the leaves of
+           DreamerV3's 200M and 400M optimizers (79 each), random
+           parameters and gradients at lr 1e-2: the kernel pair against
+           its plain version over 3 steps in the fused layout, with
+           weight decay and nesterov, without momentum, and under the
+           loss scale, and in the per-parameter layout under the loss
+           scale with weight decay; both loss-scale cases with an inf
+           planted in the second step's gradient (per leaf, the
+           parameters, their change, the RMS and the momentum within
+           1e-5 by norm; the step and the loss scale equal; the
+           parameters unmoved on the overflow); each kernel step run
+           twice from the same state under the sync guard, bit for bit;
+           one launch a call; the kernels' device ms and a call's ms
+           beside the plain version's and the bound (36 bytes a
+           parameter). The train phases count one launch a train step
+           on the main path.
   slice    the acting path of size12m on dummy_disc with 16 envs, through
            make_agent -> init_policy -> Driver(agent.policy), in train and
            eval mode. The launch counts show that it ran on the kernels;
@@ -330,7 +346,7 @@ SOURCES = dict(  # kernel: (its source, the TPU kernel it replaces)
     qobs_window=('embodied_tpu_torch/csrc/qcore.cu',
                  'embodied_tpu/ops/qcore.py:174'))
 LIBRARIES = ('blockgru', 'observe', 'observe_seq', 'imagine_seq', 'imagine',
-             'qcore')
+             'qcore', 'optim')
 
 
 def phase_build():
@@ -1170,6 +1186,190 @@ def kernels_by_name(torch, fn, attempts=3):
   return by_name
 
 
+# The optimizer's update (ops/optim.py) at DreamerV3's published sizes:
+# each case's label, slot layout, settings over the model's own, and the
+# steps whose gradient gets an inf planted. Every case takes OPTIM_LR at
+# once (the model's 4e-5 after a warmup of 1,000 steps): a change of 4e-5
+# on parameters of 0.05 is some 1e4 ulps, so the change read back as the
+# difference of two float32 parameters would carry 1e-4 of rounding.
+OPTIM_PRESETS = ('size200m', 'size400m')
+OPTIM_CASES = (
+    ('fused', True, {}, ()),
+    ('fused wd nesterov', True, dict(wd=0.1, nesterov=True), ()),
+    ('fused no momentum', True, dict(momentum=False), ()),
+    ('fused scaling', True, dict(scaling=True), (1,)),
+    ('perparam scaling wd', False, dict(scaling=True, wd=0.1), (1,)),
+)
+OPTIM_STEPS = 3
+OPTIM_LR = 1e-2
+# Per leaf, relative error by norm of the parameters, their change, the
+# RMS and the momentum against the plain version: the elementwise arithmetic
+# rounds as the plain version's does, AGC's norms sum in another order.
+OPTIM_RTOL = 1e-5
+# The metrics: sums over every parameter, in another order.
+OPTIM_METRIC_RTOL = 1e-4
+
+
+def optimizer_leaves(torch, preset):
+  """The paths and shapes of DreamerV3's optimizer leaves at `preset` on
+  PinPad (as the learner cells), from a model built on the meta device,
+  and the optimizer's settings."""
+  from embodied_tpu_torch.models import common
+  from embodied_tpu_torch.models.dreamerv3 import main
+  from embodied_tpu_torch.models.dreamerv3.model import Model
+  config = common.assemble_config(
+      main.CONFIGS, ['--configs', preset, '--task', 'pinpad_four'])
+  acfg = common.agent_config(config)
+  with torch.device('meta'):
+    model = Model(*common.env_spaces(config), acfg)
+  shapes = {k: tuple(p.shape) for k, p in model.opt.params.items()}
+  return shapes, dict(acfg.agent.opt)
+
+
+def optim_case(torch, shapes, settings, fused, planted, seed):
+  """OPTIM_STEPS updates through the wrapper (the kernels) and through
+  the plain version from the same state and gradients. Each kernel step
+  runs twice from the same state under the sync guard and must give the
+  same bits. Returns ({worst error by kind}, problems, the kernel's
+  optimizer, its leaves, one step's gradient, the plain optimizer)."""
+  import numpy as np
+  from embodied_tpu_torch import nn
+  from embodied_tpu_torch.ops import optim
+  from embodied_tpu_torch.parallel.guard import SYNCS
+  rng = np.random.default_rng(seed)
+  gen = torch.Generator(DEV).manual_seed(seed)
+  init = {k: 0.05 * torch.randn(s, generator=gen, device=DEV)
+          for k, s in shapes.items()}
+  # Gradients 1e-3 to 3 times the leaf's parameters' scale: AGC clips some
+  # leaves and not others.
+  scales = {k: 0.05 * 10 ** rng.uniform(-3, 0.5) for k in shapes}
+
+  def make():
+    params = {k: torch.nn.Parameter(v.clone()) for k, v in init.items()}
+    with torch.device(DEV):
+      return nn.Optimizer(params, 'opt', fused=fused, **settings)
+
+  kern, plain = make(), make()
+  paths = list(kern.params)
+  kleaves = [kern.params[k] for k in paths]
+  pleaves = [plain.params[k] for k in paths]
+  state = lambda opt: [*[opt.params[k] for k in paths], *opt.buffers()]
+  loss = torch.ones((), device=DEV)
+  worst = dict(param=0.0, change=0.0, rms=0.0, mom=0.0, metric=0.0)
+  problems = []
+  for step in range(OPTIM_STEPS):
+    step_gen = torch.Generator(DEV).manual_seed(seed + 1 + step)
+    vec = torch.cat([
+        scales[k] * torch.randn(kern.params[k].numel(), generator=step_gen,
+                                device=DEV) for k in paths])
+    if settings.get('scaling'):
+      vec *= kern.grad_scale
+    if step in planted:
+      vec[vec.numel() // 2] = float('inf')
+    held = [t.detach().clone() for t in state(kern)]
+    with SYNCS.guarded():
+      got = kern._update(paths, kleaves, vec.clone(), loss)
+    first = [t.detach().clone() for t in state(kern)]
+    with torch.no_grad():
+      for t, h in zip(state(kern), held):
+        t.copy_(h)
+    with SYNCS.guarded():
+      again = kern._update(paths, kleaves, vec.clone(), loss)
+    if not all(torch.equal(a, b) for a, b in zip(first, state(kern))) or (
+        not all(torch.equal(got[k], again[k]) for k in got)):
+      problems.append(f'step {step}: two calls gave other bits')
+    del first
+    pheld = [p.detach().clone() for p in pleaves]
+    want = optim.reference_update(plain, paths, pleaves, vec.clone(), loss)
+    pslots, kslots = optim.slots(plain, paths, pleaves), optim.slots(
+        kern, paths, kleaves)
+    for i, path in enumerate(paths):
+      n = kleaves[i].numel()
+      # Each side's change from its own state before the step.
+      dk = kleaves[i].detach() - held[i]
+      dp = pleaves[i].detach() - pheld[i]
+      worst['param'] = max(worst['param'], relerr(kleaves[i], pleaves[i]))
+      if step in planted:
+        if dk.abs().max() or dp.abs().max():
+          problems.append(f'step {step}: {path} moved on an overflow')
+      else:
+        worst['change'] = max(worst['change'], relerr(dk, dp))
+      for j, kind in enumerate(('rms', 'mom')):
+        if pslots[i][j] is None:
+          continue
+        at = pslots[i][2]
+        leaf = lambda slot: slot.view(-1)[at:at + n]
+        worst[kind] = max(worst[kind], relerr(
+            leaf(kslots[i][j]), leaf(pslots[i][j])))
+    if sorted(got) != sorted(want):
+      problems.append(f'metrics {sorted(got)} against {sorted(want)}')
+    for key in want:
+      a, b = float(got[key]), float(want[key])
+      worst['metric'] = max(worst['metric'], abs(a - b) / max(abs(b), 1e-30))
+    exact = ['step'] + (['grad_scale', 'good_steps'] if settings.get(
+        'scaling') else [])
+    for name in exact:
+      if not torch.equal(getattr(kern, name), getattr(plain, name)):
+        problems.append(f'step {step}: {name} {getattr(kern, name)} against '
+                        f'{getattr(plain, name)}')
+  for kind in ('param', 'change', 'rms', 'mom'):
+    if not worst[kind] <= OPTIM_RTOL:
+      problems.append(f'{kind} relative error {worst[kind]:.3g}')
+  if not worst['metric'] <= OPTIM_METRIC_RTOL:
+    problems.append(f'metric relative error {worst["metric"]:.3g}')
+  return worst, problems, kern, kleaves, vec, plain
+
+
+def phase_optim(torch):
+  """The optimizer's kernel pair (ops/optim.py) against its plain version
+  on the leaves of DreamerV3's 200M and 400M optimizers (OPTIM_CASES),
+  its launches (one a call), and its time beside the plain version's and
+  the bound of 36 bytes a parameter. Returns the first preset's row for
+  the kernel list, with the worst relative error of every case."""
+  from embodied_tpu_torch.ops import optim
+  problems, rows = [], []
+  for p, preset in enumerate(OPTIM_PRESETS):
+    shapes, settings = optimizer_leaves(torch, preset)
+    count = sum(math.prod(s) for s in shapes.values())
+    row = dict(phase='optim', preset=preset, leaves=len(shapes),
+               params=count, cases={})
+    for c, (label, fused, extra, planted) in enumerate(OPTIM_CASES):
+      before = optim.update.launches
+      worst, bad, kern, leaves, vec, plain = optim_case(
+          torch, shapes, {**settings, 'warmup': 0, 'lr': OPTIM_LR, **extra},
+          fused, planted,
+          SEED + 100 * p + 10 * c)
+      launches = optim.update.launches - before
+      if launches != 2 * OPTIM_STEPS:
+        bad.append(f'{launches} launches in {2 * OPTIM_STEPS} calls')
+      row['cases'][label] = dict(worst, launches=launches)
+      problems += [f'{preset} {label}: {x}' for x in bad]
+      if c == 0:
+        paths = list(kern.params)
+        loss = torch.ones((), device=DEV)
+        call = lambda: kern._update(paths, leaves, vec, loss)
+        plain_leaves = [plain.params[k] for k in paths]
+        plain_call = lambda: optim.reference_update(
+            plain, paths, plain_leaves, vec.clone(), loss)
+        row.update(
+            kernel_ms=device_ms(torch, call, iters=10),
+            call_ms=cuda_ms(torch, call, warmup=3, iters=10),
+            by_kernel=kernels_by_name(torch, call),
+            plain_ms=device_ms(torch, plain_call, iters=2),
+            plain_call_ms=cuda_ms(torch, plain_call, warmup=1, iters=3))
+        row['bound_ms'], row['bound_by'] = bound(*optim.work(count))
+      del kern, leaves, vec, plain
+      gc.collect()
+      torch.cuda.empty_cache()
+    emit(**row)
+    rows.append(row)
+  if problems:
+    fail('optim', '; '.join(problems))
+  return dict(rows[0], max_rel_err=max(
+      case[kind] for row in rows for case in row['cases'].values()
+      for kind in ('param', 'change', 'rms', 'mom')))
+
+
 def drive(argv, calls, modes):
   """Build the agent for `argv` (on the card unless `--torch.device cpu`)
   and drive it over ENVS envs of its task for `calls` policy calls per
@@ -1355,6 +1555,9 @@ TRAIN_PATHS = (
      ['--configs', 'size12m', '--task', 'dummy_cont'], 1, 2, False),
 )
 TRAIN_KERNELS = ('observe_seq', 'observe_seq_bwd', 'imagine_seq')
+# The optimizer's update pair (ops/optim.py), counted in the train phases:
+# it runs on every train step on the card, kernel: off included.
+UPDATE = 'update'
 TRAINED = ('enc', 'dyn', 'dec', 'rew', 'con', 'pol', 'val')
 # Every trained parameter must have moved by the end of this step (0-based):
 # the first step's learning rate is 0 (warm-up), and the reward and value
@@ -1431,8 +1634,9 @@ def train_steps(torch, agent, data, wrappers, warmup, steps, per_step,
   others are not checked) and give finite metrics, and with `replay` give
   outs['replay'] entries of the batch's shape. With `plain(agent, data)`
   (the metrics of one train step on the plain path, which must launch
-  nothing), the first step's `losses` against it from the same parameters
-  and draws. Every parameter under the `trained` scopes must have changed
+  nothing but the optimizer's update, once where `wrappers` holds it
+  under UPDATE), the first step's `losses` against it from the same
+  parameters and draws. Every parameter under the `trained` scopes must have changed
   by the end of step `changed_after`; where `at_floor(row)` says that
   every KL sat at the free-nats floor, the prior gets no gradient (as in
   the JAX model), which is noted, not a fault. Returns the last carry, the
@@ -1469,7 +1673,8 @@ def train_steps(torch, agent, data, wrappers, warmup, steps, per_step,
         agent.load(before)
         other = plain(agent, data)
         agent.load(after)
-        if any(w.launches != counts[k] for k, w in wrappers.items()):
+        if any(w.launches != counts[k] + (k == UPDATE)
+               for k, w in wrappers.items()):
           problems.append('the plain path launched a kernel')
         row['losses_kernel_vs_plain'], bad = check_losses(
             mets, other, losses)
@@ -1510,11 +1715,13 @@ def phase_train(torch, paths=TRAIN_PATHS):
   """Drives each train path: a batch from the acting path, then train
   steps through Agent.train with the launch counts set to 0 just before
   and read just after (train_steps). Each step must launch each train
-  kernel once, give finite metrics, and (after the warm-up, whose first
-  step has a zero learning rate) have changed every trained parameter."""
+  kernel and the optimizer's update once, give finite metrics, and (after
+  the warm-up, whose first step has a zero learning rate) have changed
+  every trained parameter."""
   from embodied_tpu_torch.models import common
   from embodied_tpu_torch.models.dreamerv3 import main as dmain
-  wrappers = train_wrappers()
+  from embodied_tpu_torch.ops import optim
+  wrappers = dict(train_wrappers(), **{UPDATE: optim.update})
   launches = {}
   for label, argv, warmup, steps, against_plain in paths:
     argv = argv + HOST_PATH + NO_COUNT
@@ -1526,7 +1733,7 @@ def phase_train(torch, paths=TRAIN_PATHS):
     floor = config.agent.dyn.rssm.free_nats
     carry, row, problems = train_steps(
         torch, agent, data, wrappers, warmup, steps,
-        {k: 1 for k in TRAIN_KERNELS},
+        {k: 1 for k in TRAIN_KERNELS + (UPDATE,)},
         plain=plain_train if against_plain else None, trained=TRAINED,
         at_floor=lambda row: row['first_losses']['loss/dyn'] <= floor)
     counts = {k: w.launches for k, w in wrappers.items()}
@@ -2237,14 +2444,14 @@ def phase_default(torch):
   """The default configuration (configs.yaml `defaults`, 202,982,304
   parameters) through the entry points a user calls: policy calls on
   dummy_disc and on PinPad (kernel 3 once each) against the plain path,
-  Agent.train steps (kernels 5, 6 and 8 once each) with the first step's
-  losses against kernel: off and a profile, and main.main with the
+  Agent.train steps (kernels 5, 6 and 8 and the optimizer's update once
+  each) with the first step's losses against kernel: off and a profile, and main.main with the
   process driver on dummy_disc and PinPad. Each path runs with the launch
   counts set to 0 before it and read after.
   Returns the launches of the policy calls and of the train steps."""
   launches = phase_slice(torch, DEFAULT_SLICE)
   trained = phase_train(torch, DEFAULT_TRAIN)[DEFAULT_TRAIN[0][0]]
-  launches.update({k: trained[k] for k in TRAIN_KERNELS})
+  launches.update({k: trained[k] for k in TRAIN_KERNELS + (UPDATE,)})
   _, speeds = phase_script(torch, DEFAULT_SCRIPTS)
   emit(phase='default', ok=True, launches=launches)
   return launches, speeds['default pinpad train_eval']
@@ -4743,9 +4950,11 @@ def main():
   timed(phase_device, torch)
   timed(phase_build)
   rows = timed(phase_kernels, torch)
+  update = timed(phase_optim, torch)
   launches = timed(phase_slice, torch)
   trained = timed(phase_train, torch)
-  launches.update({k: trained[TRAIN_PATHS[0][0]][k] for k in TRAIN_KERNELS})
+  launches.update({k: trained[TRAIN_PATHS[0][0]][k]
+                   for k in TRAIN_KERNELS + (UPDATE,)})
   modes = timed(phase_modes, torch)
   # Each kernel's launches on its own path: the core step's backward under
   # obslayers: 2, the observe step's under kernel: fused, the imagination
@@ -4823,7 +5032,16 @@ def main():
     if name in encoder_modes[ENCODER_MODES[0][0]]:
       kernels[-1]['encoder_modes_launches'] = {
           label: counts[name] for label, counts in encoder_modes.items()}
-  if sorted(k['name'] for k in kernels) != sorted(SOURCES):
+  # The optimizer's pair: its launches on the default configuration's
+  # train steps (phase default), its times at the 200M optimizer's leaves.
+  kernels.append(dict(
+      name='optim', route='cuda', source='embodied_tpu_torch/csrc/optim.cu',
+      replaces=None, launches=launches[UPDATE], max_abs_err=None,
+      max_rel_err=update['max_rel_err'], ms=update['kernel_ms'],
+      plain_ms=update['plain_ms'], bound_ms=update['bound_ms'],
+      bound_by=update['bound_by'], library_ms=None,
+      config=update['preset']))
+  if sorted(k['name'] for k in kernels) != sorted([*SOURCES, 'optim']):
     fail('kernels', f'the list holds {[k["name"] for k in kernels]}')
   emit(phase='timing', ok=True, phase_seconds=PHASES['seconds'])
   emit(phase='total', ok=True, seconds=time.perf_counter() - start)

@@ -13,7 +13,8 @@ matching a regex, the warmup and const/linear/cosine schedules, and, when
 the compute dtype is float16, dynamic loss scaling that skips steps whose
 gradients overflow. Parameters are updated in place under no_grad, after
 the loss's own state updates (normalizers), which happen in place during
-the loss.
+the loss. The update after the flat gradient is ops/optim.py's: a kernel
+pair on the card, its plain version on the CPU.
 
 Under a data group (`reduce_over`, which the Agent sets around a train
 step on a mesh; JAX's `DATA_AXES` under shard_map), each rank's gradients
@@ -57,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from . import core
+from ..ops import optim
 from ..utils import timer
 
 # The process group that a train step's batch rows are split over, or
@@ -126,12 +128,6 @@ def join_parts(vec, paths, params, split):
       view.zero_()
   if vec.device.type != 'meta':
     dist.all_reduce(vec, group=split.group)
-
-
-def _full(x, device):
-  """A float32 scalar on `device`: a fill, not a copy from the host, which
-  would wait for the card."""
-  return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def scope_params(root, scopes):
@@ -231,90 +227,10 @@ class Optimizer(core.Module):
       metrics = self._update(paths, params, vec, loss.detach())
     return {f'{self.name}/{k}': v for k, v in metrics.items()}, aux
 
-  @torch.no_grad()
   def _update(self, paths, params, vec, loss):
-    """Update `params` from their flat gradient `vec` (changed in place)."""
-    metrics = {}
-    finite = torch.ones((), dtype=torch.bool, device=loss.device)
-    if self.scaling:
-      scale = self.grad_scale.clone()
-      loss = loss / scale
-      vec.div_(scale)
-      finite = torch.isfinite(vec.square().sum())
-      good = self.good_steps
-      keep = finite & (good < 1000)
-      incr = finite & (good >= 1000)
-      self.good_steps.copy_(torch.where(finite, good + 1, 0))
-      self.grad_scale.copy_(torch.clamp(torch.where(
-          incr, scale * 2, torch.where(keep, scale, scale / 2)), 1e-4, 1e5))
-      vec = torch.where(finite, vec, torch.zeros_like(vec))
-      metrics['grad_scale'] = scale
-      metrics['grad_overflow'] = (~finite).float()
-    step = self.step.float()
-    lr = self._lr(step)
-    gsq = vec.square().sum()
-    if self.agc:
-      offset = 0
-      for param in params:
-        update = vec[offset:offset + param.numel()]
-        offset += param.numel()
-        unorm = torch.linalg.vector_norm(update)
-        pnorm = torch.linalg.vector_norm(param)
-        upper = self.agc * torch.clamp(pnorm, min=self.pmin)
-        update.mul_(1 / torch.clamp(unorm / upper, min=1.0))
-    if self.fused:
-      pvec = torch.cat([p.reshape(-1) for p in params])
-      vec = self._moments(
-          self.rms_flat, self.mom_flat if self.momentum else None, vec, step)
-      if self.wd:
-        mask = torch.cat([
-            torch.full((p.numel(),), float(bool(self.wdpattern.search(k))),
-                       device=vec.device) for k, p in zip(paths, params)])
-        vec = vec + self.wd * mask * pvec
-      vec = -lr * vec
-      new = torch.where(finite, pvec + vec, pvec)
-      offset = 0
-      for param in params:
-        param.copy_(new[offset:offset + param.numel()].reshape(param.shape))
-        offset += param.numel()
-      usq, psq = vec.square().sum(), pvec.square().sum()
-    else:
-      usq = psq = 0.0
-      offset = 0
-      for path, param in zip(paths, params):
-        update = vec[offset:offset + param.numel()].reshape(param.shape)
-        offset += param.numel()
-        update = self._moments(
-            self.slot('rms', path),
-            self.slot('mom', path) if self.momentum else None, update, step)
-        if self.wd and self.wdpattern.search(path):
-          update = update + self.wd * param
-        update = -lr * update
-        usq = usq + update.square().sum()
-        psq = psq + param.square().sum()
-        param.copy_(torch.where(finite, param + update, param))
-    self.step.add_(finite.int())
-    count = vec.numel()
-    metrics.update(
-        loss=loss, updates=step + 1, grad_norm=torch.sqrt(gsq),
-        grad_rms=torch.sqrt(gsq / count),
-        update_rms=torch.sqrt(usq / count),
-        param_rms=torch.sqrt(psq / count),
-        param_count=_full(count, vec.device), lr=lr)
-    return metrics
-
-  def _moments(self, nu, mu, update, step):
-    """The RMS moment `nu` and the momentum `mu` (or None) updated in place
-    from `update`, and the update they give, bias-corrected."""
-    nu.copy_(self.beta2 * nu + (1 - self.beta2) * update.square())
-    nu_hat = nu / (1 - _full(self.beta2, nu.device) ** (step + 1))
-    update = update / (torch.sqrt(nu_hat) + self.eps)
-    if mu is None:
-      return update
-    mu.copy_(self.beta1 * mu + (1 - self.beta1) * update)
-    if self.nesterov:
-      mu = self.beta1 * mu + (1 - self.beta1) * update
-    return mu / (1 - _full(self.beta1, nu.device) ** (step + 1))
+    """Update `params` from their flat gradient `vec` (which it may change)
+    and return the metrics: ops/optim.py, its kernel pair on the card."""
+    return optim.update(self, paths, params, vec, loss)
 
   def _lr(self, step):
     lr = self.lr
